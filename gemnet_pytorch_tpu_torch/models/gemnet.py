@@ -1,0 +1,234 @@
+"""GemNet on padded batches, in PyTorch (port of
+`gemnet_pytorch_tpu/models/gemnet.py`; reference gemnet/model/gemnet.py).
+
+| variant   | triplets_only | direct_forces |
+|-----------|---------------|---------------|
+| GemNet-Q  | False         | False         |
+| GemNet-dQ | False         | True          |
+| GemNet-T  | True          | False         |
+| GemNet-dT | True          | True          |
+
+The forward consumes one padded batch from `data.to_torch` and returns
+per-molecule energies plus, with direct forces, per-atom forces.
+`energy_and_forces` derives F = -dE/dR with `torch.autograd.grad`
+otherwise. The batch must carry the sort metadata (SORT_META_KEYS) and the
+segment plans of `to_torch`: the expand gathers and the bilinear
+reductions run on them.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..data.padding import SORT_META_KEYS
+from ..ops import geometry
+from ..ops.segment import masked_segment_mean, masked_segment_sum
+from .basis import CircularBasis, RadialBasis, SphericalBasis
+from .interaction import InteractionBlock
+from .layers import (
+    AtomEmbedding,
+    Dense,
+    EdgeEmbedding,
+    EfficientInteractionDownProjection,
+    OutputBlock,
+)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    unsupported = {
+        "compute_dtype": cfg.compute_dtype != "float32",
+        "matmul_precision": cfg.matmul_precision not in ("default", "highest"),
+        "num_targets": cfg.num_targets != 1,
+        "ep_axis": cfg.ep_axis is not None,
+        "ep_halo": cfg.ep_halo,
+        "remat_blocks": cfg.remat_blocks,
+        "bilinear_implementation": cfg.bilinear_implementation != "auto",
+    }
+    for knob, bad in unsupported.items():
+        if bad:
+            raise NotImplementedError(
+                f"{knob}={getattr(cfg, knob)!r} is not supported by the PyTorch port yet")
+
+
+def _required(batch: dict, keys) -> None:
+    missing = [k for k in keys if k not in batch]
+    if missing:
+        raise KeyError(f"batch lacks {missing}: build it with pad_batch and data.to_torch")
+
+
+class GemNet(nn.Module):
+    """GemNet-(d)T/(d)Q. Weights are drawn from `generator` on the CPU and
+    the module is then moved to `device`."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device="cuda"):
+        super().__init__()
+        _check_supported(cfg)
+        # "default"/"highest" mean full fp32 on the card, as on the CPU: a
+        # TF32 product keeps ~10 mantissa bits, and -dE/dR differentiates
+        # through every product of the network
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        g = generator
+        S, Rn = cfg.num_spherical, cfg.num_radial
+        self.rbf_basis = RadialBasis(Rn, cutoff=cfg.cutoff, envelope_exponent=cfg.envelope_exponent)
+        self.cbf_basis3 = CircularBasis(S, Rn, cutoff=cfg.cutoff,
+                                        envelope_exponent=cfg.envelope_exponent)
+        if not cfg.triplets_only:
+            # 2D basis over interaction edges (dense mode, int_cutoff)
+            self.cbf_basis = CircularBasis(S, Rn, cutoff=cfg.int_cutoff,
+                                           envelope_exponent=cfg.envelope_exponent)
+            self.sbf_basis = SphericalBasis(S, Rn, cutoff=cfg.cutoff,
+                                            envelope_exponent=cfg.envelope_exponent)
+            self.mlp_rbf4 = Dense(Rn, cfg.emb_size_rbf, generator=g)
+            self.mlp_cbf4 = Dense(S * Rn, cfg.emb_size_cbf, generator=g)
+            self.mlp_sbf4 = EfficientInteractionDownProjection(S**2, Rn, cfg.emb_size_sbf,
+                                                               generator=g)
+        self.mlp_rbf3 = Dense(Rn, cfg.emb_size_rbf, generator=g)
+        self.mlp_cbf3 = EfficientInteractionDownProjection(S, Rn, cfg.emb_size_cbf, generator=g)
+        self.mlp_rbf_h = Dense(Rn, cfg.emb_size_rbf, generator=g)
+        self.mlp_rbf_out = Dense(Rn, cfg.emb_size_rbf, generator=g)
+        self.atom_emb = AtomEmbedding(cfg.emb_size_atom, generator=g)
+        self.edge_emb = EdgeEmbedding(2 * cfg.emb_size_atom + Rn, cfg.emb_size_edge,
+                                      cfg.activation, generator=g)
+        self.int_blocks = nn.ModuleList([
+            InteractionBlock(
+                cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_trip, cfg.emb_size_quad,
+                cfg.emb_size_rbf, cfg.emb_size_cbf, cfg.emb_size_sbf, cfg.emb_size_bil_trip,
+                cfg.emb_size_bil_quad, cfg.num_before_skip, cfg.num_after_skip,
+                cfg.num_concat, cfg.num_atom, cfg.triplets_only, block_nr=i + 1,
+                activation=cfg.activation, generator=g)
+            for i in range(cfg.num_blocks)])
+        self.out_blocks = nn.ModuleList([
+            OutputBlock(
+                cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_rbf, cfg.num_atom,
+                cfg.num_targets, cfg.activation, cfg.direct_forces, cfg.output_init,
+                f"OutBlock_{i}", generator=g)
+            for i in range(cfg.num_blocks + 1)])
+        self.to(device)
+
+    def forward(self, batch: dict[str, torch.Tensor], R: torch.Tensor | None = None):
+        """(E, F): E (n_mol_pad, num_targets); F per-atom (n_atoms_pad,
+        num_targets, 3) with direct forces, else the per-edge heads, zero.
+        `R` overrides batch["R"] so the caller can differentiate w.r.t. it."""
+        cfg = self.cfg
+        _required(batch, ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan", "id3_reduce_ca_plan"))
+        if not cfg.triplets_only:
+            _required(batch, SORT_META_KEYS + (
+                "intm_db_plan", "quad_abd_plan", "quad_cab_plan", "id4_reduce_ca_plan"))
+        if R is None:
+            R = batch["R"]
+        Z = batch["Z"]
+        id_c, id_a = batch["id_c"], batch["id_a"]
+        edge_mask, atom_mask = batch["edge_mask"], batch["atom_mask"]
+        masks = {"edge": edge_mask, "atom": atom_mask, "trip": batch["trip_mask"]}
+
+        # ---- geometry ----
+        D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask)
+        angles3 = geometry.triplet_angles(R, id_c, id_a, batch["id3_reduce_ca"],
+                                          batch["id3_expand_ba"])
+
+        # ---- basis: triplets ----
+        rbf = self.rbf_basis(D_ca) * edge_mask[:, None].to(R.dtype)
+        cbf3_env = self.cbf_basis3.rbf_env(D_ca, edge_mask)  # (E, S, R)
+        sph3 = self.cbf_basis3.cbf(angles3)  # (T, S): rows feed kernel K1
+
+        basis = {}
+        if not cfg.triplets_only:
+            masks.update(quad=batch["quad_mask"], intm_db=batch["intm_db_mask"],
+                         int_edge=batch["int_edge_mask"])
+            D_ab, _ = geometry.interatomic_vectors(
+                R, batch["id4_int_b"], batch["id4_int_a"], masks["int_edge"])
+            phi_cab, phi_abd, theta_cabd = geometry.quadruplet_angles(
+                R, id_c, id_a, batch["id4_int_b"], batch["id4_int_a"],
+                batch["id4_expand_abd"], batch["id4_reduce_cab"],
+                batch["id4_expand_intm_db"], batch["id4_reduce_intm_ca"],
+                batch["id4_expand_intm_ab"], batch["id4_reduce_intm_ab"],
+                abd_sort=(batch["quad_abd_perm"], batch["quad_abd_sorted"], batch["quad_abd_plan"]),
+                cab_sort=(batch["quad_cab_perm"], batch["quad_cab_sorted"], batch["quad_cab_plan"]),
+            )
+            # dense circular basis on the intermediate d->b space
+            # (reference gemnet.py:517, basis_layers.py:133-147)
+            cbf4_env = self.cbf_basis.rbf_env(D_ab, masks["int_edge"])  # (IE, S, R)
+            cbf4_env_g = cbf4_env.reshape(cbf4_env.shape[0], -1)[batch["id4_expand_intm_ab"]]
+            sph4 = self.cbf_basis.cbf(phi_abd)  # (intm, S)
+            n_intm_rows = cbf4_env_g.shape[0]
+            cbf4_dense = (
+                cbf4_env_g.reshape(n_intm_rows, sph4.shape[1], -1) * sph4[:, :, None]
+            ).reshape(n_intm_rows, -1)
+            sbf_env = self.sbf_basis.rbf_env3(D_ca, edge_mask)  # (E, S^2, R)
+            sph_sbf = self.sbf_basis.sbf(phi_cab, theta_cabd)  # (Q, S^2)
+            basis["rbf4"] = self.mlp_rbf4(rbf)
+            basis["cbf4"] = self.mlp_cbf4(cbf4_dense)
+            basis["sbf4"] = (self.mlp_sbf4(sbf_env), sph_sbf)
+        basis["rbf3"] = self.mlp_rbf3(rbf)
+        basis["cbf3"] = (self.mlp_cbf3(cbf3_env), sph3)
+        basis["rbf_h"] = self.mlp_rbf_h(rbf)
+        rbf_out = self.mlp_rbf_out(rbf)
+
+        # ---- embeddings ----
+        h = self.atom_emb(Z)
+        m = self.edge_emb(h, rbf, id_c, id_a)
+
+        ind = {k: batch[k] for k in ("id_c", "id_a", "id_swap", "id3_expand_ba",
+                                     "id3_reduce_ca", "id3_reduce_ca_plan")}
+        ind["trip_ba_sort"] = (batch["trip_ba_perm"], batch["trip_ba_sorted"], batch["trip_ba_plan"])
+        if not cfg.triplets_only:
+            ind.update({k: batch[k] for k in ("id4_reduce_ca", "id4_reduce_ca_plan",
+                                              "id4_expand_intm_db", "id4_expand_abd")})
+            ind["quad_abd_sort"] = (batch["quad_abd_perm"], batch["quad_abd_sorted"],
+                                    batch["quad_abd_plan"])
+            ind["intm_db_sort"] = (batch["intm_db_perm"], batch["intm_db_sorted"],
+                                   batch["intm_db_plan"])
+
+        # ---- block stack ----
+        E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask)
+        for int_block, out_block in zip(self.int_blocks, self.out_blocks[1:]):
+            h, m = int_block(h, m, basis, ind, masks)
+            E, F = out_block(h, m, rbf_out, id_a, edge_mask)
+            E_a = E_a + E
+            F_ca = F_ca + F
+        return finalize_outputs(cfg, batch, E_a, F_ca, V_ca)
+
+
+def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca):
+    """Per-molecule energy aggregation and the direct-force edge->atom
+    mapping (reference gemnet.py:578-592)."""
+    atom_mask, edge_mask = batch["atom_mask"], batch["edge_mask"]
+    n_mol = batch["mol_mask"].shape[0]
+    if cfg.extensive:
+        E_mol = masked_segment_sum(E_a, batch["batch_seg"], n_mol, mask=atom_mask)
+    else:
+        E_mol = masked_segment_mean(E_a, batch["batch_seg"], n_mol, mask=atom_mask)
+    if cfg.direct_forces:
+        if cfg.forces_coupled:
+            # |F_ca| = |F_ac| via the undirected mean (reference gemnet.py:588-592)
+            n_undir = batch["id_c"].shape[0] // 2
+            F_und = masked_segment_mean(F_ca, batch["id_undir"], n_undir, mask=edge_mask)
+            F_ca = F_und[batch["id_undir"]]
+        F_ji = F_ca[:, :, None] * V_ca[:, None, :]  # (E, T, 3)
+        F_atom = masked_segment_sum(F_ji, batch["id_a"], batch["Z"].shape[0], mask=edge_mask)
+        return E_mol, F_atom.float()
+    return E_mol, F_ca.float()
+
+
+def energy_and_forces(model: GemNet, batch: dict[str, torch.Tensor], create_graph: bool = False):
+    """(E, F) with the variant's force path: the direct head, or
+    F = -dE/dR through autograd (reference gemnet.py:598-613), shaped
+    (n_atoms_pad, 1, 3).
+
+    Serving passes create_graph=False and a model whose parameters do not
+    require grad (`GemNetCalculator` freezes them), so no graph over the
+    parameters is built; training (grad-of-grad) passes create_graph=True.
+    """
+    if model.cfg.direct_forces:
+        return model(batch)
+    R = batch["R"].detach().requires_grad_(True)
+    with torch.enable_grad():
+        E, _ = model(batch, R)
+        (dE_dR,) = torch.autograd.grad(E[:, 0].sum(), R, create_graph=create_graph)
+    if not create_graph:
+        E = E.detach()
+    return E, -dE_dR[:, None, :]

@@ -1,0 +1,158 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+Each source compiles with nvcc into a shared library with a plain C
+interface (loaded with ctypes), at first use, into `_build/` beside the
+package. Library names carry a digest of the source and flags, so an edited
+source is rebuilt and never loaded stale. `build()` starts one nvcc per
+source, all together.
+
+Every launch goes through `launch`, which counts it (per kernel and shape,
+for the launch census of a run) and raises when the C function reports a
+CUDA error.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("segment_outer.cu", "expand_gather.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C function -> (source, argtypes, restype)
+_FUNCTIONS = {
+    "gemnet_segment_outer_sum_f32": (
+        "segment_outer.cu", [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "gemnet_segment_outer_sum_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
+    "gemnet_segment_outer_sum_threads": ("segment_outer.cu", [_I, _I], _I),
+    "gemnet_segment_gather_contract_f32": (
+        "segment_outer.cu", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "gemnet_segment_gather_contract_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
+    "gemnet_sorted_segsum_f32": (
+        "expand_gather.cu", [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P], _I),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# ptxas report (registers, shared memory, spills) of each source built here
+BUILD_LOG: dict[str, str] = {}
+# kernel launches by (C function, shape); see `kernel_launches`
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the toolkit is")
+    return nvcc
+
+
+def library_path(source: str) -> Path:
+    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text).hexdigest()[:12]
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+
+
+def build(sources=SOURCES) -> float:
+    """Compile every source whose library is missing, one nvcc process per
+    source, all started together. Returns the wall seconds it took."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for source in sources:
+        out = library_path(source)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((source, proc, tmp, out))
+    failed = []
+    for source, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        BUILD_LOG[source] = log
+        if proc.returncode:
+            failed.append(f"nvcc failed on {source}:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _library(source: str) -> ctypes.CDLL:
+    lib = _LIBS.get(source)
+    if lib is None:
+        build((source,))
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, (src, argtypes, restype) in _FUNCTIONS.items():
+            if src == source:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+        lib.gemnet_cuda_error_string.argtypes = [_I]
+        lib.gemnet_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[source] = lib
+    return lib
+
+
+def function(name: str):
+    """The ctypes function `name` of its (built, loaded) library."""
+    return getattr(_library(_FUNCTIONS[name][0]), name)
+
+
+def launch(name: str, shape: tuple, device: torch.device, *args) -> None:
+    """Call kernel entry `name` on `device`'s current stream; count it under
+    (name, shape). Pointer arguments are passed as ints (`data_ptr()`)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = function(name)(*args, stream)
+    if code:
+        msg = _library(_FUNCTIONS[name][0]).gemnet_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name} failed to launch: CUDA error {code} ({msg})")
+    LAUNCHES[(name, shape)] += 1
+
+
+def kernel_launches() -> dict[str, int]:
+    """Launches per kernel since the last `reset_launches`."""
+    out: dict[str, int] = collections.Counter()
+    for (name, _), n in LAUNCHES.items():
+        out[name] += n
+    return dict(out)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_plan(plan, device: torch.device) -> None:
+    """Raise unless `plan` (a data.batch.SegmentPlan) lies on `device`."""
+    check_tensor(plan.items, "plan.items", torch.int32, device)
+    check_tensor(plan.merge_ptr, "plan.merge_ptr", torch.int32, device)
+    check_tensor(plan.merge_seg, "plan.merge_seg", torch.int32, device)
+    if plan.items.ndim != 2 or plan.items.shape[1] != 4:
+        raise ValueError(f"plan.items has shape {tuple(plan.items.shape)}, expected (n, 4)")
