@@ -9,8 +9,9 @@ Phases:
   2. build the CUDA kernels of `gemnet_pytorch_tpu_torch/csrc/` (one nvcc per
      source, all together) and print their ptxas reports;
   3. hold each kernel (K1 segment_outer_sum, K2 segment_gather_contract,
-     K3 sorted segment sum) against its plain PyTorch version on the card, at
-     the shapes the serving path gives it on the bench-small batch;
+     K3 sorted segment sum), on fp32 and on bf16 streams, against its plain
+     PyTorch version on the card, at the shapes the serving path and the
+     train step give it on the bench-small batch;
   4. time each kernel, its plain version and, where one PyTorch call computes
      the same function, that call (CUDA events), beside its bound;
   5. serve GemNet-Q at the config.yaml widths (random weights from a seed):
@@ -19,7 +20,17 @@ Phases:
      against the same model on the CPU (first 8 molecules), then 10 timed
      requests;
   6. the serving calculator on a benzonitrile molecule, 5 perturbed
-     geometries, against the same calculator on the CPU.
+     geometries, against the same calculator on the CPU;
+  7. train GemNet-Q at the config.yaml widths (random weights from seed 0) on
+     the bench-small batch with toy targets: one fp32 step on the card
+     against the same step on the CPU (first 8 molecules); bf16 E/F against
+     fp32 on the card (tests/test_bf16.py's contract at its widths; at the
+     config.yaml widths, for 5 weight seeds, beside the error of bf16-rounded
+     weights alone, and bf16 on the card against bf16 on the CPU);
+     one train step per dtype with the launch counters read
+     around it (pinned counts, every bf16 kernel launched); 5 bf16 steps with
+     falling losses and fp32 master state; an eval on the EMA weights; then
+     3 warm-up and 10 timed steps and one profiled step per dtype.
 
 The last lines are the `{"kernels": [...]}` record, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero
@@ -37,16 +48,61 @@ import time
 import numpy as np
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+BYTES = {"f32": 4, "bf16": 2}
 # kernel vs plain version: both sum in fp32, in another order (and the plain
 # K3 with atomics); the difference stays at a few ulps of the sums' terms,
 # far below this share of the output's magnitude
-KERNEL_RTOL = 1e-4
+KERNEL_RTOL = {"f32": 1e-4,
+               # bf16 streams: fp32 sums in other orders, rounded once to
+               # bf16, may differ by one bf16 ulp (2^-7 relative at most)
+               "bf16": 2.0**-7}
 # served E and F on the card vs the CPU: the same fp32 arithmetic through
 # four blocks, with other summation orders (atomic index_add on the card)
 SERVE_RTOL = 1e-4
+# one fp32 train step on the card vs the CPU: the loss, and the relative L2
+# error of the whole parameter update (not elementwise: a weight whose
+# gradient is ~0 may take either sign of Adam's first ~lr*sign(g) step)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_UPDATE_REL_L2 = 1e-3
+# bf16 vs fp32 predictions, share of the fp32 magnitude: tests/test_bf16.py's
+# contract, held at that test's widths (TEST_BF16_WIDTHS). At the config.yaml
+# widths the random weights' energies are small residuals of the blocks'
+# contributions: rounding the fp32 weights alone to bf16 already moves E by
+# more than 0.03 of |E| (phase 7 prints it per seed), so there the bound only
+# catches a gross fault (a wrong cast or kernel errs by the output's own
+# magnitude)
+BF16_E_REL, BF16_F_REL = 0.03, 0.05
+BF16_FULL_WIDTH_REL = 0.15
+# bf16 on the card vs the same bf16 model on the CPU (the plain versions), at
+# the config.yaml widths on the first 8 molecules, per weight seed: the same
+# roundings, with fp32 sums in other orders, so a sum near a rounding boundary
+# may round the other way and carry through four blocks. Share of the CPU's
+# magnitude, E and F. On an H100 seeds 0-4 read at most 0.036 (E) and 0.044
+# (F), the same in three runs; and each seed's reading stays below that
+# seed's bf16 vs fp32 on the same molecules (at most 0.60 of it), which a
+# card path that rounds elsewhere than the CPU's would not
+BF16_SEEDS = (0, 1, 2, 3, 4)
+BF16_CARD_VS_CPU = 0.06
+TEST_BF16_WIDTHS = dict(
+    num_spherical=3, num_radial=3, num_blocks=2, emb_size_atom=16, emb_size_edge=16,
+    emb_size_trip=8, emb_size_quad=8, emb_size_rbf=8, emb_size_cbf=8, emb_size_sbf=8,
+    emb_size_bil_quad=8, emb_size_bil_trip=8)
+# launches of each kernel entry in one train step, from the autograd graph:
+# forward 8 K1 (4 blocks x triplet + quadruplet bilinear); the -dE/dR
+# backward 8 K2 and 14 K3 (4 blocks x trip_ba, intm_db, quad_abd + the two
+# geometry gathers); the loss backward 8 K2 (the forward K1s), 2 K1 + 1 K2
+# for each of the 8 first-backward K2s, and 12 K3 (the forward's 12 network
+# gathers; the geometry gathers lead to R only). In bf16 the geometry K3s
+# stay fp32.
+TRAIN_LAUNCHES = {
+    "float32": {"gemnet_segment_outer_sum_f32": 24, "gemnet_segment_gather_contract_f32": 24,
+                "gemnet_sorted_segsum_f32": 26},
+    "bfloat16": {"gemnet_segment_outer_sum_bf16": 24, "gemnet_segment_gather_contract_bf16": 24,
+                 "gemnet_sorted_segsum_bf16": 24, "gemnet_sorted_segsum_f32": 2},
+}
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -93,8 +149,10 @@ def bench_molecules(seed: int = 0):
 
 
 def padded_batch(cfg, mols):
-    """Padded numpy batch of `mols` with bench.py's dims (5% headroom)."""
+    """Padded numpy batch of `mols` with bench.py's dims (5% headroom) and
+    its toy energy/force targets."""
     from gemnet_pytorch_tpu_torch.data import PadDims, build_graph, pad_batch, scale_graph_dims
+    from gemnet_pytorch_tpu_torch.data.synthetic import toy_energy_forces
 
     N = np.array([len(z) for z, _ in mols])
     Z = np.concatenate([z for z, _ in mols])
@@ -103,14 +161,19 @@ def padded_batch(cfg, mols):
     base = PadDims(n_mol=len(mols), n_atoms=16, n_edges=128, n_triplets=512,
                    kmax3=4, n_int_edges=64, n_intm=512, n_quads=512, kmax4=4)
     dims = base.grow_to(scale_graph_dims(g, 1.05), len(mols), len(Z))
-    return pad_batch(g, Z, R, dims, triplets_only=cfg.triplets_only), g
+    EF = [toy_energy_forces(z, r) for z, r in mols]
+    E = np.array([e for e, _ in EF], np.float32)
+    F = np.concatenate([f for _, f in EF])
+    return pad_batch(g, Z, R, dims, E=E, F=F, triplets_only=cfg.triplets_only), g
 
 
 # ---------------------------------------------------------------- kernels
 
 def kernel_cases(cfg, batch, device, seed: int = 0):
-    """One case per (kernel, shape) of the serving path: the batch's own id
-    columns and sort metadata, random fp32 row data from a seed."""
+    """One case per (kernel, shape, stream dtype) of the serving path and
+    the train step: the batch's own id columns and sort metadata, random row
+    data from a seed (rounded to bf16 for the bf16 cases; the geometry
+    streams are fp32 in both modes)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -123,39 +186,49 @@ def kernel_cases(cfg, batch, device, seed: int = 0):
     n_e = batch["id_c"].shape[0]
     n_intm = batch["id4_reduce_intm_ca"].shape[0]
     cases = []
-    for tag, ids, plan, mask, S, M in (
-        ("triplet", "id3_reduce_ca", "id3_reduce_ca_plan", "trip_mask", S3, M3),
-        ("quadruplet", "id4_reduce_ca", "id4_reduce_ca_plan", "quad_mask", S4, M4),
-    ):
-        n = batch[ids].shape[0]
-        a, b = rand(n, S), rand(n, M) * batch[mask][:, None]
-        cases.append(dict(kernel="K1", tag=tag, a=a, b=b, ids=batch[ids], plan=batch[plan],
-                          shape=(n, S, M, n_e)))
-        cases.append(dict(kernel="K2", tag=tag, a=a, b=b, ids=batch[ids], plan=batch[plan],
-                          cot=rand(S, n_e, M), shape=(n, S, M, n_e)))
-    for tag, sort, idx, M, n_src in (
-        ("trip_ba", "trip_ba", "id3_expand_ba", M3, n_e),
-        ("intm_db", "intm_db", "id4_expand_intm_db", M4, n_e),
-        ("quad_abd", "quad_abd", "id4_expand_abd", M4, n_intm),
-        ("geometry_abd", "quad_abd", "id4_expand_abd", 3, n_intm),
-        ("geometry_cab", "quad_cab", "id4_reduce_cab", 4, n_intm),
-    ):
-        n = batch[idx].shape[0]
-        cases.append(dict(kernel="K3", tag=tag, x=rand(n, M), idx=batch[idx],
-                          perm=batch[f"{sort}_perm"], sorted=batch[f"{sort}_sorted"],
-                          plan=batch[f"{sort}_plan"], shape=(n, M, n_src)))
+    for dtype in ("f32", "bf16"):
+        cast = (lambda t: t) if dtype == "f32" else (lambda t: t.bfloat16())
+        for tag, ids, plan, mask, S, M in (
+            ("triplet", "id3_reduce_ca", "id3_reduce_ca_plan", "trip_mask", S3, M3),
+            ("quadruplet", "id4_reduce_ca", "id4_reduce_ca_plan", "quad_mask", S4, M4),
+        ):
+            n = batch[ids].shape[0]
+            a, b = cast(rand(n, S)), cast(rand(n, M) * batch[mask][:, None])
+            common = dict(tag=tag, dtype=dtype, a=a, b=b, ids=batch[ids], plan=batch[plan],
+                          shape=(n, S, M, n_e))
+            cases.append(dict(kernel="K1", **common))
+            cases.append(dict(kernel="K2", cot=cast(rand(S, n_e, M)), **common))
+        for tag, sort, idx, M, n_src in (
+            ("trip_ba", "trip_ba", "id3_expand_ba", M3, n_e),
+            ("intm_db", "intm_db", "id4_expand_intm_db", M4, n_e),
+            ("quad_abd", "quad_abd", "id4_expand_abd", M4, n_intm),
+            ("geometry_abd", "quad_abd", "id4_expand_abd", 3, n_intm),
+            ("geometry_cab", "quad_cab", "id4_reduce_cab", 4, n_intm),
+        ):
+            if dtype == "bf16" and tag.startswith("geometry"):
+                continue
+            n = batch[idx].shape[0]
+            cases.append(dict(kernel="K3", tag=tag, dtype=dtype, x=cast(rand(n, M)),
+                              idx=batch[idx], perm=batch[f"{sort}_perm"],
+                              sorted=batch[f"{sort}_sorted"], plan=batch[f"{sort}_plan"],
+                              shape=(n, M, n_src)))
     return cases
 
 
 KERNELS = {
-    "K1": dict(name="segment_outer_sum", source=SO_SRC, fn="gemnet_segment_outer_sum_f32",
+    "K1": dict(name="segment_outer_sum", source=SO_SRC, fn="gemnet_segment_outer_sum_{}",
                replaces="gemnet_pytorch_tpu/ops/pallas/segment_outer.py:288"),
     "K2": dict(name="segment_gather_contract", source=SO_SRC,
-               fn="gemnet_segment_gather_contract_f32",
+               fn="gemnet_segment_gather_contract_{}",
                replaces="gemnet_pytorch_tpu/ops/pallas/segment_outer.py:447"),
-    "K3": dict(name="sorted_segsum", source=EG_SRC, fn="gemnet_sorted_segsum_f32",
+    "K3": dict(name="sorted_segsum", source=EG_SRC, fn="gemnet_sorted_segsum_{}",
                replaces="gemnet_pytorch_tpu/ops/pallas/expand_gather.py:71"),
 }
+
+
+def kernel_fn(case) -> str:
+    """The C entry a case launches, e.g. gemnet_segment_outer_sum_bf16."""
+    return KERNELS[case["kernel"]]["fn"].format(case["dtype"])
 
 
 def case_functions(case):
@@ -180,24 +253,29 @@ def case_functions(case):
     n_seg = plan.n_segments
     return ((lambda: (eg.sorted_segsum_values(x, perm, srt, plan),)),
             (lambda: (eg._segsum_plain(x[perm.long()], srt, n_seg),)),
-            (lambda: (torch.zeros(n_seg, x.shape[1], device=x.device).index_add_(0, idx, x),)))
+            (lambda: (torch.zeros(n_seg, x.shape[1], device=x.device, dtype=x.dtype)
+                      .index_add_(0, idx, x),)))
 
 
 def case_cost(case) -> tuple[float, float]:
     """(bytes, flops) the function must move and do: each input read once,
-    each output written once (fp32 data; the segment structure counted as
-    nSeg+1 int32 offsets, K3's permutation as n int32)."""
-    k = case["kernel"]
+    each output written once (row data at the case's dtype; the segment
+    structure counted as nSeg+1 int32 offsets, K3's permutation as n int32)."""
+    k, w = case["kernel"], BYTES[case["dtype"]]
     if k in ("K1", "K2"):
         n, S, M, n_seg = case["shape"]
-        rows = 4 * n * (S + M)
-        tile = 4 * S * n_seg * M
+        rows = w * n * (S + M)
+        tile = w * S * n_seg * M
         offsets = 4 * (n_seg + 1)
         if k == "K1":
             return rows + offsets + tile, 2.0 * n * S * M
         return tile + rows + offsets + rows, 4.0 * n * S * M
     n, M, n_seg = case["shape"]
-    return 4 * n * M + 4 * n + 4 * (n_seg + 1) + 4 * n_seg * M, float(n * M)
+    return w * n * M + 4 * n + 4 * (n_seg + 1) + w * n_seg * M, float(n * M)
+
+
+def case_label(case) -> str:
+    return f"{case['kernel']} {case['tag']:12s} {case['dtype']}"
 
 
 def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> tuple[float, float, float]:
@@ -232,15 +310,17 @@ def compare_kernels(cases):
         torch.cuda.synchronize()
         err, scale = 0.0, 0.0
         for o, r in zip(outs, refs):
-            check(o.shape == r.shape, f"{case['kernel']} {case['tag']}: shape {o.shape} vs {r.shape}")
-            check(bool(torch.isfinite(o).all()), f"{case['kernel']} {case['tag']}: non-finite")
+            check(o.shape == r.shape and o.dtype == r.dtype,
+                  f"{case_label(case)}: {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
+            o, r = o.float(), r.float()
+            check(bool(torch.isfinite(o).all()), f"{case_label(case)}: non-finite")
             err = max(err, float((o - r).abs().max()))
             scale = max(scale, float(r.abs().max()))
-        tol = KERNEL_RTOL * max(scale, 1.0)
-        log(f"  {case['kernel']} {case['tag']:13s} shape {case['shape']}: max abs err {err:.3e}"
+        tol = KERNEL_RTOL[case["dtype"]] * max(scale, 1.0)
+        log(f"  {case_label(case)} shape {case['shape']}: max abs err {err:.3e}"
             f" (rel {err / max(scale, 1e-30):.3e}, tolerance {tol:.3e})")
-        check(err <= tol, f"{case['kernel']} {case['tag']} disagrees with its plain version")
-        results[(case["kernel"], case["tag"])] = err
+        check(err <= tol, f"{case_label(case)} disagrees with its plain version")
+        results[(case["kernel"], case["tag"], case["dtype"])] = err
     return results
 
 
@@ -250,7 +330,8 @@ def time_kernels(cases, power: str):
     for case in cases:
         kernel, plain, library = case_functions(case)
         nbytes, flops = case_cost(case)
-        t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_flops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
         ms, ms_lo, ms_hi = cuda_ms(kernel)
         row = dict(
             ms=ms, plain_ms=cuda_ms(plain, iters=5)[0],
@@ -259,10 +340,10 @@ def time_kernels(cases, power: str):
             bound_by="bytes" if t_bytes >= t_flops else "operations",
         )
         lib = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "null"
-        log(f"  {case['kernel']} {case['tag']:13s} kernel {ms:.4f} ms ({ms_lo:.4f}-{ms_hi:.4f}), plain "
+        log(f"  {case_label(case)} kernel {ms:.4f} ms ({ms_lo:.4f}-{ms_hi:.4f}), plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) [{power}]")
-        rows[(case["kernel"], case["tag"])] = row
+        rows[(case["kernel"], case["tag"], case["dtype"])] = row
     return rows
 
 
@@ -342,21 +423,21 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
     log(f"  {n_timed} requests of {n_mol} molecules: {timing['ms_per_request']:.3f} ms/request, "
         f"{timing['molecules_per_s']:.1f} molecules/s, max_memory_allocated "
         f"{timing['max_memory_allocated'] / 2**20:.1f} MiB")
-    profile_request(model, batch)
+    profile(lambda: predict(model, batch), "request")
     return census, per_kernel, timing
 
 
-def profile_request(model, batch, top: int = 12) -> None:
-    """Where one request's time goes: torch.profiler over one predict, the
+def profile(fn, what: str, top: int = 12) -> None:
+    """Where one call's time goes: torch.profiler over one `fn()`, the
     device's busy share of the wall time and the kernels by device time.
     (The profiler slows the host, so its wall time exceeds the timed one.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            predict(model, batch)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.key_averages()
@@ -366,7 +447,7 @@ def profile_request(model, batch, top: int = 12) -> None:
         log(f"  profiler breakdown: not measured ({exc})")
         return
     n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
-    log(f"  profiled request: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+    log(f"  profiled {what}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches, "
         f"{n_ops} aten op calls")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -396,6 +477,164 @@ def calculator(cfg, device, n_geoms: int = 5, seed: int = 0):
         check(okE and okF, f"geometry {i}: calculator on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------- training
+
+def make_trainer(cfg, compute_dtype: str, device, seed: int = 0):
+    """A Trainer of GemNet(cfg) in `compute_dtype`, weights from `seed` (the
+    same in both dtypes), at config.yaml's training hyperparameters with the
+    learning rate at its full 1e-3 from step 0 (warmup_steps=1), as
+    tests/test_bf16.py's train step."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.config import TrainConfig
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    model = GemNet(dataclasses.replace(cfg, compute_dtype=compute_dtype),
+                   generator=torch.Generator().manual_seed(seed), device=device)
+    trainer = Trainer(model, TrainConfig(warmup_steps=1))
+    return trainer, trainer.init_state()
+
+
+def rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5, n_timed: int = 10,
+          warmup: int = 3):
+    """Phase 7. Returns the launch census of one train step per dtype and
+    the timings."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.training import Metrics
+
+    # fp32 on the card vs the CPU, one step on the first n_compare molecules
+    sub_np, _ = padded_batch(cfg, mols[:n_compare])
+    steps = {}
+    for dev in (device, "cpu"):
+        trainer, state = make_trainer(cfg, "float32", dev)
+        p0 = state.params.clone()
+        state, loss = trainer.train_on_batch(state, sub_np, 1.0)
+        steps[str(dev)] = (float(loss), (state.params - p0).cpu().numpy())
+    (loss_gpu, d_gpu), (loss_cpu, d_cpu) = steps[str(device)], steps["cpu"]
+    rel = rel_l2(d_gpu, d_cpu)
+    log(f"  fp32 step, card vs CPU on the first {n_compare} molecules: loss {loss_gpu:.6f} vs "
+        f"{loss_cpu:.6f} (rtol {TRAIN_LOSS_RTOL}), update rel L2 {rel:.3e} "
+        f"(limit {TRAIN_UPDATE_REL_L2})")
+    check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu),
+          "fp32 train-step loss on the card disagrees with the CPU")
+    check(rel <= TRAIN_UPDATE_REL_L2, "fp32 parameter update on the card disagrees with the CPU")
+
+    batch_np, g = padded_batch(cfg, mols)
+    batch = to_torch(batch_np, device)
+    n_mol, n_atoms = len(mols), sum(len(z) for z, _ in mols)
+    n_agg = g.n_triplets + g.n_quads
+    runs = {dt: make_trainer(cfg, dt, device) for dt in ("float32", "bfloat16")}
+
+    # bf16 vs fp32 predictions of the same weights
+    def predictions(trainer, state, batch, n_mol, n_atoms):
+        E, _, F, _ = trainer.predict(state, batch)
+        check(E.dtype == F.dtype == torch.float32, "predictions are not fp32")
+        return E.cpu().numpy()[:n_mol], F.cpu().numpy()[:n_atoms]
+
+    def errors(pred, ref):
+        return tuple(float(np.abs(p - r).max() / np.abs(r).max()) for p, r in zip(pred, ref))
+
+    small_cfg = dataclasses.replace(cfg, **TEST_BF16_WIDTHS)
+    small = {dt: predictions(*make_trainer(small_cfg, dt, device), batch, n_mol, n_atoms)
+             for dt in ("float32", "bfloat16")}
+    eE, eF = errors(small["bfloat16"], small["float32"])
+    log(f"  bf16 vs fp32 on the card at tests/test_bf16.py's widths: max |dE| {eE:.3e} of |E| "
+        f"(limit {BF16_E_REL}), max |dF| {eF:.3e} of |F| (limit {BF16_F_REL})")
+    check(eE < BF16_E_REL and eF < BF16_F_REL, "bf16 predictions outside the bf16 contract")
+
+    # at the config.yaml widths, per weight seed: bf16 vs fp32 on the card,
+    # fp32 with the weights rounded to bf16 vs fp32, and bf16 on the card vs
+    # bf16 on the CPU (first n_compare molecules)
+    sub_atoms = sum(len(z) for z, _ in mols[:n_compare])
+    readings = {}
+    for seed in BF16_SEEDS:
+        fp_trainer, fp_state = make_trainer(cfg, "float32", device, seed)
+        ref = predictions(fp_trainer, fp_state, batch, n_mol, n_atoms)
+        bf_trainer, bf_state = make_trainer(cfg, "bfloat16", device, seed)
+        bf16 = predictions(bf_trainer, bf_state, batch, n_mol, n_atoms)
+        rounded_trainer, rounded_state = make_trainer(cfg, "float32", device, seed)
+        with torch.no_grad():
+            rounded_state.params.copy_(rounded_state.params.bfloat16().float())
+        rounded = predictions(rounded_trainer, rounded_state, batch, n_mol, n_atoms)
+        card = predictions(bf_trainer, bf_state, sub_np, n_compare, sub_atoms)
+        cpu = predictions(*make_trainer(cfg, "bfloat16", "cpu", seed), sub_np, n_compare,
+                          sub_atoms)
+        card_fp32 = predictions(fp_trainer, fp_state, sub_np, n_compare, sub_atoms)
+        readings[seed] = (errors(bf16, ref), errors(card, cpu), errors(card, card_fp32))
+        (eE, eF), (cE, cF), (sE, sF) = readings[seed]
+        wE, wF = errors(rounded, ref)
+        log(f"  seed {seed}, config.yaml widths: bf16 vs fp32 on the card E {eE:.3e}, F {eF:.3e} "
+            f"(limit {BF16_FULL_WIDTH_REL}); fp32 with bf16-rounded weights vs fp32 E {wE:.3e}, "
+            f"F {wF:.3e}; first {n_compare} molecules: bf16 card vs CPU E {cE:.3e}, F {cF:.3e} "
+            f"(limit {BF16_CARD_VS_CPU}), bf16 vs fp32 on the card E {sE:.3e}, F {sF:.3e}")
+        del fp_trainer, fp_state, bf_trainer, bf_state, rounded_trainer, rounded_state
+    for seed, ((eE, eF), (cE, cF), (sE, sF)) in readings.items():
+        check(eE < BF16_FULL_WIDTH_REL and eF < BF16_FULL_WIDTH_REL,
+              f"seed {seed}: bf16 predictions at the config.yaml widths far from fp32")
+        check(cE <= BF16_CARD_VS_CPU and cF <= BF16_CARD_VS_CPU and cE < sE and cF < sF,
+              f"seed {seed}: bf16 predictions on the card disagree with the CPU")
+
+    census, per_kernel, timing = {}, {}, {}
+    for dt, (trainer, state) in runs.items():
+        # one train step with the launch counters read around it
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        state, loss = trainer.train_on_batch(state, batch, 1.0)
+        torch.cuda.synchronize()
+        census[dt], per_kernel[dt] = dict(_cuda.LAUNCHES), _cuda.kernel_launches()
+        log(f"  one {dt} train step launched {per_kernel[dt]}")
+        losses = [float(loss)]
+        for _ in range(n_steps - 1):
+            state, loss = trainer.train_on_batch(state, batch, 1.0)
+            losses.append(float(loss))
+        log(f"  {dt}: {n_steps} steps, losses {', '.join(f'{x:.6f}' for x in losses)}")
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"{dt} losses are not finite and falling")
+        st = state.opt_state
+        check(all(t.dtype == torch.float32 for t in
+                  (state.params, state.ema_params, st.mu, st.nu, st.nu_max,
+                   *trainer.model.parameters())),
+              f"{dt}: parameters, optimizer state or EMA not fp32")
+        drained = Metrics("train", trainer.tracked_metrics)
+        state = trainer.drain_metrics(state, drained)
+        check(all(np.isfinite(v) for v in drained.result().values()),
+              f"{dt}: non-finite drained metrics")
+        val = Metrics("val", trainer.tracked_metrics)
+        val_loss = trainer.test_on_batch(state, batch, val, use_ema=True)
+        log(f"  {dt}: eval on the EMA weights, "
+            f"{', '.join(f'{k} {v:.6f}' for k, v in val.result(append_tag=False).items())}")
+        check(np.isfinite(val_loss), f"{dt}: non-finite EMA eval")
+
+        for _ in range(warmup):
+            trainer.train_on_batch(state, batch, 1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            trainer.train_on_batch(state, batch, 1.0)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / n_timed
+        timing[dt] = dict(ms_per_step=sec * 1e3, agg_per_s=n_agg / sec,
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"  {dt}: {n_timed} timed steps, {timing[dt]['ms_per_step']:.3f} ms/step, "
+            f"{timing[dt]['agg_per_s']:.4e} triplets+quads/s ({n_agg} real rows), "
+            f"max_memory_allocated {timing[dt]['max_memory_allocated'] / 2**20:.1f} MiB")
+        profile(lambda: trainer.train_on_batch(state, batch, 1.0), f"{dt} train step")
+    return census, per_kernel, timing
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -414,6 +653,8 @@ def main() -> int:
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     power = card_line()
+    # the plain versions' products in the port's precision (bf16 summed in fp32)
+    _cuda.set_matmul_precision()
 
     log("== 1. environment")
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -434,39 +675,55 @@ def main() -> int:
     batch_np, _ = padded_batch(cfg, mols)
     cases = kernel_cases(cfg, to_torch(batch_np, device), device)
 
-    log("== 3. kernels vs plain versions (bench-small shapes)")
+    log("== 3. kernels vs plain versions (bench-small shapes, fp32 and bf16 streams)")
     errors = compare_kernels(cases)
 
     log(f"== 4. kernel timing [{power}]")
     timings = time_kernels(cases, power)
 
     log("== 5. serving GemNet-Q (config.yaml widths, random weights, seed 0)")
-    census, per_kernel, timing = serve(cfg, mols, device)
-    expected = {"K1": 8, "K2": 8, "K3": 14}
-    for k, n in expected.items():
-        got = per_kernel.get(KERNELS[k]["fn"], 0)
+    serve_census, per_kernel, timing = serve(cfg, mols, device)
+    for k, n in {"K1": 8, "K2": 8, "K3": 14}.items():
+        got = per_kernel.get(KERNELS[k]["fn"].format("f32"), 0)
         check(got == n, f"{KERNELS[k]['name']}: {got} launches per predict, expected {n}")
 
     log("== 6. calculator (benzonitrile, 5 perturbed geometries)")
     calculator(cfg, device)
 
+    log(f"== 7. training GemNet-Q (config.yaml widths, random weights, seed 0) [{power}]")
+    train_census, train_per_kernel, train_timing = train(cfg, mols, device)
+    for dt, expected in TRAIN_LAUNCHES.items():
+        check(train_per_kernel[dt] == expected,
+              f"{dt} train step launched {train_per_kernel[dt]}, expected {expected}")
+
+    paths = {"serve": serve_census, "train_fp32": train_census["float32"],
+             "train_bf16": train_census["bfloat16"]}
     kernels = []
     for case in cases:
-        key = (case["kernel"], case["tag"])
+        key = (case["kernel"], case["tag"], case["dtype"])
         info = KERNELS[case["kernel"]]
+        by_path = {p: c.get((kernel_fn(case), case["shape"]), 0) for p, c in paths.items()}
         kernels.append(dict(
-            name=f"{info['name']}[{case['tag']}]", route="cuda", source=info["source"],
-            replaces=info["replaces"], launches=census.get((info["fn"], case["shape"]), 0),
+            name=f"{info['name']}[{case['tag']},{case['dtype']}]", route="cuda",
+            source=info["source"], replaces=info["replaces"], dtype=case["dtype"],
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=errors[key], **timings[key]))
-    log(f"== kernels on the serving path [{power}]")
-    log(f"  {'kernel':36s} {'launches':>8s} {'ms':>8s} {'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}")
+    log(f"== kernels on the serving and training paths [{power}]")
+    log(f"  {'kernel':40s} {'serve':>5s} {'fp32 step':>9s} {'bf16 step':>9s} {'ms':>8s} "
+        f"{'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}")
     for row in kernels:
-        check(row["launches"] > 0, f"{row['name']} was not launched by the serving path")
+        by_path = row["launches_by_path"]
+        need = ("serve", "train_fp32") if row["dtype"] == "f32" else ("train_bf16",)
+        for p in need:
+            check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
         lib = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "null"
-        log(f"  {row['name']:36s} {row['launches']:8d} {row['ms']:8.4f} {row['bound_ms']:9.4f} "
+        log(f"  {row['name']:40s} {by_path['serve']:5d} {by_path['train_fp32']:9d} "
+            f"{by_path['train_bf16']:9d} {row['ms']:8.4f} {row['bound_ms']:9.4f} "
             f"{row['plain_ms']:9.4f} {lib:>10s}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s; serving "
-        f"{timing['ms_per_request']:.3f} ms/request, {timing['molecules_per_s']:.1f} molecules/s")
+        f"{timing['ms_per_request']:.3f} ms/request, {timing['molecules_per_s']:.1f} molecules/s; "
+        + "; ".join(f"train {dt} {t['ms_per_step']:.3f} ms/step, {t['agg_per_s']:.4e} "
+                    f"triplets+quads/s" for dt, t in train_timing.items()))
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

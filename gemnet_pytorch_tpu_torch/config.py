@@ -1,11 +1,13 @@
-"""Model configuration: the same `ModelConfig` fields and YAML loader as the
-JAX package's `gemnet_pytorch_tpu/config.py`, kept as this package's own copy.
+"""Model and training configuration: the same `ModelConfig` and
+`TrainConfig` fields and YAML loader as the JAX package's
+`gemnet_pytorch_tpu/config.py`, kept as this package's own copy.
 
-The defaults equal the model section of `config.yaml` (GemNet-Q at the
-released widths). Knobs that only the JAX package serves (bf16 compute, the
-split3 precision mode, edge partitioning, remat) stay as fields so one YAML
-file configures both packages; `models.gemnet.GemNet` raises on the ones this
-package does not run yet.
+The defaults equal `config.yaml` (GemNet-Q at the released widths and the
+reference's training hyperparameters). Knobs that only the JAX package serves
+(the split3 precision mode, edge partitioning, remat, MVE, AGC, the tree-mode
+optimizer) stay as fields so one YAML file configures both packages;
+`models.gemnet.GemNet` and `training.Trainer` raise on the ones this package
+does not run yet.
 """
 
 from __future__ import annotations
@@ -61,6 +63,50 @@ class ModelConfig:
         return cls(**{k: v for k, v in d.items() if k in names})
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyperparameters (reference trainer.py:48-101, train_seml.py:43-98)."""
+
+    learning_rate: float = 1e-3
+    decay_steps: float = 4_500_000
+    decay_rate: float = 0.01
+    warmup_steps: int = 3750
+    weight_decay: float = 2e-6
+    staircase: bool = False
+    grad_clip_max: float = 10.0
+    decay_patience: int = 5
+    decay_factor: float = 0.5
+    decay_cooldown: int = 5
+    ema_decay: float = 0.999
+    rho_force: float = 0.999
+    loss: str = "rmse"  # "mae" | "rmse" (force loss; energy always MAE)
+    mve: bool = False
+    agc: bool = False
+    # the JAX package's AGC parity switch and its tree-mode optimizer; the
+    # port runs the flat optimizer only (see the module docstring)
+    agc_compat_reference: bool = False
+    flat_optimizer: bool = True
+    batch_size: int = 32
+    num_steps: int = 1_500_000
+    evaluation_interval: int = 7500
+    save_interval: int = 7500
+    patience: int = 5
+    tfseed: int = 1234
+    data_seed: int = 42
+    logdir: str = "logs"
+    dataset: Optional[str] = None
+    val_dataset: Optional[str] = None
+    num_train: int = 0
+    num_val: int = 0
+    comment: str = "GemNet"
+    restart: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
 def _literal_eval_strings(config: dict) -> dict:
     """Mirror the reference's ast.literal_eval pass for 'None'-ish strings
     (reference fit_scaling.py:170-179)."""
@@ -77,8 +123,9 @@ def _literal_eval_strings(config: dict) -> dict:
 def load_yaml_config(path: str) -> dict[str, Any]:
     """Load a reference-format flat YAML config into a plain dict.
 
-    PyYAML is imported here, not at module top: the serving path builds
-    `ModelConfig()` from its defaults and must import on machines without it.
+    PyYAML is imported here, not at module top: the serving and training
+    paths build `ModelConfig()` and `TrainConfig()` from their defaults and
+    must import on machines without it.
     """
     import yaml
 

@@ -1,13 +1,21 @@
-// Bilinear neighbour reduction of GemNet and its VJP, fp32, for sm_90a.
+// Bilinear neighbour reduction of GemNet and its VJP, fp32 and bf16 streams,
+// for sm_90a.
 //
-// K1 gemnet_segment_outer_sum_f32
+// K1 gemnet_segment_outer_sum_{f32,bf16}
 //     out[s, e, m] = sum_{t : seg(t) = e} a[t, s] * b[t, m]
 //   replaces gemnet_pytorch_tpu/ops/pallas/segment_outer.py::_fwd_kernel
 //   (launched by _outer_sum_pallas).
-// K2 gemnet_segment_gather_contract_f32
+// K2 gemnet_segment_gather_contract_{f32,bf16}
 //     da[t, s] = sum_m cot[s, seg(t), m] * b[t, m]
 //     db[t, m] = sum_s cot[s, seg(t), m] * a[t, s]
 //   replaces segment_outer.py::_bwd_kernel (launched by _gather_contract_pallas).
+//
+// Stream types follow the JAX package's contract (segment_outer.py:152-157,
+// 205-216, 586-590): with fp32 streams everything is fp32; with bf16 streams
+// (compute_dtype="bfloat16") the rows, and K2's cotangent, are read as bf16
+// and widened to fp32 in shared memory, every product and sum is fp32, and
+// the stores round once to bf16: K1's output, K2's da and db. K1's partial
+// tiles of a split segment stay fp32 until the merge rounds their sum.
 //
 // Rows are sorted by segment. The host cuts each segment's rows into work
 // items of at most 128 rows (data/batch.py::segment_plan): items[i] =
@@ -17,8 +25,8 @@
 // What bounds them on an H100: bytes. K1 reads a (n*S) and b (n*M) once and
 // writes out (S*nSeg*M) once: 2*S*M flops per row over 4*(S+M) bytes is ~8
 // flops/byte at the quad shape (S=49, M=32), under the card's fp32 ridge of
-// 67 TFLOP/s / 3.35 TB/s = 20. K2 moves a, b, da, db and cot: ~145 MB at
-// the quad shape, ~10 flops/byte.
+// 67 TFLOP/s / 3.35 TB/s = 20 (bf16 streams halve the bytes). K2 moves a, b,
+// da, db and cot: ~145 MB at the quad shape in fp32, ~72 MB in bf16.
 //
 // Design: one thread block per work item. The padded rows of a batch all
 // share one segment id (thousands of rows); items spread such a segment
@@ -32,9 +40,11 @@
 // copies of contiguous row ranges); K2 stages the segment's (S, M) cotangent
 // tile once per item. Shared rows are padded to M+1 floats where threads of
 // a warp read along s, so those reads fall in distinct banks. This is the
-// simple first design: tensor cores, several items per block and overlap of
-// the next chunk's load with the current chunk's math are later work.
+// simple first design: tensor cores (bf16 mma on the staged tiles), several
+// items per block and overlap of the next chunk's load with the current
+// chunk's math are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,11 +53,21 @@ constexpr int kChunk = 32;        // rows staged in shared memory per pass
 constexpr int kMaxSPerThread = 8; // K1 register accumulators per thread
 constexpr int kThreads = 256;
 
-__global__ void outer_sum_kernel(const float* __restrict__ a,
-                                 const float* __restrict__ b,
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void outer_sum_kernel(const T* __restrict__ a,
+                                 const T* __restrict__ b,
                                  const int4* __restrict__ items,
                                  float* __restrict__ partial,
-                                 float* __restrict__ out,
+                                 T* __restrict__ out,
                                  int n_seg, int S, int M, int G) {
   extern __shared__ float smem[];
   float* a_s = smem;               // [kChunk][S]
@@ -64,8 +84,8 @@ __global__ void outer_sum_kernel(const float* __restrict__ a,
   for (int r = item.y; r < item.z; r += kChunk) {
     const int nr = min(kChunk, item.z - r);
     __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < nr * S; i += blockDim.x) a_s[i] = a[(size_t)r * S + i];
-    for (int i = tid; i < nr * M; i += blockDim.x) b_s[i] = b[(size_t)r * M + i];
+    for (int i = tid; i < nr * S; i += blockDim.x) a_s[i] = widen(a[(size_t)r * S + i]);
+    for (int i = tid; i < nr * M; i += blockDim.x) b_s[i] = widen(b[(size_t)r * M + i]);
     __syncthreads();
     for (int t = 0; t < nr; ++t) {
       const float bv = b_s[t * M + m];
@@ -81,7 +101,7 @@ __global__ void outer_sum_kernel(const float* __restrict__ a,
     const int s = g + k * G;
     if (s < S) {
       if (item.w < 0) {
-        out[((size_t)s * n_seg + item.x) * M + m] = acc[k];
+        out[((size_t)s * n_seg + item.x) * M + m] = narrow<T>(acc[k]);
       } else {
         partial[((size_t)item.w * S + s) * M + m] = acc[k];
       }
@@ -89,11 +109,12 @@ __global__ void outer_sum_kernel(const float* __restrict__ a,
   }
 }
 
-// out[s, merge_seg[j], m] = sum of the partial tiles of split segment j
+// out[s, merge_seg[j], m] = sum of the (fp32) partial tiles of split segment j
+template <typename T>
 __global__ void outer_sum_merge_kernel(const float* __restrict__ partial,
                                        const int* __restrict__ merge_ptr,
                                        const int* __restrict__ merge_seg,
-                                       float* __restrict__ out,
+                                       T* __restrict__ out,
                                        int n_seg, int S, int M) {
   const int j = blockIdx.x;
   const int e = merge_seg[j];
@@ -101,16 +122,17 @@ __global__ void outer_sum_merge_kernel(const float* __restrict__ partial,
   for (int i = threadIdx.x; i < S * M; i += blockDim.x) {
     float acc = 0.f;
     for (int k = k0; k < k1; ++k) acc += partial[(size_t)k * S * M + i];
-    out[((size_t)(i / M) * n_seg + e) * M + i % M] = acc;
+    out[((size_t)(i / M) * n_seg + e) * M + i % M] = narrow<T>(acc);
   }
 }
 
-__global__ void gather_contract_kernel(const float* __restrict__ cot,
-                                       const float* __restrict__ a,
-                                       const float* __restrict__ b,
+template <typename T>
+__global__ void gather_contract_kernel(const T* __restrict__ cot,
+                                       const T* __restrict__ a,
+                                       const T* __restrict__ b,
                                        const int4* __restrict__ items,
-                                       float* __restrict__ da,
-                                       float* __restrict__ db,
+                                       T* __restrict__ da,
+                                       T* __restrict__ db,
                                        int n_seg, int S, int M) {
   extern __shared__ float smem[];
   const int Mp = M + 1;
@@ -123,48 +145,32 @@ __global__ void gather_contract_kernel(const float* __restrict__ cot,
 
   for (int i = tid; i < S * M; i += blockDim.x) {
     const int s = i / M, m = i % M;
-    c_s[s * Mp + m] = cot[((size_t)s * n_seg + item.x) * M + m];
+    c_s[s * Mp + m] = widen(cot[((size_t)s * n_seg + item.x) * M + m]);
   }
   for (int r = item.y; r < item.z; r += kChunk) {
     const int nr = min(kChunk, item.z - r);
     __syncthreads();  // the cotangent tile is staged / the last chunk consumed
-    for (int i = tid; i < nr * S; i += blockDim.x) a_s[i] = a[(size_t)r * S + i];
+    for (int i = tid; i < nr * S; i += blockDim.x) a_s[i] = widen(a[(size_t)r * S + i]);
     for (int i = tid; i < nr * M; i += blockDim.x) {
-      b_s[(i / M) * Mp + i % M] = b[(size_t)r * M + i];
+      b_s[(i / M) * Mp + i % M] = widen(b[(size_t)r * M + i]);
     }
     __syncthreads();
     for (int i = tid; i < nr * S; i += blockDim.x) {
       const int t = i / S, s = i % S;
       float acc = 0.f;
       for (int m = 0; m < M; ++m) acc += c_s[s * Mp + m] * b_s[t * Mp + m];
-      da[(size_t)r * S + i] = acc;
+      da[(size_t)r * S + i] = narrow<T>(acc);
     }
     for (int i = tid; i < nr * M; i += blockDim.x) {
       const int t = i / M, m = i % M;
       float acc = 0.f;
       for (int s = 0; s < S; ++s) acc += c_s[s * Mp + m] * a_s[t * S + s];
-      db[(size_t)r * M + i] = acc;
+      db[(size_t)r * M + i] = narrow<T>(acc);
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory (bytes) each kernel needs; the wrapper refuses shapes above
-// the 48 KB a block gets without opting in.
-size_t gemnet_segment_outer_sum_smem(int S, int M) {
-  return sizeof(float) * (size_t)kChunk * (S + M);
-}
-
-size_t gemnet_segment_gather_contract_smem(int S, int M) {
-  return sizeof(float) * ((size_t)S * (M + 1) + (size_t)kChunk * (S + M + 1));
-}
-
-// Threads per K1 block: G groups of M threads, each group owning at most
-// kMaxSPerThread values of s. 0 if no such block fits in 1024 threads.
-int gemnet_segment_outer_sum_threads(int S, int M) {
+int outer_sum_threads(int S, int M) {
   int G = (S + kMaxSPerThread - 1) / kMaxSPerThread;
   int want = kThreads / M;
   if (want > S) want = S;
@@ -173,23 +179,75 @@ int gemnet_segment_outer_sum_threads(int S, int M) {
   return G * M <= 1024 ? G * M : 0;
 }
 
+size_t outer_sum_smem(int S, int M) { return sizeof(float) * (size_t)kChunk * (S + M); }
+
+size_t gather_contract_smem(int S, int M) {
+  return sizeof(float) * ((size_t)S * (M + 1) + (size_t)kChunk * (S + M + 1));
+}
+
+template <typename T>
+int outer_sum(const T* a, const T* b, const int* items, int n_items,
+              const int* merge_ptr, const int* merge_seg, int n_merge,
+              float* partial, T* out, int n_seg, int S, int M,
+              cudaStream_t stream) {
+  const int threads = outer_sum_threads(S, M);
+  if (threads == 0) return (int)cudaErrorInvalidConfiguration;
+  if (n_items > 0) {
+    outer_sum_kernel<T><<<n_items, threads, outer_sum_smem(S, M), stream>>>(
+        a, b, reinterpret_cast<const int4*>(items), partial, out, n_seg, S, M,
+        threads / M);
+  }
+  if (n_merge > 0) {
+    outer_sum_merge_kernel<T><<<n_merge, kThreads, 0, stream>>>(
+        partial, merge_ptr, merge_seg, out, n_seg, S, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int gather_contract(const T* cot, const T* a, const T* b, const int* items,
+                    int n_items, T* da, T* db, int n_seg, int S, int M,
+                    cudaStream_t stream) {
+  if (n_items > 0) {
+    gather_contract_kernel<T><<<n_items, kThreads, gather_contract_smem(S, M), stream>>>(
+        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory (bytes) each kernel needs, the same for both stream types
+// (rows are widened to fp32 in shared memory); the wrapper refuses shapes
+// above the 48 KB a block gets without opting in.
+size_t gemnet_segment_outer_sum_smem(int S, int M) { return outer_sum_smem(S, M); }
+
+size_t gemnet_segment_gather_contract_smem(int S, int M) {
+  return gather_contract_smem(S, M);
+}
+
+// Threads per K1 block: G groups of M threads, each group owning at most
+// kMaxSPerThread values of s. 0 if no such block fits in 1024 threads.
+int gemnet_segment_outer_sum_threads(int S, int M) { return outer_sum_threads(S, M); }
+
 int gemnet_segment_outer_sum_f32(const float* a, const float* b, const int* items,
                                  int n_items, const int* merge_ptr,
                                  const int* merge_seg, int n_merge, float* partial,
                                  float* out, int n_seg, int S, int M,
                                  cudaStream_t stream) {
-  const int threads = gemnet_segment_outer_sum_threads(S, M);
-  if (threads == 0) return (int)cudaErrorInvalidConfiguration;
-  if (n_items > 0) {
-    outer_sum_kernel<<<n_items, threads, gemnet_segment_outer_sum_smem(S, M), stream>>>(
-        a, b, reinterpret_cast<const int4*>(items), partial, out, n_seg, S, M,
-        threads / M);
-  }
-  if (n_merge > 0) {
-    outer_sum_merge_kernel<<<n_merge, kThreads, 0, stream>>>(
-        partial, merge_ptr, merge_seg, out, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
+  return outer_sum<float>(a, b, items, n_items, merge_ptr, merge_seg, n_merge,
+                          partial, out, n_seg, S, M, stream);
+}
+
+int gemnet_segment_outer_sum_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                  const int* items, int n_items,
+                                  const int* merge_ptr, const int* merge_seg,
+                                  int n_merge, float* partial, __nv_bfloat16* out,
+                                  int n_seg, int S, int M, cudaStream_t stream) {
+  return outer_sum<__nv_bfloat16>(a, b, items, n_items, merge_ptr, merge_seg,
+                                  n_merge, partial, out, n_seg, S, M, stream);
 }
 
 int gemnet_segment_gather_contract_f32(const float* cot, const float* a,
@@ -197,12 +255,17 @@ int gemnet_segment_gather_contract_f32(const float* cot, const float* a,
                                        int n_items, float* da, float* db,
                                        int n_seg, int S, int M,
                                        cudaStream_t stream) {
-  if (n_items > 0) {
-    gather_contract_kernel<<<n_items, kThreads,
-                             gemnet_segment_gather_contract_smem(S, M), stream>>>(
-        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
+  return gather_contract<float>(cot, a, b, items, n_items, da, db, n_seg, S, M, stream);
+}
+
+int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot,
+                                        const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b, const int* items,
+                                        int n_items, __nv_bfloat16* da,
+                                        __nv_bfloat16* db, int n_seg, int S,
+                                        int M, cudaStream_t stream) {
+  return gather_contract<__nv_bfloat16>(cot, a, b, items, n_items, da, db, n_seg,
+                                        S, M, stream);
 }
 
 const char* gemnet_cuda_error_string(int code) {

@@ -5,4 +5,5 @@ from .padding import (  # noqa: F401
 )
 from .containers import DataContainer, Molecule  # noqa: F401
 from .batch import SegmentPlan, segment_plan, to_torch  # noqa: F401
+from .provider import DataProvider  # noqa: F401
 from .synthetic import make_dataset  # noqa: F401

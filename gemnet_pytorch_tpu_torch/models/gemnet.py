@@ -14,6 +14,12 @@ per-molecule energies plus, with direct forces, per-atom forces.
 otherwise. The batch must carry the sort metadata (SORT_META_KEYS) and the
 segment plans of `to_torch`: the expand gathers and the bilinear
 reductions run on them.
+
+compute_dtype="bfloat16" is the JAX package's mixed-precision mode
+(`gemnet_pytorch_tpu/models/gemnet.py:90-101`): geometry and basis
+generation stay fp32; the basis outputs and every layer compute in bf16
+(master parameters stay fp32 and are cast per call); segment reductions sum
+in fp32; E and F are returned in fp32.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..data.padding import SORT_META_KEYS
-from ..ops import geometry
+from ..ops import _cuda, geometry
 from ..ops.segment import masked_segment_mean, masked_segment_sum
 from .basis import CircularBasis, RadialBasis, SphericalBasis
 from .interaction import InteractionBlock
@@ -38,7 +44,7 @@ from .layers import (
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
-        "compute_dtype": cfg.compute_dtype != "float32",
+        "compute_dtype": cfg.compute_dtype not in ("float32", "bfloat16"),
         "matmul_precision": cfg.matmul_precision not in ("default", "highest"),
         "num_targets": cfg.num_targets != 1,
         "ep_axis": cfg.ep_axis is not None,
@@ -65,13 +71,11 @@ class GemNet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device="cuda"):
         super().__init__()
         _check_supported(cfg)
-        # "default"/"highest" mean full fp32 on the card, as on the CPU: a
-        # TF32 product keeps ~10 mantissa bits, and -dE/dR differentiates
-        # through every product of the network
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        # "default"/"highest" mean full fp32 products on the card
+        _cuda.set_matmul_precision()
         self.cfg = cfg
-        g = generator
+        self.cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+        kw = dict(generator=generator, dtype=self.cdt)
         S, Rn = cfg.num_spherical, cfg.num_radial
         self.rbf_basis = RadialBasis(Rn, cutoff=cfg.cutoff, envelope_exponent=cfg.envelope_exponent)
         self.cbf_basis3 = CircularBasis(S, Rn, cutoff=cfg.cutoff,
@@ -82,30 +86,29 @@ class GemNet(nn.Module):
                                            envelope_exponent=cfg.envelope_exponent)
             self.sbf_basis = SphericalBasis(S, Rn, cutoff=cfg.cutoff,
                                             envelope_exponent=cfg.envelope_exponent)
-            self.mlp_rbf4 = Dense(Rn, cfg.emb_size_rbf, generator=g)
-            self.mlp_cbf4 = Dense(S * Rn, cfg.emb_size_cbf, generator=g)
-            self.mlp_sbf4 = EfficientInteractionDownProjection(S**2, Rn, cfg.emb_size_sbf,
-                                                               generator=g)
-        self.mlp_rbf3 = Dense(Rn, cfg.emb_size_rbf, generator=g)
-        self.mlp_cbf3 = EfficientInteractionDownProjection(S, Rn, cfg.emb_size_cbf, generator=g)
-        self.mlp_rbf_h = Dense(Rn, cfg.emb_size_rbf, generator=g)
-        self.mlp_rbf_out = Dense(Rn, cfg.emb_size_rbf, generator=g)
-        self.atom_emb = AtomEmbedding(cfg.emb_size_atom, generator=g)
+            self.mlp_rbf4 = Dense(Rn, cfg.emb_size_rbf, **kw)
+            self.mlp_cbf4 = Dense(S * Rn, cfg.emb_size_cbf, **kw)
+            self.mlp_sbf4 = EfficientInteractionDownProjection(S**2, Rn, cfg.emb_size_sbf, **kw)
+        self.mlp_rbf3 = Dense(Rn, cfg.emb_size_rbf, **kw)
+        self.mlp_cbf3 = EfficientInteractionDownProjection(S, Rn, cfg.emb_size_cbf, **kw)
+        self.mlp_rbf_h = Dense(Rn, cfg.emb_size_rbf, **kw)
+        self.mlp_rbf_out = Dense(Rn, cfg.emb_size_rbf, **kw)
+        self.atom_emb = AtomEmbedding(cfg.emb_size_atom, **kw)
         self.edge_emb = EdgeEmbedding(2 * cfg.emb_size_atom + Rn, cfg.emb_size_edge,
-                                      cfg.activation, generator=g)
+                                      cfg.activation, **kw)
         self.int_blocks = nn.ModuleList([
             InteractionBlock(
                 cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_trip, cfg.emb_size_quad,
                 cfg.emb_size_rbf, cfg.emb_size_cbf, cfg.emb_size_sbf, cfg.emb_size_bil_trip,
                 cfg.emb_size_bil_quad, cfg.num_before_skip, cfg.num_after_skip,
                 cfg.num_concat, cfg.num_atom, cfg.triplets_only, block_nr=i + 1,
-                activation=cfg.activation, generator=g)
+                activation=cfg.activation, **kw)
             for i in range(cfg.num_blocks)])
         self.out_blocks = nn.ModuleList([
             OutputBlock(
                 cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_rbf, cfg.num_atom,
                 cfg.num_targets, cfg.activation, cfg.direct_forces, cfg.output_init,
-                f"OutBlock_{i}", generator=g)
+                f"OutBlock_{i}", **kw)
             for i in range(cfg.num_blocks + 1)])
         self.to(device)
 
@@ -113,7 +116,7 @@ class GemNet(nn.Module):
         """(E, F): E (n_mol_pad, num_targets); F per-atom (n_atoms_pad,
         num_targets, 3) with direct forces, else the per-edge heads, zero.
         `R` overrides batch["R"] so the caller can differentiate w.r.t. it."""
-        cfg = self.cfg
+        cfg, cdt = self.cfg, self.cdt
         _required(batch, ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan", "id3_reduce_ca_plan"))
         if not cfg.triplets_only:
             _required(batch, SORT_META_KEYS + (
@@ -160,6 +163,14 @@ class GemNet(nn.Module):
             ).reshape(n_intm_rows, -1)
             sbf_env = self.sbf_basis.rbf_env3(D_ca, edge_mask)  # (E, S^2, R)
             sph_sbf = self.sbf_basis.sbf(phi_cab, theta_cabd)  # (Q, S^2)
+            if cdt is not None:
+                cbf4_dense, sbf_env, sph_sbf = (
+                    cbf4_dense.to(cdt), sbf_env.to(cdt), sph_sbf.to(cdt))
+        if cdt is not None:
+            rbf, cbf3_env, sph3 = rbf.to(cdt), cbf3_env.to(cdt), sph3.to(cdt)
+
+        # ---- shared down-projections ----
+        if not cfg.triplets_only:
             basis["rbf4"] = self.mlp_rbf4(rbf)
             basis["cbf4"] = self.mlp_cbf4(cbf4_dense)
             basis["sbf4"] = (self.mlp_sbf4(sbf_env), sph_sbf)
@@ -202,6 +213,7 @@ def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca):
         E_mol = masked_segment_sum(E_a, batch["batch_seg"], n_mol, mask=atom_mask)
     else:
         E_mol = masked_segment_mean(E_a, batch["batch_seg"], n_mol, mask=atom_mask)
+    E_mol = E_mol.float()
     if cfg.direct_forces:
         if cfg.forces_coupled:
             # |F_ca| = |F_ac| via the undirected mean (reference gemnet.py:588-592)

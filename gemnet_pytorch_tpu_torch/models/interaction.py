@@ -5,6 +5,9 @@ interaction_block.py), single-device path. Merge scalings (1/sqrt(3) with
 quadruplets, 1/sqrt(2) without; reference interaction_block.py:202-203,
 390-391) and every skip's 1/sqrt(2) match the reference. The expand gathers
 carry their sort metadata, so their VJPs run as the sorted segment sum K3.
+`dtype` is every layer's compute dtype (None: fp32; torch.bfloat16 in the
+bf16 mode), passed through as `gemnet_pytorch_tpu/models/interaction.py`
+does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from .layers import (
     EfficientInteractionBilinear,
     ResidualLayer,
     ScalingFactor,
+    scale,
 )
 
 _INV_SQRT2 = 2.0**-0.5
@@ -33,20 +37,20 @@ class QuadrupletInteraction(nn.Module):
 
     def __init__(self, emb_size_edge, emb_size_quad, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, emb_size_sbf, activation=None, scale_prefix="QuadInteraction_1",
-                 *, generator: torch.Generator):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        g = generator
-        self.dense_db = Dense(emb_size_edge, emb_size_edge, activation, generator=g)
-        self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, generator=g)
+        kw = dict(generator=generator, dtype=dtype)
+        self.dense_db = Dense(emb_size_edge, emb_size_edge, activation, **kw)
+        self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, **kw)
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
-        self.mlp_cbf = Dense(emb_size_cbf, emb_size_quad, generator=g)
+        self.mlp_cbf = Dense(emb_size_cbf, emb_size_quad, **kw)
         self.scale_cbf = ScalingFactor(scale_prefix + "_had_cbf")
         self.mlp_sbf = EfficientInteractionBilinear(
-            emb_size_quad, emb_size_sbf, emb_size_bilinear, generator=g)
+            emb_size_quad, emb_size_sbf, emb_size_bilinear, **kw)
         self.scale_sbf_sum = ScalingFactor(scale_prefix + "_sum_sbf")
-        self.down_projection = Dense(emb_size_edge, emb_size_quad, activation, generator=g)
-        self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, generator=g)
-        self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, generator=g)
+        self.down_projection = Dense(emb_size_edge, emb_size_quad, activation, **kw)
+        self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
+        self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
 
     def forward(self, m, rbf, cbf, sbf, ind, masks):
         x_db = self.dense_db(m)
@@ -66,7 +70,7 @@ class QuadrupletInteraction(nn.Module):
 
         x_ca = self.up_projection_ca(x)
         x_ac = self.up_projection_ac(x)[ind["id_swap"]]
-        return (x_ca + x_ac) * _INV_SQRT2
+        return scale(x_ca + x_ac, _INV_SQRT2)
 
 
 class TripletInteraction(nn.Module):
@@ -74,18 +78,18 @@ class TripletInteraction(nn.Module):
 
     def __init__(self, emb_size_edge, emb_size_trip, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, activation=None, scale_prefix="TripInteraction_1",
-                 *, generator: torch.Generator):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        g = generator
-        self.dense_ba = Dense(emb_size_edge, emb_size_edge, activation, generator=g)
-        self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, generator=g)
+        kw = dict(generator=generator, dtype=dtype)
+        self.dense_ba = Dense(emb_size_edge, emb_size_edge, activation, **kw)
+        self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, **kw)
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
         self.mlp_cbf = EfficientInteractionBilinear(
-            emb_size_trip, emb_size_cbf, emb_size_bilinear, generator=g)
+            emb_size_trip, emb_size_cbf, emb_size_bilinear, **kw)
         self.scale_cbf_sum = ScalingFactor(scale_prefix + "_sum_cbf")
-        self.down_projection = Dense(emb_size_edge, emb_size_trip, activation, generator=g)
-        self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, generator=g)
-        self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, generator=g)
+        self.down_projection = Dense(emb_size_edge, emb_size_trip, activation, **kw)
+        self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
+        self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
 
     def forward(self, m, rbf3, cbf3, ind, masks):
         x_ba = self.dense_ba(m)
@@ -100,7 +104,7 @@ class TripletInteraction(nn.Module):
 
         x_ca = self.up_projection_ca(x)
         x_ac = self.up_projection_ac(x)[ind["id_swap"]]
-        return (x_ca + x_ac) * _INV_SQRT2
+        return scale(x_ca + x_ac, _INV_SQRT2)
 
 
 class InteractionBlock(nn.Module):
@@ -111,50 +115,50 @@ class InteractionBlock(nn.Module):
                  emb_size_rbf, emb_size_cbf, emb_size_sbf, emb_size_bil_trip,
                  emb_size_bil_quad, num_before_skip, num_after_skip, num_concat, num_atom,
                  triplets_only: bool, block_nr: int = 1, activation: Optional[str] = None,
-                 *, generator: torch.Generator):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        g = generator
+        kw = dict(generator=generator, dtype=dtype)
         self.triplets_only = triplets_only
-        self.dense_ca = Dense(emb_size_edge, emb_size_edge, activation, generator=g)
+        self.dense_ca = Dense(emb_size_edge, emb_size_edge, activation, **kw)
         if not triplets_only:
             self.quad_interaction = QuadrupletInteraction(
                 emb_size_edge, emb_size_quad, emb_size_bil_quad, emb_size_rbf, emb_size_cbf,
-                emb_size_sbf, activation, f"QuadInteraction_{block_nr}", generator=g)
+                emb_size_sbf, activation, f"QuadInteraction_{block_nr}", **kw)
         self.trip_interaction = TripletInteraction(
             emb_size_edge, emb_size_trip, emb_size_bil_trip, emb_size_rbf, emb_size_cbf,
-            activation, f"TripInteraction_{block_nr}", generator=g)
+            activation, f"TripInteraction_{block_nr}", **kw)
         self.layers_before_skip = nn.ModuleList(
-            [ResidualLayer(emb_size_edge, activation, generator=g) for _ in range(num_before_skip)])
+            [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_before_skip)])
         self.layers_after_skip = nn.ModuleList(
-            [ResidualLayer(emb_size_edge, activation, generator=g) for _ in range(num_after_skip)])
+            [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_after_skip)])
         self.atom_update = AtomUpdateBlock(
             emb_size_atom, emb_size_edge, emb_size_rbf, num_atom, activation,
-            f"AtomUpdate_{block_nr}_sum", generator=g)
+            f"AtomUpdate_{block_nr}_sum", **kw)
         self.concat_layer = EdgeEmbedding(
-            2 * emb_size_atom + emb_size_edge, emb_size_edge, activation, generator=g)
+            2 * emb_size_atom + emb_size_edge, emb_size_edge, activation, **kw)
         self.residual_m = nn.ModuleList(
-            [ResidualLayer(emb_size_edge, activation, generator=g) for _ in range(num_concat)])
+            [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_concat)])
 
     def forward(self, h, m, basis, ind, masks):
         x_ca_skip = self.dense_ca(m)
         x3 = self.trip_interaction(m, basis["rbf3"], basis["cbf3"], ind, masks)
         if self.triplets_only:
-            x = (x_ca_skip + x3) * _INV_SQRT2
+            x = scale(x_ca_skip + x3, _INV_SQRT2)
         else:
             x4 = self.quad_interaction(m, basis["rbf4"], basis["cbf4"], basis["sbf4"], ind, masks)
-            x = (x_ca_skip + x3 + x4) * _INV_SQRT3
+            x = scale(x_ca_skip + x3 + x4, _INV_SQRT3)
 
         for layer in self.layers_before_skip:
             x = layer(x)
-        m = (m + x) * _INV_SQRT2
+        m = scale(m + x, _INV_SQRT2)
         for layer in self.layers_after_skip:
             m = layer(m)
 
         h2 = self.atom_update(h, m, basis["rbf_h"], ind["id_a"], masks["edge"])
-        h = (h + h2) * _INV_SQRT2
+        h = scale(h + h2, _INV_SQRT2)
 
         m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"])
         for layer in self.residual_m:
             m2 = layer(m2)
-        m = (m + m2) * _INV_SQRT2
+        m = scale(m + m2, _INV_SQRT2)
         return h, m

@@ -6,9 +6,10 @@ package. Library names carry a digest of the source and flags, so an edited
 source is rebuilt and never loaded stale. `build()` starts one nvcc per
 source, all together.
 
-Every launch goes through `launch`, which counts it (per kernel and shape,
-for the launch census of a run) and raises when the C function reports a
-CUDA error.
+Every launch goes through `launch`, which counts it (per C function and
+shape; the function's name carries the stream dtype, `_f32` or `_bf16`, for
+the launch census of a run) and raises when the C function reports a CUDA
+error.
 """
 
 from __future__ import annotations
@@ -34,24 +35,39 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_K1_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+_K2_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+_K3_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P]
 # C function -> (source, argtypes, restype)
 _FUNCTIONS = {
-    "gemnet_segment_outer_sum_f32": (
-        "segment_outer.cu", [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "gemnet_segment_outer_sum_f32": ("segment_outer.cu", _K1_ARGS, _I),
+    "gemnet_segment_outer_sum_bf16": ("segment_outer.cu", _K1_ARGS, _I),
     "gemnet_segment_outer_sum_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
     "gemnet_segment_outer_sum_threads": ("segment_outer.cu", [_I, _I], _I),
-    "gemnet_segment_gather_contract_f32": (
-        "segment_outer.cu", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P], _I),
+    "gemnet_segment_gather_contract_f32": ("segment_outer.cu", _K2_ARGS, _I),
+    "gemnet_segment_gather_contract_bf16": ("segment_outer.cu", _K2_ARGS, _I),
     "gemnet_segment_gather_contract_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
-    "gemnet_sorted_segsum_f32": (
-        "expand_gather.cu", [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P], _I),
+    "gemnet_sorted_segsum_f32": ("expand_gather.cu", _K3_ARGS, _I),
+    "gemnet_sorted_segsum_bf16": ("expand_gather.cu", _K3_ARGS, _I),
 }
+# stream dtype -> suffix of the kernel entries that take it
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each source built here
 BUILD_LOG: dict[str, str] = {}
 # kernel launches by (C function, shape); see `kernel_launches`
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+def set_matmul_precision() -> None:
+    """The port's matmul precision on the card, process-wide: fp32 products
+    in full fp32, as on the CPU (a TF32 product keeps ~10 mantissa bits, and
+    -dE/dR differentiates through every product of the network), and bf16
+    products summed in fp32, as XLA's are (no bf16 split-K reductions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _nvcc() -> str:

@@ -32,5 +32,7 @@ def bilinear(rbf_W1, sph_rows, m, id_reduce, plan, weight, mask=None):
         # only this mask zeroes it upstream
         m = m * mask.to(m.dtype)[:, None]
     sum_k = segment_outer_sum(sph_rows.contiguous(), m.contiguous(), id_reduce, plan)
+    # finish in the compute dtype (bilinear.py:62-70): bf16 in bf16 mode
+    sum_k = sum_k.to(rbf_W1.dtype)
     rbf_w1_sum_k = torch.einsum("eis,sem->eim", rbf_W1, sum_k)  # (E, I, M)
     return torch.einsum("eim,mio->eo", rbf_w1_sum_k, weight)

@@ -14,7 +14,12 @@ which on a CUDA tensor runs the hand-written kernel of
 plain version below (the counterpart of `_segsum_xla` after `x[perm]`). Every
 sorted segment sum on a CUDA tensor goes through the kernel, at any row count
 and width. The segment sum's own VJP is `expand_gather` again, so the pair
-differentiates to any order. fp32 only: other dtypes raise.
+differentiates to any order.
+
+Dtypes follow the JAX package (`_segsum_xla`, `_segsum_pallas`): fp32 rows
+give fp32 sums; bf16 rows (compute_dtype="bfloat16") are summed in fp32 and
+rounded once to bf16. The geometry streams of the force path stay fp32 in
+both modes. fp32 and bf16 are the only dtypes taken: any other raises.
 """
 
 from __future__ import annotations
@@ -25,22 +30,23 @@ from . import _cuda
 
 
 def _segsum_plain(xp, sorted_ids, n_segments):
+    # fp32 sums; bf16 rows round the output at the end (expand_gather.py:61-68)
     out = xp.new_zeros((n_segments, xp.shape[1]), dtype=torch.float32)
-    return out.index_add(0, sorted_ids.long(), xp.float())
+    return out.index_add(0, sorted_ids.long(), xp.float()).to(xp.dtype)
 
 
 def _segsum_cuda(x, perm, plan):
-    dev = x.device
-    _cuda.check_tensor(x, "x", torch.float32, dev)
+    dev, dt = x.device, x.dtype
+    _cuda.check_tensor(x, "x", dt, dev)
     _cuda.check_tensor(perm, "perm", torch.int32, dev)
     _cuda.check_plan(plan, dev)
     n, M = x.shape
     if perm.shape != (n,):
         raise ValueError(f"perm {tuple(perm.shape)} for {n} rows")
     n_seg = plan.n_segments
-    out = torch.empty((n_seg, M), dtype=torch.float32, device=dev)
+    out = torch.empty((n_seg, M), dtype=dt, device=dev)
     partial = torch.empty((plan.n_partials, M), dtype=torch.float32, device=dev)
-    _cuda.launch("gemnet_sorted_segsum_f32", (n, M, n_seg), dev,
+    _cuda.launch(f"gemnet_sorted_segsum_{_cuda.DTYPE_SUFFIX[dt]}", (n, M, n_seg), dev,
                  x.data_ptr(), perm.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
                  plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
                  partial.data_ptr(), out.data_ptr(), M)
@@ -49,9 +55,10 @@ def _segsum_cuda(x, perm, plan):
 
 def sorted_segsum_values(x, perm, sorted_ids, plan):
     """K3 without autograd: sum of the rows of x grouped by idx, through the
-    sorted order. The kernel on a CUDA tensor, the plain version on CPU."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"x is {x.dtype}: only float32 is supported")
+    sorted order, in x's dtype. The kernel on a CUDA tensor, the plain
+    version on CPU."""
+    if x.dtype not in _cuda.DTYPE_SUFFIX:
+        raise TypeError(f"x is {x.dtype}: only float32 and bfloat16 are supported")
     if x.device.type == "cuda":
         return _segsum_cuda(x, perm, plan)
     if x.device.type == "cpu":

@@ -10,13 +10,21 @@ by sorted segment ids (triplets/quadruplets sorted by their reduce edge):
 The output layout is the JAX package's (S, nSegments, M). On a CUDA tensor
 each op launches its hand-written kernel (`csrc/segment_outer.cu`); on a CPU
 tensor it runs the plain PyTorch version below, a line-for-line counterpart
-of `_outer_sum_xla` / `_gather_contract_xla`. fp32 only: other dtypes raise.
+of `_outer_sum_xla` / `_gather_contract_xla`.
+
+Dtypes follow the JAX package (`_stream_dtype`, `_out_dtype`): the streams
+are bf16 when every row input is bf16 (compute_dtype="bfloat16"), and fp32
+otherwise, a bf16 operand of a mixed pair being cast up explicitly. Sums are
+fp32 always; K1's output is bf16 for bf16 streams, K2's da/db carry the
+dtypes of a/b, and the bf16 K2 kernel reads the cotangent as bf16 (the
+Pallas kernel's cast). fp32 and bf16 are the only dtypes taken: any other
+raises.
 
 `plan` is the `data.batch.SegmentPlan` of the sorted ids (work items of the
 kernels); the plain versions use `seg_ids`. The two ops are
 `torch.autograd.Function`s whose backwards call each other, so they
 differentiate to any order (grad-of-grad for force training), as the JAX
-custom VJPs do.
+custom VJPs do; each returns its gradients in the dtypes of its inputs.
 """
 
 from __future__ import annotations
@@ -26,10 +34,24 @@ import torch
 from . import _cuda
 
 
+def _stream_dtype(*tensors) -> torch.dtype:
+    """bf16 iff every row input is bf16, else fp32 (segment_outer.py:152-157);
+    raises on a dtype that is neither."""
+    for t in tensors:
+        if t.dtype not in _cuda.DTYPE_SUFFIX:
+            raise TypeError(f"{t.dtype} input: only float32 and bfloat16 are supported")
+    if all(t.dtype == torch.bfloat16 for t in tensors):
+        return torch.bfloat16
+    return torch.float32
+
+
 def _outer_sum_plain(a, b, seg_ids, n_segments):
+    # fp32 products and sums whatever the input dtype; the output in the
+    # streams' dtype, as _outer_sum_xla (segment_outer.py:264-273)
     outer = (a.float()[:, :, None] * b.float()[:, None, :]).reshape(a.shape[0], -1)
     out = outer.new_zeros((n_segments, outer.shape[1])).index_add(0, seg_ids.long(), outer)
-    return out.reshape(n_segments, a.shape[1], b.shape[1]).permute(1, 0, 2).contiguous()
+    out = out.reshape(n_segments, a.shape[1], b.shape[1]).permute(1, 0, 2).contiguous()
+    return out.to(_stream_dtype(a, b))
 
 
 def _gather_contract_plain(cot, a, b, seg_ids):
@@ -39,16 +61,10 @@ def _gather_contract_plain(cot, a, b, seg_ids):
     return da.to(a.dtype), db.to(b.dtype)
 
 
-def _check_float32(**tensors) -> None:
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}: only float32 is supported")
-
-
 def _outer_sum_cuda(a, b, plan):
-    dev = a.device
-    _cuda.check_tensor(a, "a", torch.float32, dev)
-    _cuda.check_tensor(b, "b", torch.float32, dev)
+    dev, dt = a.device, a.dtype
+    _cuda.check_tensor(a, "a", dt, dev)
+    _cuda.check_tensor(b, "b", dt, dev)
     _cuda.check_plan(plan, dev)
     n, S = a.shape
     M = b.shape[1]
@@ -59,9 +75,9 @@ def _outer_sum_cuda(a, b, plan):
         raise ValueError(f"segment_outer_sum kernel takes no S={S}, M={M}")
     if _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
         raise ValueError(f"segment_outer_sum kernel: S={S}, M={M} exceed 48 KB of shared memory")
-    out = torch.empty((S, n_seg, M), dtype=torch.float32, device=dev)
+    out = torch.empty((S, n_seg, M), dtype=dt, device=dev)
     partial = torch.empty((plan.n_partials, S, M), dtype=torch.float32, device=dev)
-    _cuda.launch("gemnet_segment_outer_sum_f32", (n, S, M, n_seg), dev,
+    _cuda.launch(f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}", (n, S, M, n_seg), dev,
                  a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
                  plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
                  partial.data_ptr(), out.data_ptr(), n_seg, S, M)
@@ -69,9 +85,9 @@ def _outer_sum_cuda(a, b, plan):
 
 
 def _gather_contract_cuda(cot, a, b, plan):
-    dev = a.device
+    dev, dt = a.device, a.dtype
     for name, t in (("cot", cot), ("a", a), ("b", b)):
-        _cuda.check_tensor(t, name, torch.float32, dev)
+        _cuda.check_tensor(t, name, dt, dev)
     _cuda.check_plan(plan, dev)
     n, S = a.shape
     M = b.shape[1]
@@ -80,20 +96,22 @@ def _gather_contract_cuda(cot, a, b, plan):
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}, cot {tuple(cot.shape)}")
     if _cuda.function("gemnet_segment_gather_contract_smem")(S, M) > 48 * 1024:
         raise ValueError(f"segment_gather_contract kernel: S={S}, M={M} exceed 48 KB of shared memory")
-    da = torch.empty((n, S), dtype=torch.float32, device=dev)
-    db = torch.empty((n, M), dtype=torch.float32, device=dev)
-    _cuda.launch("gemnet_segment_gather_contract_f32", (n, S, M, n_seg), dev,
-                 cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
+    da = torch.empty((n, S), dtype=dt, device=dev)
+    db = torch.empty((n, M), dtype=dt, device=dev)
+    _cuda.launch(f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}", (n, S, M, n_seg),
+                 dev, cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
                  plan.items.shape[0], da.data_ptr(), db.data_ptr(), n_seg, S, M)
     return da, db
 
 
 def outer_sum(a, b, seg_ids, plan):
     """K1 without autograd: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    _check_float32(a=a, b=b)
+    on a CPU tensor. Returns (S, nSegments, M) in the streams' dtype."""
+    sdt = _stream_dtype(a, b)
     if a.device.type == "cuda":
-        return _outer_sum_cuda(a, b, plan)
+        # mixed dtypes: the fp32 streams are staged explicitly, as the JAX
+        # wrapper's astype does
+        return _outer_sum_cuda(a.to(sdt), b.to(sdt), plan)
     if a.device.type == "cpu":
         return _outer_sum_plain(a, b, seg_ids, plan.n_segments)
     raise ValueError(f"no segment_outer_sum for device {a.device}")
@@ -101,10 +119,14 @@ def outer_sum(a, b, seg_ids, plan):
 
 def gather_contract(cot, a, b, seg_ids, plan):
     """K2 without autograd: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    _check_float32(cot=cot, a=a, b=b)
+    on a CPU tensor. Returns (da, db) in the dtypes of (a, b)."""
+    sdt = _stream_dtype(a, b)  # a and b alone pick the streams
+    _stream_dtype(cot)  # raises on a cotangent neither fp32 nor bf16
     if a.device.type == "cuda":
-        return _gather_contract_cuda(cot, a, b, plan)
+        # bf16 streams read the cotangent as bf16 (segment_outer.py:586-590);
+        # fp32 streams stage every operand as fp32
+        da, db = _gather_contract_cuda(cot.to(sdt), a.to(sdt), b.to(sdt), plan)
+        return da.to(a.dtype), db.to(b.dtype)
     if a.device.type == "cpu":
         return _gather_contract_plain(cot, a, b, seg_ids)
     raise ValueError(f"no segment_gather_contract for device {a.device}")
@@ -143,12 +165,14 @@ class SegmentGatherContract(torch.autograd.Function):
         dcot = (SegmentOuterSum.apply(ua, b, seg_ids, plan)
                 + SegmentOuterSum.apply(a, ub, seg_ids, plan))
         da, db = SegmentGatherContract.apply(cot, ua, ub, seg_ids, plan)
-        return dcot, da, db, None, None
+        # cotangents in the primal dtypes (segment_outer.py:627-628)
+        return dcot.to(cot.dtype), da.to(a.dtype), db.to(b.dtype), None, None
 
 
 def segment_outer_sum(a, b, seg_ids, plan):
     """out[s, e, m] = sum_{t: seg_ids[t]==e} a[t,s]*b[t,m]; seg_ids sorted,
-    plan their SegmentPlan. Returns (S, nSegments, M) fp32."""
+    plan their SegmentPlan. Returns (S, nSegments, M), bf16 for bf16 a and b,
+    fp32 otherwise."""
     return SegmentOuterSum.apply(a, b, seg_ids, plan)
 
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2, K3 against their plain PyTorch versions on the
-card, and the port end to end on the card against the CPU.
+"""The CUDA kernels K1, K2, K3 (fp32 and bf16 streams) against their plain
+PyTorch versions on the card, and the port end to end on the card against
+the CPU: serving, grad-of-grad, and a train step in fp32 and bf16.
 
 Marked `cuda`; each test asks for a card through the `device` fixture and
 skips without one. This file imports no JAX, so on a machine with a card it
@@ -17,6 +18,9 @@ torch.set_num_threads(2)
 # kernel vs plain version: fp32 sums in another order (atomics in the plain
 # K3): a few ulps of the terms, far below this share of the output's scale
 RTOL = 1e-5
+# bf16 streams: both sum in fp32 in other orders and round once to bf16, so
+# they may differ by one bf16 ulp (2^-7 relative at most) of the output
+BF16_RTOL = 2.0**-7
 
 
 @pytest.fixture
@@ -40,6 +44,48 @@ def _assert_close(out, ref):
     assert out.shape == ref.shape
     scale = max(float(ref.abs().max()), 1.0)
     assert float((out - ref).abs().max()) <= RTOL * 10 * scale
+
+
+def _assert_close_bf16(out, ref):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+    out, ref = out.float(), ref.float()
+    assert float((out - ref).abs().max()) <= BF16_RTOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M", [(7, 64), (49, 32)])
+def test_bf16_kernels_match_plain(device, S, M):
+    """K1 and K2 on bf16 streams (the cotangent bf16, as the model gives
+    it), and K3 on bf16 rows, against their plain versions on the card."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import expand_gather as eg
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(S + M)
+    ids = _sorted_ids(rng, 3000, 300, long_seg=250, long_rows=700)
+    plan = segment_plan(ids, 300, 128, device)
+    a = torch.from_numpy(rng.normal(size=(len(ids), S)).astype(np.float32)).to(device).bfloat16()
+    b = torch.from_numpy(rng.normal(size=(len(ids), M)).astype(np.float32)).to(device).bfloat16()
+    cot = torch.from_numpy(rng.normal(size=(S, 300, M)).astype(np.float32)).to(device).bfloat16()
+    tid = torch.from_numpy(ids).to(device)
+    _cuda.reset_launches()
+    _assert_close_bf16(so.outer_sum(a, b, tid, plan), so._outer_sum_plain(a, b, tid, 300))
+    for o, r in zip(so.gather_contract(cot, a, b, tid, plan),
+                    so._gather_contract_plain(cot, a, b, tid)):
+        _assert_close_bf16(o, r)
+    idx = rng.integers(0, 299, len(ids))
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    srt = idx[perm].astype(np.int32)
+    tperm, tsrt = torch.from_numpy(perm).to(device), torch.from_numpy(srt).to(device)
+    splan = segment_plan(srt, 300, 32, device)
+    _assert_close_bf16(eg.sorted_segsum_values(b, tperm, tsrt, splan),
+                       eg._segsum_plain(b[tperm.long()], tsrt, 300))
+    assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_bf16": 1,
+                                       "gemnet_segment_gather_contract_bf16": 1,
+                                       "gemnet_sorted_segsum_bf16": 1}
 
 
 CASES_SO = [(7, 64), (49, 32), (3, 5), (16, 8)]
@@ -115,17 +161,21 @@ def test_launch_counter_and_input_checks(device):
     so.outer_sum(a, b, tid, plan)
     assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_f32": 2}
     with pytest.raises(TypeError):
-        so.outer_sum(a.bfloat16(), b, tid, plan)
+        so.outer_sum(a.half(), b, tid, plan)
     with pytest.raises(ValueError):
         so.outer_sum(torch.ones(3, 100, device=device).t(), b, tid, plan)
     with pytest.raises(ValueError):
         so.outer_sum(a, b, tid, segment_plan(ids, 20, 128, "cpu"))
     assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_f32": 2}
+    # mixed streams stage fp32 explicitly: the fp32 kernel, an fp32 output
+    assert so.outer_sum(a.bfloat16(), b, tid, plan).dtype == torch.float32
+    assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_f32": 3}
 
 
 def _small_batch(triplets_only):
+    """4 molecules of 5-8 atoms, padded, with toy energy/force targets."""
     from gemnet_pytorch_tpu_torch.data import PadDims, build_graph, pad_batch, scale_graph_dims
-    from gemnet_pytorch_tpu_torch.data.synthetic import random_molecule
+    from gemnet_pytorch_tpu_torch.data.synthetic import random_molecule, toy_energy_forces
 
     rng = np.random.default_rng(5)
     mols = [random_molecule(rng, int(rng.integers(5, 9))) for _ in range(4)]
@@ -137,7 +187,10 @@ def _small_batch(triplets_only):
                    n_int_edges=0 if triplets_only else 64, n_intm=0 if triplets_only else 256,
                    n_quads=0 if triplets_only else 512, kmax4=0 if triplets_only else 4)
     dims = dims.grow_to(scale_graph_dims(g, 1.2), 4, len(Z))
-    return pad_batch(g, Z, R, dims, triplets_only=triplets_only)
+    EF = [toy_energy_forces(z, r) for z, r in mols]
+    E = np.array([e for e, _ in EF], np.float32)
+    F = np.concatenate([f for _, f in EF])
+    return pad_batch(g, Z, R, dims, E=E, F=F, triplets_only=triplets_only)
 
 
 @pytest.mark.cuda
@@ -169,3 +222,42 @@ def test_model_on_card_matches_cpu(device, triplets_only, direct_forces):
     for c, g in zip(*outs):
         scale = max(float(c.abs().max()), 1.0)
         assert float((g.cpu() - c).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(device, compute_dtype):
+    """One Trainer step of GemNet-Q on the card against the same step on the
+    CPU: the loss within rtol 1e-4 (fp32) and the whole parameter update
+    within a relative L2 error of 1e-3 (fp32); bf16 is held to the bf16
+    contract of tests/test_bf16.py instead (its roundings differ between the
+    card's kernels and the CPU's plain versions), and its losses must fall."""
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    cfg = ModelConfig(num_spherical=4, num_radial=4, num_blocks=2, emb_size_atom=32,
+                      emb_size_edge=32, emb_size_trip=16, emb_size_quad=8, emb_size_rbf=8,
+                      emb_size_cbf=8, emb_size_sbf=8, emb_size_bil_quad=8,
+                      emb_size_bil_trip=16, compute_dtype=compute_dtype)
+    batch_np = _small_batch(False)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    runs = {}
+    for dev in ("cpu", device):
+        model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        trainer = Trainer(model, tcfg)
+        state = trainer.init_state()
+        p0 = state.params.clone()
+        losses = []
+        for _ in range(3):
+            state, loss = trainer.train_on_batch(state, to_torch(batch_np, dev), 1.0)
+            losses.append(float(loss))
+        runs[str(dev)] = (np.array(losses), (state.params - p0).cpu().numpy())
+    (l_cpu, d_cpu), (l_gpu, d_gpu) = runs["cpu"], runs[str(device)]
+    assert np.isfinite(l_gpu).all() and l_gpu[-1] < l_gpu[0]
+    if compute_dtype == "float32":
+        np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+        assert np.linalg.norm(d_gpu - d_cpu) <= 1e-3 * np.linalg.norm(d_cpu)
+    else:
+        np.testing.assert_allclose(l_gpu[0], l_cpu[0], rtol=0.05)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of `gemnet_pytorch_tpu_torch/`,
 and not `chip_smoke.py`, imports JAX, flax, optax or the JAX package; nothing
-on the serving path imports PyYAML or ase at module level."""
+on the serving or training path imports PyYAML or ase at module level."""
 
 import ast
 import os
@@ -37,6 +37,15 @@ def _imports(path):
 def test_port_imports_no_jax(path):
     bad = [name for name, _ in _imports(path) if name in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_training_modules_are_checked():
+    """The training slice's modules are among the files checked above."""
+    rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
+    for name in ("config.py", "data/provider.py", "training/__init__.py",
+                 "training/flat_opt.py", "training/metrics.py", "training/schedules.py",
+                 "training/trainer.py"):
+        assert name in rel, name
 
 
 def test_serving_path_imports_no_yaml_or_ase():

@@ -146,7 +146,8 @@ def test_grad_of_grad_matches_jax(rng):
 
 @pytest.mark.parametrize("op", ["outer_sum", "gather_contract"])
 def test_non_float32_inputs_raise(rng, op):
-    """fp32 only in this slice: a bf16 stream raises instead of running."""
+    """fp32 and bf16 streams only (tests/test_torch_bf16.py holds bf16): a
+    float16 stream raises instead of running."""
     from gemnet_pytorch_tpu_torch.ops.segment_outer import (
         segment_gather_contract, segment_outer_sum)
 
@@ -154,6 +155,6 @@ def test_non_float32_inputs_raise(rng, op):
     ta, tb, tids, plan = _torch_case(a, b, ids, E)
     with pytest.raises(TypeError):
         if op == "outer_sum":
-            segment_outer_sum(ta.bfloat16(), tb, tids, plan)
+            segment_outer_sum(ta.half(), tb, tids, plan)
         else:
-            segment_gather_contract(torch.zeros(2, E, 4), ta, tb.bfloat16(), tids, plan)
+            segment_gather_contract(torch.zeros(2, E, 4), ta, tb.half(), tids, plan)
