@@ -9,16 +9,18 @@ Phases:
   2. build the CUDA kernels of `gemnet_pytorch_tpu_torch/csrc/` (one nvcc per
      source, all together) and print their ptxas reports;
   3. hold each kernel (K1 segment_outer_sum, K2 segment_gather_contract,
-     K3 sorted segment sum), on fp32 and on bf16 streams, against its plain
-     PyTorch version on the card, at the shapes the serving path and the
-     train step give it on the bench-small batch;
+     K3 sorted segment sum, on fp32 and on bf16 streams; K4, the split3 mode
+     of K1 and K2; the row-gather probe kernels P1 and P2) against its plain
+     PyTorch version on the card, at the shapes the serving path, the train
+     step and the probe give it (K4 also against the exact fp32 K1/K2);
   4. time each kernel, its plain version and, where one PyTorch call computes
      the same function, that call (CUDA events), beside its bound;
   5. serve GemNet-Q at the config.yaml widths (random weights from a seed):
      one predict of the 32-molecule bench-small batch with the launch
      counters read around it (8 / 8 / 14 launches of K1 / K2 / K3), E and F
      against the same model on the CPU (first 8 molecules), then 10 timed
-     requests;
+     requests; then one predict in matmul_precision="high" (8 / 8 split3
+     K1 / K2, 14 fp32 K3, no exact K1/K2), against the CPU;
   6. the serving calculator on a benzonitrile molecule, 5 perturbed
      geometries, against the same calculator on the CPU;
   7. train GemNet-Q at the config.yaml widths (random weights from seed 0) on
@@ -30,7 +32,14 @@ Phases:
      one train step per dtype with the launch counters read
      around it (pinned counts, every bf16 kernel launched); 5 bf16 steps with
      falling losses and fp32 master state; an eval on the EMA weights; then
-     3 warm-up and 10 timed steps and one profiled step per dtype.
+     3 warm-up and 10 timed steps and one profiled step per dtype;
+  8. the training entry point in matmul_precision="high": one step on the
+     card against the CPU, its launch census (24 / 24 split3 K1 / K2, 26 fp32
+     K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.train.run` on a synthetic
+     dataset (20 steps, eval and checkpoint every 10), resumed from its
+     checkpoint with the state equal bit for bit, its reference export loaded
+     back, and 10 timed "high" steps;
+  9. the row-gather probe (`gemnet_pytorch_tpu_torch.scripts.gather_probe`).
 
 The last lines are the `{"kernels": [...]}` record, the card's name and power
 limit, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero
@@ -43,6 +52,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,15 +60,22 @@ import numpy as np
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
-BYTES = {"f32": 4, "bf16": 2}
+# (split3: fp32 rows in and out, bf16 products on the tensor cores)
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "split3": 989e12}
+BYTES = {"f32": 4, "bf16": 2, "split3": 4}
 # kernel vs plain version: both sum in fp32, in another order (and the plain
 # K3 with atomics); the difference stays at a few ulps of the sums' terms,
 # far below this share of the output's magnitude
 KERNEL_RTOL = {"f32": 1e-4,
                # bf16 streams: fp32 sums in other orders, rounded once to
                # bf16, may differ by one bf16 ulp (2^-7 relative at most)
-               "bf16": 2.0**-7}
+               "bf16": 2.0**-7,
+               # split3: the same bf16 products, exact in fp32, summed in
+               # fp32 in another order (the tensor cores' and the CPU's)
+               "split3": 1e-5}
+# split3 vs the exact fp32 K1/K2: the JAX package's bound
+# (tests/test_segment_outer.py:155-158), share of max |exact|
+SPLIT3_EXACT_RTOL = 3e-5
 # served E and F on the card vs the CPU: the same fp32 arithmetic through
 # four blocks, with other summation orders (atomic index_add on the card)
 SERVE_RTOL = 1e-4
@@ -102,7 +119,22 @@ TRAIN_LAUNCHES = {
                 "gemnet_sorted_segsum_f32": 26},
     "bfloat16": {"gemnet_segment_outer_sum_bf16": 24, "gemnet_segment_gather_contract_bf16": 24,
                  "gemnet_sorted_segsum_bf16": 24, "gemnet_sorted_segsum_f32": 2},
+    # matmul_precision="high": every K1/K2 in split3, the K3s exact fp32
+    "high": {"gemnet_segment_outer_sum_split3": 24,
+             "gemnet_segment_gather_contract_split3": 24, "gemnet_sorted_segsum_f32": 26},
 }
+SERVE_LAUNCHES = {
+    "default": {"gemnet_segment_outer_sum_f32": 8, "gemnet_segment_gather_contract_f32": 8,
+                "gemnet_sorted_segsum_f32": 14},
+    "high": {"gemnet_segment_outer_sum_split3": 8, "gemnet_segment_gather_contract_split3": 8,
+             "gemnet_sorted_segsum_f32": 14},
+}
+# phase 8's run of the training entry point: a synthetic dataset of 64
+# molecules of 4-12 atoms (seed 0), batches of 32, eval and checkpoint every
+# 10 steps; the lr at its full 1e-3 from step 0
+TRAIN_RUN = dict(batch_size=32, num_steps=20, evaluation_interval=10, save_interval=10,
+                 data_seed=0, warmup_steps=1, matmul_precision="high")
+TRAIN_RUN_MOLECULES = 64
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -116,6 +148,7 @@ BENZONITRILE_R = np.array([
 
 SO_SRC = "gemnet_pytorch_tpu_torch/csrc/segment_outer.cu"
 EG_SRC = "gemnet_pytorch_tpu_torch/csrc/expand_gather.cu"
+RG_SRC = "gemnet_pytorch_tpu_torch/csrc/row_gather.cu"
 
 
 class SmokeFailure(Exception):
@@ -173,8 +206,11 @@ def kernel_cases(cfg, batch, device, seed: int = 0):
     """One case per (kernel, shape, stream dtype) of the serving path and
     the train step: the batch's own id columns and sort metadata, random row
     data from a seed (rounded to bf16 for the bf16 cases; the geometry
-    streams are fp32 in both modes)."""
+    streams are fp32 in both modes; fp32 rows for split3, which runs K1 and
+    K2 only); and P1/P2 on the gather probe's inputs."""
     import torch
+
+    from gemnet_pytorch_tpu_torch.scripts import gather_probe
 
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -186,8 +222,8 @@ def kernel_cases(cfg, batch, device, seed: int = 0):
     n_e = batch["id_c"].shape[0]
     n_intm = batch["id4_reduce_intm_ca"].shape[0]
     cases = []
-    for dtype in ("f32", "bf16"):
-        cast = (lambda t: t) if dtype == "f32" else (lambda t: t.bfloat16())
+    for dtype in ("f32", "bf16", "split3"):
+        cast = (lambda t: t.bfloat16()) if dtype == "bf16" else (lambda t: t)
         for tag, ids, plan, mask, S, M in (
             ("triplet", "id3_reduce_ca", "id3_reduce_ca_plan", "trip_mask", S3, M3),
             ("quadruplet", "id4_reduce_ca", "id4_reduce_ca_plan", "quad_mask", S4, M4),
@@ -205,13 +241,17 @@ def kernel_cases(cfg, batch, device, seed: int = 0):
             ("geometry_abd", "quad_abd", "id4_expand_abd", 3, n_intm),
             ("geometry_cab", "quad_cab", "id4_reduce_cab", 4, n_intm),
         ):
-            if dtype == "bf16" and tag.startswith("geometry"):
+            if dtype == "split3" or (dtype == "bf16" and tag.startswith("geometry")):
                 continue
             n = batch[idx].shape[0]
             cases.append(dict(kernel="K3", tag=tag, dtype=dtype, x=cast(rand(n, M)),
                               idx=batch[idx], perm=batch[f"{sort}_perm"],
                               sorted=batch[f"{sort}_sorted"], plan=batch[f"{sort}_plan"],
                               shape=(n, M, n_src)))
+    table, tableT, idx = gather_probe.inputs(device)
+    shape = (idx.shape[0], table.shape[1], table.shape[0])  # (R, M, N)
+    cases.append(dict(kernel="P1", tag="probe", dtype="bf16", table=table, idx=idx, shape=shape))
+    cases.append(dict(kernel="P2", tag="probe", dtype="bf16", table=tableT, idx=idx, shape=shape))
     return cases
 
 
@@ -223,7 +263,25 @@ KERNELS = {
                replaces="gemnet_pytorch_tpu/ops/pallas/segment_outer.py:447"),
     "K3": dict(name="sorted_segsum", source=EG_SRC, fn="gemnet_sorted_segsum_{}",
                replaces="gemnet_pytorch_tpu/ops/pallas/expand_gather.py:71"),
+    "P1": dict(name="row_gather", source=RG_SRC, fn="gemnet_row_gather",
+               replaces="scripts/gather_probe.py:74"),
+    "P2": dict(name="row_gather_fm", source=RG_SRC, fn="gemnet_row_gather_fm",
+               replaces="scripts/gather_probe.py:99"),
 }
+# K4: the split3 branches of K1's and K2's TPU kernels
+SPLIT3_KERNELS = {
+    "K1": dict(name="segment_outer_sum_split3", source=SO_SRC,
+               replaces="gemnet_pytorch_tpu/ops/pallas/segment_outer.py:355"),
+    "K2": dict(name="segment_gather_contract_split3", source=SO_SRC,
+               replaces="gemnet_pytorch_tpu/ops/pallas/segment_outer.py:499"),
+}
+
+
+def kernel_info(case) -> dict:
+    """name, source and replaces of a case's kernel (K4 for split3 cases)."""
+    if case["dtype"] == "split3":
+        return SPLIT3_KERNELS[case["kernel"]]
+    return KERNELS[case["kernel"]]
 
 
 def kernel_fn(case) -> str:
@@ -237,18 +295,32 @@ def case_functions(case):
     import torch
 
     from gemnet_pytorch_tpu_torch.ops import expand_gather as eg
+    from gemnet_pytorch_tpu_torch.ops import row_gather as rg
     from gemnet_pytorch_tpu_torch.ops import segment_outer as so
 
     k = case["kernel"]
+    split3 = case["dtype"] == "split3"
+    precision = "split3" if split3 else "exact"
     if k == "K1":
         a, b, ids, plan = case["a"], case["b"], case["ids"], case["plan"]
         n_seg = plan.n_segments
-        return ((lambda: (so.outer_sum(a, b, ids, plan),)),
-                (lambda: (so._outer_sum_plain(a, b, ids, n_seg),)), None)
+        plain = so._outer_sum_split3_plain if split3 else so._outer_sum_plain
+        return ((lambda: (so.outer_sum(a, b, ids, plan, precision),)),
+                (lambda: (plain(a, b, ids, n_seg),)), None)
     if k == "K2":
         a, b, ids, plan, cot = case["a"], case["b"], case["ids"], case["plan"], case["cot"]
-        return ((lambda: so.gather_contract(cot, a, b, ids, plan)),
-                (lambda: so._gather_contract_plain(cot, a, b, ids)), None)
+        plain = so._gather_contract_split3_plain if split3 else so._gather_contract_plain
+        return ((lambda: so.gather_contract(cot, a, b, ids, plan, precision)),
+                (lambda: plain(cot, a, b, ids)), None)
+    if k in ("P1", "P2"):
+        table, idx = case["table"], case["idx"]
+        if k == "P1":
+            return ((lambda: (rg.gather_rows(table, idx),)),
+                    (lambda: (rg._gather_rows_plain(table, idx),)),
+                    (lambda: (torch.index_select(table, 0, idx),)))
+        return ((lambda: (rg.gather_rows_fm(table, idx),)),
+                (lambda: (rg._gather_rows_fm_plain(table, idx),)),
+                (lambda: (table.index_select(1, idx),)))
     x, idx, perm, srt, plan = case["x"], case["idx"], case["perm"], case["sorted"], case["plan"]
     n_seg = plan.n_segments
     return ((lambda: (eg.sorted_segsum_values(x, perm, srt, plan),)),
@@ -260,16 +332,23 @@ def case_functions(case):
 def case_cost(case) -> tuple[float, float]:
     """(bytes, flops) the function must move and do: each input read once,
     each output written once (row data at the case's dtype; the segment
-    structure counted as nSeg+1 int32 offsets, K3's permutation as n int32)."""
+    structure counted as nSeg+1 int32 offsets, K3's permutation as n int32;
+    split3 does three bf16 products per fp32 one; P1/P2 read the indices and
+    the N-row table once, since a row read twice comes from L2, write R rows,
+    and do no arithmetic)."""
     k, w = case["kernel"], BYTES[case["dtype"]]
+    if k in ("P1", "P2"):
+        R, M, N = case["shape"]
+        return 4 * R + w * N * M + w * R * M, 0.0
     if k in ("K1", "K2"):
         n, S, M, n_seg = case["shape"]
         rows = w * n * (S + M)
         tile = w * S * n_seg * M
         offsets = 4 * (n_seg + 1)
+        passes = 3 if case["dtype"] == "split3" else 1
         if k == "K1":
-            return rows + offsets + tile, 2.0 * n * S * M
-        return tile + rows + offsets + rows, 4.0 * n * S * M
+            return rows + offsets + tile, passes * 2.0 * n * S * M
+        return tile + rows + offsets + rows, passes * 4.0 * n * S * M
     n, M, n_seg = case["shape"]
     return w * n * M + 4 * n + 4 * (n_seg + 1) + w * n_seg * M, float(n * M)
 
@@ -278,54 +357,64 @@ def case_label(case) -> str:
     return f"{case['kernel']} {case['tag']:12s} {case['dtype']}"
 
 
-def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> tuple[float, float, float]:
-    """(median, min, max) over `windows` CUDA-event windows of `iters` calls
-    each, in ms per call, after a warm-up."""
+def max_err(case, outs, refs) -> tuple[float, float]:
+    """(max abs difference, max |ref|) over a case's outputs."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return float(np.median(times)), min(times), max(times)
+    err, scale = 0.0, 0.0
+    for o, r in zip(outs, refs):
+        check(o.shape == r.shape and o.dtype == r.dtype,
+              f"{case_label(case)}: {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
+        o, r = o.float(), r.float()
+        check(bool(torch.isfinite(o).all()), f"{case_label(case)}: non-finite")
+        err = max(err, float((o - r).abs().max()))
+        scale = max(scale, float(r.abs().max()))
+    return err, scale
 
 
 def compare_kernels(cases):
-    """Phase 3: each case's kernel against its plain version."""
+    """Phase 3: each case's kernel against its plain version (P1/P2 bit for
+    bit); K4 also against the exact fp32 plain K1/K2."""
     import torch
+
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
 
     results = {}
     for case in cases:
         kernel, plain, _ = case_functions(case)
         outs, refs = kernel(), plain()
         torch.cuda.synchronize()
-        err, scale = 0.0, 0.0
-        for o, r in zip(outs, refs):
-            check(o.shape == r.shape and o.dtype == r.dtype,
-                  f"{case_label(case)}: {o.shape} {o.dtype} vs {r.shape} {r.dtype}")
-            o, r = o.float(), r.float()
-            check(bool(torch.isfinite(o).all()), f"{case_label(case)}: non-finite")
-            err = max(err, float((o - r).abs().max()))
-            scale = max(scale, float(r.abs().max()))
-        tol = KERNEL_RTOL[case["dtype"]] * max(scale, 1.0)
+        err, scale = max_err(case, outs, refs)
+        if case["kernel"] in ("P1", "P2"):
+            tol = 0.0
+            check(all(torch.equal(o, r) for o, r in zip(outs, refs)),
+                  f"{case_label(case)} is not bit-equal to table[idx]")
+        else:
+            tol = KERNEL_RTOL[case["dtype"]] * max(scale, 1.0)
         log(f"  {case_label(case)} shape {case['shape']}: max abs err {err:.3e}"
             f" (rel {err / max(scale, 1e-30):.3e}, tolerance {tol:.3e})")
         check(err <= tol, f"{case_label(case)} disagrees with its plain version")
+        if case["dtype"] == "split3":
+            a, b, ids = case["a"], case["b"], case["ids"]
+            exact = ((so._outer_sum_plain(a, b, ids, case["plan"].n_segments),)
+                     if case["kernel"] == "K1" else
+                     so._gather_contract_plain(case["cot"], a, b, ids))
+            # per output (K2: da and db), as tests/test_segment_outer.py:155-158
+            rel = [e / max(x, 1e-30) for e, x in (max_err(case, (o,), (r,))
+                                                  for o, r in zip(outs, exact))]
+            log(f"    vs the exact fp32 plain version: max abs err / max |exact| "
+                f"{', '.join(f'{r:.3e}' for r in rel)} (tolerance {SPLIT3_EXACT_RTOL:.0e})")
+            check(max(rel) <= SPLIT3_EXACT_RTOL,
+                  f"{case_label(case)} is farther from exact fp32 than split3's bound")
+            check(min(rel) > 0, f"{case_label(case)} equals exact fp32: split3 did not run")
         results[(case["kernel"], case["tag"], case["dtype"])] = err
     return results
 
 
 def time_kernels(cases, power: str):
     """Phase 4: ms of kernel, plain version and library call; the bound."""
+    from gemnet_pytorch_tpu_torch.ops._cuda import cuda_ms
+
     rows = {}
     for case in cases:
         kernel, plain, library = case_functions(case)
@@ -370,7 +459,8 @@ def close(a, b, rtol: float) -> tuple[bool, float]:
 
 
 def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int = 3):
-    """Phase 5. Returns the launch census of one predict and the timings."""
+    """Phase 5. Returns the launch census of one predict, the timings and
+    its energies."""
     import torch
 
     from gemnet_pytorch_tpu_torch.data import to_torch
@@ -424,7 +514,7 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
         f"{timing['molecules_per_s']:.1f} molecules/s, max_memory_allocated "
         f"{timing['max_memory_allocated'] / 2**20:.1f} MiB")
     profile(lambda: predict(model, batch), "request")
-    return census, per_kernel, timing
+    return census, per_kernel, timing, E.cpu().numpy()
 
 
 def profile(fn, what: str, top: int = 12) -> None:
@@ -452,6 +542,49 @@ def profile(fn, what: str, top: int = 12) -> None:
         f"{n_ops} aten op calls")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def serve_high(cfg, mols, device, exact_E):
+    """Phase 5, "high": one predict of the bench-small batch in
+    matmul_precision="high" with the launch counters read around it, E/F
+    against the same "high" model on the CPU (first 8 molecules, the plain
+    split3 versions) and E against the exact predict of phase 5 on the card.
+    Returns the census."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    cfg = dataclasses.replace(cfg, matmul_precision="high")
+    model = make_model(cfg, device)
+    batch_np, _ = padded_batch(cfg, mols)
+    batch = to_torch(batch_np, device)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    E, F = predict(model, batch)
+    torch.cuda.synchronize()
+    census, per_kernel = dict(_cuda.LAUNCHES), _cuda.kernel_launches()
+    log(f"  one 'high' predict launched {per_kernel}")
+    check(per_kernel == SERVE_LAUNCHES["high"],
+          f"'high' predict launched {per_kernel}, expected {SERVE_LAUNCHES['high']}")
+    check(bool(torch.isfinite(E).all() and torch.isfinite(F).all()), "non-finite 'high' E or F")
+    n_mol = len(mols)
+    _, errE = close(E.cpu().numpy()[:n_mol], exact_E[:n_mol], 1.0)
+    log(f"  'high' vs exact on the card: max |dE| {errE:.3e} of max |E| "
+        f"{float(np.abs(exact_E[:n_mol]).max()):.3e}")
+
+    sub_np, _ = padded_batch(cfg, mols[:8])
+    E_gpu, F_gpu = predict(model, to_torch(sub_np, device))
+    E_cpu, F_cpu = predict(copy.deepcopy(model).to("cpu"), to_torch(sub_np, "cpu"))
+    n_sub = sum(len(z) for z, _ in mols[:8])
+    okE, errE = close(E_gpu.cpu().numpy()[:8], E_cpu.numpy()[:8], SERVE_RTOL)
+    okF, errF = close(F_gpu.cpu().numpy()[:n_sub], F_cpu.numpy()[:n_sub], SERVE_RTOL)
+    log(f"  'high' card vs CPU on the first 8 molecules: max |dE| {errE:.3e}, max |dF| "
+        f"{errF:.3e} (rtol {SERVE_RTOL})")
+    check(okE and okF, "'high' E/F on the card disagree with the CPU run")
+    return census
 
 
 def calculator(cfg, device, n_geoms: int = 5, seed: int = 0):
@@ -502,20 +635,11 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5, n_timed: int = 10,
-          warmup: int = 3):
-    """Phase 7. Returns the launch census of one train step per dtype and
-    the timings."""
-    import dataclasses
-
-    import torch
-
-    from gemnet_pytorch_tpu_torch.data import to_torch
-    from gemnet_pytorch_tpu_torch.ops import _cuda
-    from gemnet_pytorch_tpu_torch.training import Metrics
-
-    # fp32 on the card vs the CPU, one step on the first n_compare molecules
-    sub_np, _ = padded_batch(cfg, mols[:n_compare])
+def step_card_vs_cpu(cfg, mols, device, label: str):
+    """One fp32 train step (weights from seed 0) on the card and on the CPU
+    on `mols`: the loss within TRAIN_LOSS_RTOL, the whole update within a
+    relative L2 error of TRAIN_UPDATE_REL_L2."""
+    sub_np, _ = padded_batch(cfg, mols)
     steps = {}
     for dev in (device, "cpu"):
         trainer, state = make_trainer(cfg, "float32", dev)
@@ -524,12 +648,78 @@ def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5, n_timed: int 
         steps[str(dev)] = (float(loss), (state.params - p0).cpu().numpy())
     (loss_gpu, d_gpu), (loss_cpu, d_cpu) = steps[str(device)], steps["cpu"]
     rel = rel_l2(d_gpu, d_cpu)
-    log(f"  fp32 step, card vs CPU on the first {n_compare} molecules: loss {loss_gpu:.6f} vs "
+    log(f"  {label} step, card vs CPU on the first {len(mols)} molecules: loss {loss_gpu:.6f} vs "
         f"{loss_cpu:.6f} (rtol {TRAIN_LOSS_RTOL}), update rel L2 {rel:.3e} "
         f"(limit {TRAIN_UPDATE_REL_L2})")
     check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu),
-          "fp32 train-step loss on the card disagrees with the CPU")
-    check(rel <= TRAIN_UPDATE_REL_L2, "fp32 parameter update on the card disagrees with the CPU")
+          f"{label} train-step loss on the card disagrees with the CPU")
+    check(rel <= TRAIN_UPDATE_REL_L2,
+          f"{label} parameter update on the card disagrees with the CPU")
+
+
+def params_view(model, flat) -> bool:
+    """Every parameter of `model` is a view of `flat`, in order."""
+    off = 0
+    for p in model.parameters():
+        if p.data_ptr() != flat.data_ptr() + off * flat.element_size():
+            return False
+        off += p.numel()
+    return off == flat.numel()
+
+
+def one_step_census(trainer, state, batch, label: str):
+    """One train step with the launch counters read around it: (state, loss,
+    census by kernel and shape, launches by kernel)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    state, loss = trainer.train_on_batch(state, batch, 1.0)
+    torch.cuda.synchronize()
+    per_kernel = _cuda.kernel_launches()
+    log(f"  one {label} train step launched {per_kernel}")
+    return state, loss, dict(_cuda.LAUNCHES), per_kernel
+
+
+def timed_steps(trainer, state, batch, n_agg: int, label: str, n_timed: int = 10,
+                warmup: int = 3) -> dict:
+    """`warmup` then `n_timed` steps on the host clock, ending in a
+    synchronize; then one profiled step."""
+    import torch
+
+    for _ in range(warmup):
+        trainer.train_on_batch(state, batch, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        trainer.train_on_batch(state, batch, 1.0)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / n_timed
+    timing = dict(ms_per_step=sec * 1e3, agg_per_s=n_agg / sec,
+                  max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"  {label}: {n_timed} timed steps, {timing['ms_per_step']:.3f} ms/step, "
+        f"{timing['agg_per_s']:.4e} triplets+quads/s ({n_agg} real rows), "
+        f"max_memory_allocated {timing['max_memory_allocated'] / 2**20:.1f} MiB")
+    profile(lambda: trainer.train_on_batch(state, batch, 1.0), f"{label} train step")
+    return timing
+
+
+def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5):
+    """Phase 7. Returns the launch census of one train step per dtype and
+    the timings."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.training import Metrics
+
+    # fp32 on the card vs the CPU, one step on the first n_compare molecules
+    step_card_vs_cpu(cfg, mols[:n_compare], device, "fp32")
+    sub_np, _ = padded_batch(cfg, mols[:n_compare])
 
     batch_np, g = padded_batch(cfg, mols)
     batch = to_torch(batch_np, device)
@@ -588,13 +778,7 @@ def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5, n_timed: int 
 
     census, per_kernel, timing = {}, {}, {}
     for dt, (trainer, state) in runs.items():
-        # one train step with the launch counters read around it
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        state, loss = trainer.train_on_batch(state, batch, 1.0)
-        torch.cuda.synchronize()
-        census[dt], per_kernel[dt] = dict(_cuda.LAUNCHES), _cuda.kernel_launches()
-        log(f"  one {dt} train step launched {per_kernel[dt]}")
+        state, loss, census[dt], per_kernel[dt] = one_step_census(trainer, state, batch, dt)
         losses = [float(loss)]
         for _ in range(n_steps - 1):
             state, loss = trainer.train_on_batch(state, batch, 1.0)
@@ -616,22 +800,113 @@ def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5, n_timed: int 
         log(f"  {dt}: eval on the EMA weights, "
             f"{', '.join(f'{k} {v:.6f}' for k, v in val.result(append_tag=False).items())}")
         check(np.isfinite(val_loss), f"{dt}: non-finite EMA eval")
+        timing[dt] = timed_steps(trainer, state, batch, n_agg, dt)
+    return census, per_kernel, timing
 
-        for _ in range(warmup):
-            trainer.train_on_batch(state, batch, 1.0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(n_timed):
-            trainer.train_on_batch(state, batch, 1.0)
-        torch.cuda.synchronize()
-        sec = (time.perf_counter() - t0) / n_timed
-        timing[dt] = dict(ms_per_step=sec * 1e3, agg_per_s=n_agg / sec,
-                          max_memory_allocated=torch.cuda.max_memory_allocated())
-        log(f"  {dt}: {n_timed} timed steps, {timing[dt]['ms_per_step']:.3f} ms/step, "
-            f"{timing[dt]['agg_per_s']:.4e} triplets+quads/s ({n_agg} real rows), "
-            f"max_memory_allocated {timing[dt]['max_memory_allocated'] / 2**20:.1f} MiB")
-        profile(lambda: trainer.train_on_batch(state, batch, 1.0), f"{dt} train step")
+
+def train_high(cfg, mols, device, workdir: str):
+    """Phase 8: the training entry point in matmul_precision="high". Returns
+    the launch census of one "high" step and its timing."""
+    import dataclasses
+    import logging.handlers
+    import os
+    import shutil
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch import train as train_driver
+    from gemnet_pytorch_tpu_torch.compat import strip_reference_aliases
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.training import PlateauState, restore_checkpoint, restore_params
+    from gemnet_pytorch_tpu_torch.training.checkpoint import state_tensors
+    from gemnet_pytorch_tpu_torch.training.flat_opt import bind_parameters
+
+    hcfg = dataclasses.replace(cfg, matmul_precision="high")
+    step_card_vs_cpu(hcfg, mols[:8], device, "'high'")
+
+    batch_np, g = padded_batch(hcfg, mols)
+    batch = to_torch(batch_np, device)
+    trainer, state = make_trainer(hcfg, "float32", device)
+    state, _, census, per_kernel = one_step_census(trainer, state, batch, "'high'")
+    check(per_kernel == TRAIN_LAUNCHES["high"],
+          f"'high' train step launched {per_kernel}, expected {TRAIN_LAUNCHES['high']}")
+
+    # the entry point: 20 steps, eval and checkpoint every 10, with export
+    run_dir = os.path.join(workdir, "run")
+    export = os.path.join(workdir, "export.pth")
+    config = dict(dataclasses.asdict(hcfg), **TRAIN_RUN, restart=run_dir, logdir=workdir)
+    t0 = time.perf_counter()
+    best = train_driver.run(config, device=device, synthetic_molecules=TRAIN_RUN_MOLECULES,
+                            export_torch=export)
+    log(f"  train.run, {TRAIN_RUN['num_steps']} steps on {TRAIN_RUN_MOLECULES} synthetic "
+        f"molecules in {time.perf_counter() - t0:.1f} s: best {best}")
+    check(all(np.isfinite(v) for v in best.values()), "train.run: non-finite metrics")
+    for rel in ("logs/checkpoint", "logs/checkpoint.plateau.npz", "best/model",
+                "best/best_metrics.npz"):
+        check(os.path.exists(os.path.join(run_dir, rel)), f"train.run wrote no {rel}")
+    ckpt = os.path.join(run_dir, "logs", "checkpoint")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    with np.load(ckpt + ".plateau.npz", allow_pickle=True) as d:
+        saved_plateau = {k: d[k].item() for k in d.files}
+    check(int(saved["step"]) == TRAIN_RUN["num_steps"], f"checkpoint at step {int(saved['step'])}")
+
+    # resumed: the run restarts from its step-20 checkpoint (its log says so)
+    # and ends at step 30; and the step-20 checkpoint restores into a fresh
+    # state (other weights) bit for bit, in the buffer its model's
+    # parameters view
+    step20 = os.path.join(workdir, "checkpoint-20")
+    for suffix in ("", ".plateau.npz"):
+        shutil.copyfile(ckpt + suffix, step20 + suffix)
+    root = logging.getLogger()
+    records, level = logging.handlers.BufferingHandler(1 << 20), root.level
+    root.addHandler(records)
+    root.setLevel(logging.INFO)
+    try:
+        train_driver.run(dict(config, num_steps=30), device=device,
+                         synthetic_molecules=TRAIN_RUN_MOLECULES)
+    finally:
+        root.removeHandler(records)
+        root.setLevel(level)
+    restored_at = [r.args[0] for r in records.buffer
+                   if r.msg == "restored checkpoint at step %d"]
+    end = int(torch.load(ckpt, map_location="cpu", weights_only=True)["step"])
+    fresh_trainer, fresh_state = make_trainer(hcfg, "float32", device, seed=1)
+    fresh_state, fresh_plateau = restore_checkpoint(step20, fresh_state, PlateauState())
+    tensors = state_tensors(fresh_state)
+    equal = all(torch.equal(tensors[k].cpu(), v) for k, v in saved.items())
+    plateau_equal = fresh_plateau.state_dict() == saved_plateau
+    views = params_view(fresh_trainer.model, fresh_state.params)
+    log(f"  resumed run: restored at step {restored_at}, ended at step {end}; the step-20 "
+        f"checkpoint in a fresh state: bit-equal {equal}, plateau equal {plateau_equal}, "
+        f"parameters views of the state {views}")
+    check(restored_at == [TRAIN_RUN["num_steps"]] and end == 30,
+          "train.run did not resume from its checkpoint")
+    check(equal and plateau_equal and views,
+          "the checkpoint does not restore in place bit for bit")
+
+    # the export, aliases dropped, loads strictly and predicts as the final
+    # EMA weights (it is them); the best model (the EMA weights at the best
+    # eval) loads strictly and predicts finite energies
+    ref_sd = torch.load(export, map_location="cpu", weights_only=True)
+    exported = GemNet(hcfg, generator=torch.Generator().manual_seed(1), device=device)
+    exported.load_state_dict(strip_reference_aliases(ref_sd), strict=True)
+    final_ema = GemNet(hcfg, generator=torch.Generator().manual_seed(2), device=device)
+    bind_parameters(final_ema, saved["ema_params"].to(device))
+    best_model = restore_params(os.path.join(run_dir, "best/model"),
+                                GemNet(hcfg, generator=torch.Generator().manual_seed(3),
+                                       device=device))
+    one = to_torch(padded_batch(hcfg, mols[:8])[0], device)
+    preds = [predict(m.requires_grad_(False), one)[0].cpu().numpy()[:8]
+             for m in (exported, final_ema, best_model)]
+    ok, err = close(preds[0], preds[1], SERVE_RTOL)
+    log(f"  export: {len(ref_sd)} keys ({len(strip_reference_aliases(ref_sd))} without the "
+        f"aliases); E on 8 molecules vs the final EMA weights: max |dE| {err:.3e}; best model "
+        f"(step {int(best['step_best'])}): max |E| {float(np.abs(preds[2]).max()):.3e}")
+    check(ok, "the exported weights do not predict as the final EMA weights")
+    check(bool(np.isfinite(preds[2]).all()), "the best model predicts non-finite energies")
+
+    timing = timed_steps(trainer, state, batch, g.n_triplets + g.n_quads, "'high'")
     return census, per_kernel, timing
 
 
@@ -647,6 +922,7 @@ def main() -> int:
         from gemnet_pytorch_tpu_torch.config import ModelConfig
         from gemnet_pytorch_tpu_torch.data import to_torch
         from gemnet_pytorch_tpu_torch.ops import _cuda
+        from gemnet_pytorch_tpu_torch.scripts import gather_probe
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
@@ -675,51 +951,65 @@ def main() -> int:
     batch_np, _ = padded_batch(cfg, mols)
     cases = kernel_cases(cfg, to_torch(batch_np, device), device)
 
-    log("== 3. kernels vs plain versions (bench-small shapes, fp32 and bf16 streams)")
+    log("== 3. kernels vs plain versions (bench-small shapes: fp32, bf16 and split3 streams; "
+        "the gather probe's shape)")
     errors = compare_kernels(cases)
 
     log(f"== 4. kernel timing [{power}]")
     timings = time_kernels(cases, power)
 
     log("== 5. serving GemNet-Q (config.yaml widths, random weights, seed 0)")
-    serve_census, per_kernel, timing = serve(cfg, mols, device)
-    for k, n in {"K1": 8, "K2": 8, "K3": 14}.items():
-        got = per_kernel.get(KERNELS[k]["fn"].format("f32"), 0)
-        check(got == n, f"{KERNELS[k]['name']}: {got} launches per predict, expected {n}")
+    serve_census, per_kernel, timing, exact_E = serve(cfg, mols, device)
+    check(per_kernel == SERVE_LAUNCHES["default"],
+          f"one predict launched {per_kernel}, expected {SERVE_LAUNCHES['default']}")
+    serve_high_census = serve_high(cfg, mols, device, exact_E)
 
     log("== 6. calculator (benzonitrile, 5 perturbed geometries)")
     calculator(cfg, device)
 
     log(f"== 7. training GemNet-Q (config.yaml widths, random weights, seed 0) [{power}]")
     train_census, train_per_kernel, train_timing = train(cfg, mols, device)
-    for dt, expected in TRAIN_LAUNCHES.items():
-        check(train_per_kernel[dt] == expected,
-              f"{dt} train step launched {train_per_kernel[dt]}, expected {expected}")
+    for dt in ("float32", "bfloat16"):
+        check(train_per_kernel[dt] == TRAIN_LAUNCHES[dt],
+              f"{dt} train step launched {train_per_kernel[dt]}, expected {TRAIN_LAUNCHES[dt]}")
+
+    log(f"== 8. the training entry point in matmul_precision='high' (GemNet-Q, config.yaml "
+        f"widths, random weights, seed 0) [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_train_") as workdir:
+        high_census, _, train_timing["high"] = train_high(cfg, mols, device, workdir)
+
+    log(f"== 9. the row-gather probe [{power}]")
+    _cuda.reset_launches()
+    gather_probe.main(device)
+    torch.cuda.synchronize()
+    probe_census = dict(_cuda.LAUNCHES)
 
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
-             "train_bf16": train_census["bfloat16"]}
+             "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
+             "train_high": high_census, "probe": probe_census}
+    # each row's own paths, where it must have launched
+    own = {"f32": ("serve", "train_fp32"), "bf16": ("train_bf16",),
+           "split3": ("serve_high", "train_high")}
     kernels = []
     for case in cases:
         key = (case["kernel"], case["tag"], case["dtype"])
-        info = KERNELS[case["kernel"]]
+        info = kernel_info(case)
         by_path = {p: c.get((kernel_fn(case), case["shape"]), 0) for p, c in paths.items()}
         kernels.append(dict(
             name=f"{info['name']}[{case['tag']},{case['dtype']}]", route="cuda",
             source=info["source"], replaces=info["replaces"], dtype=case["dtype"],
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=errors[key], **timings[key]))
-    log(f"== kernels on the serving and training paths [{power}]")
-    log(f"  {'kernel':40s} {'serve':>5s} {'fp32 step':>9s} {'bf16 step':>9s} {'ms':>8s} "
-        f"{'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}")
-    for row in kernels:
+    log(f"== kernels on the serving, training and probe paths [{power}]")
+    log(f"  {'kernel':50s} " + " ".join(f"{p:>10s}" for p in paths)
+        + f" {'ms':>8s} {'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}")
+    for case, row in zip(cases, kernels):
         by_path = row["launches_by_path"]
-        need = ("serve", "train_fp32") if row["dtype"] == "f32" else ("train_bf16",)
-        for p in need:
+        for p in ("probe",) if case["kernel"] in ("P1", "P2") else own[row["dtype"]]:
             check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
         lib = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "null"
-        log(f"  {row['name']:40s} {by_path['serve']:5d} {by_path['train_fp32']:9d} "
-            f"{by_path['train_bf16']:9d} {row['ms']:8.4f} {row['bound_ms']:9.4f} "
-            f"{row['plain_ms']:9.4f} {lib:>10s}")
+        log(f"  {row['name']:50s} " + " ".join(f"{by_path[p]:10d}" for p in paths)
+            + f" {row['ms']:8.4f} {row['bound_ms']:9.4f} {row['plain_ms']:9.4f} {lib:>10s}")
     log(f"== done in {time.perf_counter() - t_start:.1f} s; serving "
         f"{timing['ms_per_request']:.3f} ms/request, {timing['molecules_per_s']:.1f} molecules/s; "
         + "; ".join(f"train {dt} {t['ms_per_step']:.3f} ms/step, {t['agg_per_s']:.4e} "

@@ -1,12 +1,15 @@
-"""Weight interchange with the JAX package.
+"""Weight interchange with the JAX package and the reference.
 
 This package's parameter names ARE the reference state-dict schema (less
 the reference's `.linear.` and `seq_energy` aliases), so a reference
-checkpoint loads with `load_state_dict`. `state_dict_from_jax` carries the
-JAX package's flax variables over: its own copy of the map between flax
-paths and reference names (`gemnet_pytorch_tpu/compat/torch_import.py`,
-`torch_export.py`), with flax Dense kernels (in, out) transposed to torch
-(out, in) and the 3-D efficient weights kept as they are.
+checkpoint loads with `load_state_dict` once `strip_reference_aliases` has
+dropped those. `state_dict_from_jax` carries the JAX package's flax
+variables over: its own copy of the map between flax paths and reference
+names (`gemnet_pytorch_tpu/compat/torch_import.py`, `torch_export.py`),
+with flax Dense kernels (in, out) transposed to torch (out, in) and the 3-D
+efficient weights kept as they are. `export_reference_state_dict` goes the
+other way, from a model of this package to the reference's full key set
+(port of `torch_export.py:118-172`).
 """
 
 from __future__ import annotations
@@ -190,3 +193,47 @@ def state_dict_from_jax(variables_np: dict, cfg: ModelConfig) -> dict[str, torch
     for key, global_name in scale_state_names(cfg):
         out[key] = torch.tensor(scales[global_name], dtype=torch.float32)
     return out
+
+
+def _reference_aliases(name: str, is_dense: bool) -> list[str]:
+    """Every key the reference state_dict registers for `name`: a Dense
+    weight also as `X.linear.weight` (base_layers.py:26-27), and the output
+    blocks' `layers` also as `seq_energy` (atom_update_block.py:131)
+    (torch_export.py:126-135)."""
+    keys = [name]
+    if is_dense:
+        stem, leaf = name.rsplit(".", 1)
+        keys.append(f"{stem}.linear.{leaf}")
+    keys += [k.replace(".layers.", ".seq_energy.") for k in keys
+             if k.startswith("out_blocks.") and ".layers." in k]
+    return keys
+
+
+def export_reference_state_dict(model: torch.nn.Module,
+                                cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The model's weights as bound (bind the EMA weights first for an EMA
+    export, `Trainer.weights`) and its scale factors -> the reference
+    state_dict with its full, aliased key set, loadable by the reference
+    model with strict=True. CPU tensors, copies."""
+    sd = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    for name, is_dense in canonical_weights(cfg):
+        value = sd[name].detach().to("cpu", copy=True)
+        for key in _reference_aliases(name, is_dense):
+            out[key] = value
+    for key, _ in scale_state_names(cfg):
+        out[key] = sd[key].detach().to("cpu", torch.float32, copy=True)
+    return out
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module, cfg: ModelConfig) -> None:
+    """torch.save the exported state dict as a reference-loadable .pth
+    (reference save_weights, gemnet.py:786-787)."""
+    torch.save(export_reference_state_dict(model, cfg), path)
+
+
+def strip_reference_aliases(state_dict: dict) -> dict:
+    """A reference state_dict less its `.linear.` and `seq_energy` aliases:
+    what this package's GemNet loads with strict=True."""
+    return {k: v for k, v in state_dict.items()
+            if ".linear." not in k and ".seq_energy." not in k}

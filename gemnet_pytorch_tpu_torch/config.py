@@ -4,10 +4,9 @@
 
 The defaults equal `config.yaml` (GemNet-Q at the released widths and the
 reference's training hyperparameters). Knobs that only the JAX package serves
-(the split3 precision mode, edge partitioning, remat, MVE, AGC, the tree-mode
-optimizer) stay as fields so one YAML file configures both packages;
-`models.gemnet.GemNet` and `training.Trainer` raise on the ones this package
-does not run yet.
+(edge partitioning, remat, MVE, AGC, the tree-mode optimizer) stay as fields
+so one YAML file configures both packages; `models.gemnet.GemNet` and
+`training.Trainer` raise on the ones this package does not run yet.
 """
 
 from __future__ import annotations

@@ -20,6 +20,20 @@ compute_dtype="bfloat16" is the JAX package's mixed-precision mode
 generation stay fp32; the basis outputs and every layer compute in bf16
 (master parameters stay fp32 and are cast per call); segment reductions sum
 in fp32; E and F are returned in fp32.
+
+matmul_precision="high" is the JAX package's fast fp32 training mode
+(`gemnet_pytorch_tpu/models/gemnet.py:377-386`): the bilinear reductions K1
+and K2 run the split3 kernels (K4, `ops/segment_outer.py`), in the forward,
+the -dE/dR backward and the loss's grad-of-grad. The precision is carried
+as an argument down to `ops.bilinear`, not set process-wide. Everything
+else stays exact fp32: the geometry segment sums (K3), as in JAX
+(`ops/pallas/segment_outer.py:167-168`), and the dense layers, with TF32 off
+(`_cuda.set_matmul_precision` is the same in every mode). JAX's "high" means
+bf16x3 on its chip, about 16 mantissa bits; TF32, the card's cheap fp32
+product, keeps 10. And PyTorch's flag for fp32 products
+(`torch.backends.cuda.matmul.allow_tf32`) is process-wide: it cannot be
+scoped to one model's dense backward matmuls. "default" and "highest" are
+exact fp32.
 """
 
 from __future__ import annotations
@@ -45,7 +59,7 @@ from .layers import (
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "compute_dtype": cfg.compute_dtype not in ("float32", "bfloat16"),
-        "matmul_precision": cfg.matmul_precision not in ("default", "highest"),
+        "matmul_precision": cfg.matmul_precision not in ("default", "high", "highest"),
         "num_targets": cfg.num_targets != 1,
         "ep_axis": cfg.ep_axis is not None,
         "ep_halo": cfg.ep_halo,
@@ -71,8 +85,9 @@ class GemNet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device="cuda"):
         super().__init__()
         _check_supported(cfg)
-        # "default"/"highest" mean full fp32 products on the card
+        # full fp32 dense products on the card in every mode (module docstring)
         _cuda.set_matmul_precision()
+        precision = "split3" if cfg.matmul_precision == "high" else "exact"
         self.cfg = cfg
         self.cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         kw = dict(generator=generator, dtype=self.cdt)
@@ -102,7 +117,7 @@ class GemNet(nn.Module):
                 cfg.emb_size_rbf, cfg.emb_size_cbf, cfg.emb_size_sbf, cfg.emb_size_bil_trip,
                 cfg.emb_size_bil_quad, cfg.num_before_skip, cfg.num_after_skip,
                 cfg.num_concat, cfg.num_atom, cfg.triplets_only, block_nr=i + 1,
-                activation=cfg.activation, **kw)
+                activation=cfg.activation, precision=precision, **kw)
             for i in range(cfg.num_blocks)])
         self.out_blocks = nn.ModuleList([
             OutputBlock(

@@ -7,7 +7,8 @@ quadruplets, 1/sqrt(2) without; reference interaction_block.py:202-203,
 carry their sort metadata, so their VJPs run as the sorted segment sum K3.
 `dtype` is every layer's compute dtype (None: fp32; torch.bfloat16 in the
 bf16 mode), passed through as `gemnet_pytorch_tpu/models/interaction.py`
-does.
+does; `precision` is the bilinears' kernel mode ("split3" when
+matmul_precision="high", else "exact").
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ class QuadrupletInteraction(nn.Module):
 
     def __init__(self, emb_size_edge, emb_size_quad, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, emb_size_sbf, activation=None, scale_prefix="QuadInteraction_1",
-                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
+                 precision: str = "exact"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.dense_db = Dense(emb_size_edge, emb_size_edge, activation, **kw)
@@ -46,7 +48,7 @@ class QuadrupletInteraction(nn.Module):
         self.mlp_cbf = Dense(emb_size_cbf, emb_size_quad, **kw)
         self.scale_cbf = ScalingFactor(scale_prefix + "_had_cbf")
         self.mlp_sbf = EfficientInteractionBilinear(
-            emb_size_quad, emb_size_sbf, emb_size_bilinear, **kw)
+            emb_size_quad, emb_size_sbf, emb_size_bilinear, precision=precision, **kw)
         self.scale_sbf_sum = ScalingFactor(scale_prefix + "_sum_sbf")
         self.down_projection = Dense(emb_size_edge, emb_size_quad, activation, **kw)
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
@@ -78,14 +80,15 @@ class TripletInteraction(nn.Module):
 
     def __init__(self, emb_size_edge, emb_size_trip, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, activation=None, scale_prefix="TripInteraction_1",
-                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
+                 precision: str = "exact"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.dense_ba = Dense(emb_size_edge, emb_size_edge, activation, **kw)
         self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, **kw)
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
         self.mlp_cbf = EfficientInteractionBilinear(
-            emb_size_trip, emb_size_cbf, emb_size_bilinear, **kw)
+            emb_size_trip, emb_size_cbf, emb_size_bilinear, precision=precision, **kw)
         self.scale_cbf_sum = ScalingFactor(scale_prefix + "_sum_cbf")
         self.down_projection = Dense(emb_size_edge, emb_size_trip, activation, **kw)
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
@@ -115,7 +118,8 @@ class InteractionBlock(nn.Module):
                  emb_size_rbf, emb_size_cbf, emb_size_sbf, emb_size_bil_trip,
                  emb_size_bil_quad, num_before_skip, num_after_skip, num_concat, num_atom,
                  triplets_only: bool, block_nr: int = 1, activation: Optional[str] = None,
-                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
+                 precision: str = "exact"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.triplets_only = triplets_only
@@ -123,10 +127,11 @@ class InteractionBlock(nn.Module):
         if not triplets_only:
             self.quad_interaction = QuadrupletInteraction(
                 emb_size_edge, emb_size_quad, emb_size_bil_quad, emb_size_rbf, emb_size_cbf,
-                emb_size_sbf, activation, f"QuadInteraction_{block_nr}", **kw)
+                emb_size_sbf, activation, f"QuadInteraction_{block_nr}", precision=precision,
+                **kw)
         self.trip_interaction = TripletInteraction(
             emb_size_edge, emb_size_trip, emb_size_bil_trip, emb_size_rbf, emb_size_cbf,
-            activation, f"TripInteraction_{block_nr}", **kw)
+            activation, f"TripInteraction_{block_nr}", precision=precision, **kw)
         self.layers_before_skip = nn.ModuleList(
             [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_before_skip)])
         self.layers_after_skip = nn.ModuleList(

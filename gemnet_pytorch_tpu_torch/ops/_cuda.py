@@ -7,9 +7,9 @@ source is rebuilt and never loaded stale. `build()` starts one nvcc per
 source, all together.
 
 Every launch goes through `launch`, which counts it (per C function and
-shape; the function's name carries the stream dtype, `_f32` or `_bf16`, for
-the launch census of a run) and raises when the C function reports a CUDA
-error.
+shape; the function's name carries the stream dtype, `_f32` or `_bf16`, or
+the `_split3` mode, for the launch census of a run) and raises when the C
+function reports a CUDA error. `cuda_ms` times a launch with CUDA events.
 """
 
 from __future__ import annotations
@@ -23,12 +23,14 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
+
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("segment_outer.cu", "expand_gather.cu")
+SOURCES = ("segment_outer.cu", "expand_gather.cu", "row_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P]
 _K2_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
 _K3_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P]
+_GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _P]
 # C function -> (source, argtypes, restype)
 _FUNCTIONS = {
     "gemnet_segment_outer_sum_f32": ("segment_outer.cu", _K1_ARGS, _I),
@@ -47,8 +50,15 @@ _FUNCTIONS = {
     "gemnet_segment_gather_contract_f32": ("segment_outer.cu", _K2_ARGS, _I),
     "gemnet_segment_gather_contract_bf16": ("segment_outer.cu", _K2_ARGS, _I),
     "gemnet_segment_gather_contract_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
+    "gemnet_segment_outer_sum_split3": ("segment_outer.cu", _K1_ARGS, _I),
+    "gemnet_segment_outer_sum_split3_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
+    "gemnet_segment_gather_contract_split3": ("segment_outer.cu", _K2_ARGS, _I),
+    "gemnet_segment_gather_contract_split3_smem": ("segment_outer.cu", [_I, _I],
+                                                   ctypes.c_size_t),
     "gemnet_sorted_segsum_f32": ("expand_gather.cu", _K3_ARGS, _I),
     "gemnet_sorted_segsum_bf16": ("expand_gather.cu", _K3_ARGS, _I),
+    "gemnet_row_gather": ("row_gather.cu", _GATHER_ARGS, _I),
+    "gemnet_row_gather_fm": ("row_gather.cu", _GATHER_ARGS, _I),
 }
 # stream dtype -> suffix of the kernel entries that take it
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -153,6 +163,25 @@ def kernel_launches() -> dict[str, int]:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> tuple[float, float, float]:
+    """(median, min, max) over `windows` CUDA-event windows of `iters` calls
+    each, in ms per call, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times)), min(times), max(times)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device) -> None:

@@ -2,8 +2,8 @@
 `gemnet_pytorch_tpu/ops/bilinear.py`; reference efficient.py:40-57,120-189).
 
 The neighbour sum  sum_k[s, e, m] = sum_t sph[t, s] * m[t, m]  runs as the
-segment-outer-sum kernel K1 (ops/segment_outer.py); two plain products
-finish the contraction.
+segment-outer-sum kernel K1 (ops/segment_outer.py), exact or in the split3
+mode (K4) as `precision` says; two plain products finish the contraction.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ def down_projection(rbf_env, weight):
     return torch.einsum("esr,sri->eis", rbf_env, weight)
 
 
-def bilinear(rbf_W1, sph_rows, m, id_reduce, plan, weight, mask=None):
+def bilinear(rbf_W1, sph_rows, m, id_reduce, plan, weight, mask=None, precision="exact"):
     """Bilinear contraction + neighbour summation.
 
     rbf_W1: (nEdges, I, S) down-projected radial basis
@@ -26,12 +26,15 @@ def bilinear(rbf_W1, sph_rows, m, id_reduce, plan, weight, mask=None):
     m: (nRows, emb) grouped neighbour messages (sorted by id_reduce)
     plan: the SegmentPlan of id_reduce (data/batch.py)
     weight: (emb, I, out); returns (nEdges, out)
+    precision: "exact" or "split3" (fp32 streams only), for K1 and the
+      K2/K1 of its backwards
     """
     if mask is not None:
         # outside the kernel: the VJP gives padded rows a non-zero db, and
         # only this mask zeroes it upstream
         m = m * mask.to(m.dtype)[:, None]
-    sum_k = segment_outer_sum(sph_rows.contiguous(), m.contiguous(), id_reduce, plan)
+    sum_k = segment_outer_sum(sph_rows.contiguous(), m.contiguous(), id_reduce, plan,
+                              precision)
     # finish in the compute dtype (bilinear.py:62-70): bf16 in bf16 mode
     sum_k = sum_k.to(rbf_W1.dtype)
     rbf_w1_sum_k = torch.einsum("eis,sem->eim", rbf_W1, sum_k)  # (E, I, M)

@@ -20,11 +20,24 @@ dtypes of a/b, and the bf16 K2 kernel reads the cotangent as bf16 (the
 Pallas kernel's cast). fp32 and bf16 are the only dtypes taken: any other
 raises.
 
+`precision` is "exact" or "split3". "split3" is the JAX package's manual
+3-pass fp32 mode (segment_outer.py:160-202, ModelConfig.matmul_precision=
+"high"): every fp32 value is split into a bf16 hi half (its fp32 bits with
+the low 16 masked off, exact in bf16) and a bf16 lo half (x - hi rounded to
+nearest even), and each contraction runs as hi*hi + hi*lo + lo*hi with fp32
+products and fp32 sums, about 16 mantissa bits. On a CUDA tensor it launches
+the tensor-core kernels `gemnet_segment_*_split3`; on a CPU tensor it runs
+the plain split3 versions below. As in `_use_split3`, it applies to fp32
+streams only: bf16 streams ignore it.
+
 `plan` is the `data.batch.SegmentPlan` of the sorted ids (work items of the
 kernels); the plain versions use `seg_ids`. The two ops are
 `torch.autograd.Function`s whose backwards call each other, so they
 differentiate to any order (grad-of-grad for force training), as the JAX
-custom VJPs do; each returns its gradients in the dtypes of its inputs.
+custom VJPs do; each returns its gradients in the dtypes of its inputs. The
+precision rides on `ctx` into every backward, so the -dE/dR backward and the
+loss's grad-of-grad run split3 wherever the forward did (JAX's process-wide
+flag does the same).
 """
 
 from __future__ import annotations
@@ -32,6 +45,15 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+PRECISIONS = ("exact", "split3")
+
+
+def _use_split3(precision: str, sdt: torch.dtype) -> bool:
+    """split3 runs on fp32 streams only (segment_outer.py:182-183)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of {PRECISIONS}")
+    return precision == "split3" and sdt == torch.float32
 
 
 def _stream_dtype(*tensors) -> torch.dtype:
@@ -61,7 +83,40 @@ def _gather_contract_plain(cot, a, b, seg_ids):
     return da.to(a.dtype), db.to(b.dtype)
 
 
-def _outer_sum_cuda(a, b, plan):
+def _split_hi_lo(x):
+    """fp32 -> (bf16 hi, bf16 lo), bit for bit as segment_outer.py:186-202:
+    hi is x's fp32 bits masked with 0xFFFF0000 (exact in bf16), lo is
+    bf16(x - hi) rounded to nearest even. hi is not bf16(x): a rounded hi
+    would make lo the wrong residual."""
+    xf = x.float()
+    hi32 = (xf.view(torch.int32) & -65536).view(torch.float32)
+    return hi32.to(torch.bfloat16), (xf - hi32).to(torch.bfloat16)
+
+
+def _outer_sum_split3_plain(a, b, seg_ids, n_segments):
+    """K1 in split3: three products of bf16 halves (exact in fp32), fp32 sums."""
+    ah, al = _split_hi_lo(a)
+    bh, bl = _split_hi_lo(b)
+    return sum(_outer_sum_plain(x.float(), y.float(), seg_ids, n_segments)
+               for x, y in ((ah, bh), (ah, bl), (al, bh)))
+
+
+def _gather_contract_split3_plain(cot, a, b, seg_ids):
+    """K2 in split3: da from cot x b and db from cot x a, each as the three
+    products hi*hi + hi*lo + lo*hi (segment_outer.py:499-513)."""
+    ch, cl = _split_hi_lo(cot)
+    ah, al = _split_hi_lo(a)
+    bh, bl = _split_hi_lo(b)
+    da = db = 0
+    # (ch, ah, bh) -> ch.bh and ch.ah; (ch, al, bl) -> ch.bl and ch.al;
+    # (cl, ah, bh) -> cl.bh and cl.ah
+    for c, x, y in ((ch, ah, bh), (ch, al, bl), (cl, ah, bh)):
+        dx, dy = _gather_contract_plain(c.float(), x.float(), y.float(), seg_ids)
+        da, db = da + dx, db + dy
+    return da.to(a.dtype), db.to(b.dtype)
+
+
+def _outer_sum_cuda(a, b, plan, split3=False):
     dev, dt = a.device, a.dtype
     _cuda.check_tensor(a, "a", dt, dev)
     _cuda.check_tensor(b, "b", dt, dev)
@@ -71,20 +126,26 @@ def _outer_sum_cuda(a, b, plan):
     n_seg = plan.n_segments
     if b.shape[0] != n:
         raise ValueError(f"a has {n} rows, b has {b.shape[0]}")
-    if _cuda.function("gemnet_segment_outer_sum_threads")(S, M) == 0:
+    if split3:
+        if _cuda.function("gemnet_segment_outer_sum_split3_smem")(S, M) == 0:
+            raise ValueError(f"segment_outer_sum split3 kernel takes no S={S}, M={M}")
+        name = "gemnet_segment_outer_sum_split3"
+    elif _cuda.function("gemnet_segment_outer_sum_threads")(S, M) == 0:
         raise ValueError(f"segment_outer_sum kernel takes no S={S}, M={M}")
-    if _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
+    elif _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
         raise ValueError(f"segment_outer_sum kernel: S={S}, M={M} exceed 48 KB of shared memory")
+    else:
+        name = f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}"
     out = torch.empty((S, n_seg, M), dtype=dt, device=dev)
     partial = torch.empty((plan.n_partials, S, M), dtype=torch.float32, device=dev)
-    _cuda.launch(f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}", (n, S, M, n_seg), dev,
+    _cuda.launch(name, (n, S, M, n_seg), dev,
                  a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
                  plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
                  partial.data_ptr(), out.data_ptr(), n_seg, S, M)
     return out
 
 
-def _gather_contract_cuda(cot, a, b, plan):
+def _gather_contract_cuda(cot, a, b, plan, split3=False):
     dev, dt = a.device, a.dtype
     for name, t in (("cot", cot), ("a", a), ("b", b)):
         _cuda.check_tensor(t, name, dt, dev)
@@ -94,40 +155,52 @@ def _gather_contract_cuda(cot, a, b, plan):
     n_seg = plan.n_segments
     if b.shape[0] != n or tuple(cot.shape) != (S, n_seg, M):
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}, cot {tuple(cot.shape)}")
-    if _cuda.function("gemnet_segment_gather_contract_smem")(S, M) > 48 * 1024:
+    if split3:
+        if _cuda.function("gemnet_segment_gather_contract_split3_smem")(S, M) == 0:
+            raise ValueError(f"segment_gather_contract split3 kernel takes no S={S}, M={M}")
+        name = "gemnet_segment_gather_contract_split3"
+    elif _cuda.function("gemnet_segment_gather_contract_smem")(S, M) > 48 * 1024:
         raise ValueError(f"segment_gather_contract kernel: S={S}, M={M} exceed 48 KB of shared memory")
+    else:
+        name = f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}"
     da = torch.empty((n, S), dtype=dt, device=dev)
     db = torch.empty((n, M), dtype=dt, device=dev)
-    _cuda.launch(f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}", (n, S, M, n_seg),
+    _cuda.launch(name, (n, S, M, n_seg),
                  dev, cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
                  plan.items.shape[0], da.data_ptr(), db.data_ptr(), n_seg, S, M)
     return da, db
 
 
-def outer_sum(a, b, seg_ids, plan):
+def outer_sum(a, b, seg_ids, plan, precision="exact"):
     """K1 without autograd: the kernel on a CUDA tensor, the plain version
     on a CPU tensor. Returns (S, nSegments, M) in the streams' dtype."""
     sdt = _stream_dtype(a, b)
+    split3 = _use_split3(precision, sdt)
     if a.device.type == "cuda":
         # mixed dtypes: the fp32 streams are staged explicitly, as the JAX
         # wrapper's astype does
-        return _outer_sum_cuda(a.to(sdt), b.to(sdt), plan)
+        return _outer_sum_cuda(a.to(sdt), b.to(sdt), plan, split3)
     if a.device.type == "cpu":
+        if split3:
+            return _outer_sum_split3_plain(a, b, seg_ids, plan.n_segments)
         return _outer_sum_plain(a, b, seg_ids, plan.n_segments)
     raise ValueError(f"no segment_outer_sum for device {a.device}")
 
 
-def gather_contract(cot, a, b, seg_ids, plan):
+def gather_contract(cot, a, b, seg_ids, plan, precision="exact"):
     """K2 without autograd: the kernel on a CUDA tensor, the plain version
     on a CPU tensor. Returns (da, db) in the dtypes of (a, b)."""
     sdt = _stream_dtype(a, b)  # a and b alone pick the streams
     _stream_dtype(cot)  # raises on a cotangent neither fp32 nor bf16
+    split3 = _use_split3(precision, sdt)
     if a.device.type == "cuda":
         # bf16 streams read the cotangent as bf16 (segment_outer.py:586-590);
         # fp32 streams stage every operand as fp32
-        da, db = _gather_contract_cuda(cot.to(sdt), a.to(sdt), b.to(sdt), plan)
+        da, db = _gather_contract_cuda(cot.to(sdt), a.to(sdt), b.to(sdt), plan, split3)
         return da.to(a.dtype), db.to(b.dtype)
     if a.device.type == "cpu":
+        if split3:
+            return _gather_contract_split3_plain(cot, a, b, seg_ids)
         return _gather_contract_plain(cot, a, b, seg_ids)
     raise ValueError(f"no segment_gather_contract for device {a.device}")
 
@@ -136,46 +209,47 @@ class SegmentOuterSum(torch.autograd.Function):
     """K1; its backward is K2 (segment_outer.py:649-661)."""
 
     @staticmethod
-    def forward(ctx, a, b, seg_ids, plan):
+    def forward(ctx, a, b, seg_ids, plan, precision):
         ctx.save_for_backward(a, b, seg_ids)
-        ctx.plan = plan
-        return outer_sum(a, b, seg_ids, plan)
+        ctx.plan, ctx.precision = plan, precision
+        return outer_sum(a, b, seg_ids, plan, precision)
 
     @staticmethod
     def backward(ctx, cot):
         a, b, seg_ids = ctx.saved_tensors
-        da, db = SegmentGatherContract.apply(cot.contiguous(), a, b, seg_ids, ctx.plan)
-        return da, db, None, None
+        da, db = SegmentGatherContract.apply(cot.contiguous(), a, b, seg_ids, ctx.plan,
+                                             ctx.precision)
+        return da, db, None, None, None
 
 
 class SegmentGatherContract(torch.autograd.Function):
     """K2; its backward is K1 twice and K2 once (segment_outer.py:677-696)."""
 
     @staticmethod
-    def forward(ctx, cot, a, b, seg_ids, plan):
+    def forward(ctx, cot, a, b, seg_ids, plan, precision):
         ctx.save_for_backward(cot, a, b, seg_ids)
-        ctx.plan = plan
-        return gather_contract(cot, a, b, seg_ids, plan)
+        ctx.plan, ctx.precision = plan, precision
+        return gather_contract(cot, a, b, seg_ids, plan, precision)
 
     @staticmethod
     def backward(ctx, ua, ub):
         cot, a, b, seg_ids = ctx.saved_tensors
-        plan = ctx.plan
+        plan, precision = ctx.plan, ctx.precision
         ua, ub = ua.contiguous(), ub.contiguous()
-        dcot = (SegmentOuterSum.apply(ua, b, seg_ids, plan)
-                + SegmentOuterSum.apply(a, ub, seg_ids, plan))
-        da, db = SegmentGatherContract.apply(cot, ua, ub, seg_ids, plan)
+        dcot = (SegmentOuterSum.apply(ua, b, seg_ids, plan, precision)
+                + SegmentOuterSum.apply(a, ub, seg_ids, plan, precision))
+        da, db = SegmentGatherContract.apply(cot, ua, ub, seg_ids, plan, precision)
         # cotangents in the primal dtypes (segment_outer.py:627-628)
-        return dcot.to(cot.dtype), da.to(a.dtype), db.to(b.dtype), None, None
+        return dcot.to(cot.dtype), da.to(a.dtype), db.to(b.dtype), None, None, None
 
 
-def segment_outer_sum(a, b, seg_ids, plan):
+def segment_outer_sum(a, b, seg_ids, plan, precision="exact"):
     """out[s, e, m] = sum_{t: seg_ids[t]==e} a[t,s]*b[t,m]; seg_ids sorted,
-    plan their SegmentPlan. Returns (S, nSegments, M), bf16 for bf16 a and b,
-    fp32 otherwise."""
-    return SegmentOuterSum.apply(a, b, seg_ids, plan)
+    plan their SegmentPlan, precision "exact" or "split3". Returns
+    (S, nSegments, M), bf16 for bf16 a and b, fp32 otherwise."""
+    return SegmentOuterSum.apply(a, b, seg_ids, plan, precision)
 
 
-def segment_gather_contract(cot, a, b, seg_ids, plan):
+def segment_gather_contract(cot, a, b, seg_ids, plan, precision="exact"):
     """(da, db): da[t,s]=sum_m cot[s,seg,m]*b[t,m]; db[t,m]=sum_s cot[s,seg,m]*a[t,s]."""
-    return SegmentGatherContract.apply(cot, a, b, seg_ids, plan)
+    return SegmentGatherContract.apply(cot, a, b, seg_ids, plan, precision)

@@ -134,7 +134,7 @@ class Trainer:
         )
 
     @contextlib.contextmanager
-    def _weights(self, state: TrainState, use_ema: bool):
+    def weights(self, state: TrainState, use_ema: bool):
         """Run the model on the EMA weights (rebinding the parameter views,
         no copy) inside the block when `use_ema`."""
         if not use_ema:
@@ -217,14 +217,14 @@ class Trainer:
 
     def eval_step(self, state: TrainState, batch, use_ema: bool = False):
         """(metrics, counts) of the current or the EMA weights; no update."""
-        with self._weights(state, use_ema):
+        with self.weights(state, use_ema):
             outputs = self._predict(batch)
             _, (metrics, counts) = self.loss_metrics_from_outputs(*outputs, batch)
         return {k: v.detach() for k, v in metrics.items()}, counts
 
     def predict(self, state: TrainState, batch, use_ema: bool = False):
         """(mean_E, var_E, mean_F, var_F) of the current or the EMA weights."""
-        with self._weights(state, use_ema):
+        with self.weights(state, use_ema):
             outputs = self._predict(self._device_batch(batch))
         return tuple(None if o is None else o.detach() for o in outputs)
 

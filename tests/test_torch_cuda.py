@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K2, K3 (fp32 and bf16 streams) against their plain
-PyTorch versions on the card, and the port end to end on the card against
-the CPU: serving, grad-of-grad, and a train step in fp32 and bf16.
+"""The CUDA kernels K1, K2, K3 (fp32 and bf16 streams), K4 (the split3 mode
+of K1/K2) and the row gathers P1/P2 against their plain PyTorch versions on
+the card, and the port end to end on the card against the CPU: serving,
+grad-of-grad, and a train step in fp32, bf16 and matmul_precision="high".
 
 Marked `cuda`; each test asks for a card through the `device` fixture and
 skips without one. This file imports no JAX, so on a machine with a card it
@@ -122,6 +123,55 @@ def test_segment_gather_contract_kernel_matches_plain(device, S, M):
     for o, r in zip(so.gather_contract(cot, a, b, tid, plan),
                     so._gather_contract_plain(cot, a, b, tid)):
         _assert_close(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M", CASES_SO + [(49, 64)])
+def test_split3_kernels_match_plain(device, S, M):
+    """K4 forward and backward against the plain split3 versions on the card:
+    the same bf16 products, exact in fp32, summed in fp32 in another order;
+    and not equal to the exact fp32 kernels (split3 ran). Each counted under
+    its own name."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(S * 100 + M + 2)
+    ids = _sorted_ids(rng, 3000, 300, long_seg=250, long_rows=700)
+    plan = segment_plan(ids, 300, 128, device)
+    a = torch.from_numpy(rng.normal(size=(len(ids), S)).astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.normal(size=(len(ids), M)).astype(np.float32)).to(device)
+    cot = torch.from_numpy(rng.normal(size=(S, 300, M)).astype(np.float32)).to(device)
+    tid = torch.from_numpy(ids).to(device)
+    _cuda.reset_launches()
+    out = so.outer_sum(a, b, tid, plan, "split3")
+    _assert_close(out, so._outer_sum_split3_plain(a, b, tid, 300))
+    assert not torch.equal(out, so.outer_sum(a, b, tid, plan))
+    grads = so.gather_contract(cot, a, b, tid, plan, "split3")
+    for o, r in zip(grads, so._gather_contract_split3_plain(cot, a, b, tid)):
+        _assert_close(o, r)
+    assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_split3": 1,
+                                       "gemnet_segment_outer_sum_f32": 1,
+                                       "gemnet_segment_gather_contract_split3": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,R", [(29184, 32, 192512), (100, 8, 1000), (7, 64, 33)])
+def test_row_gather_kernels_match_plain(device, N, M, R):
+    """P1 and P2 bit-equal to table[idx] (the probe's shape among them)."""
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import row_gather as rg
+
+    rng = np.random.default_rng(N + M + R)
+    table = torch.from_numpy(rng.normal(size=(N, M)).astype(np.float32)).to(device).bfloat16()
+    idx = torch.from_numpy(rng.integers(0, N, R).astype(np.int32)).to(device)
+    _cuda.reset_launches()
+    assert torch.equal(rg.gather_rows(table, idx), table[idx.long()])
+    assert torch.equal(rg.gather_rows_fm(table.t().contiguous(), idx), table[idx.long()].t())
+    assert _cuda.kernel_launches() == {"gemnet_row_gather": 1, "gemnet_row_gather_fm": 1}
+    with pytest.raises(TypeError):
+        rg.gather_rows(table.float(), idx)
 
 
 @pytest.mark.cuda
@@ -261,3 +311,38 @@ def test_train_step_on_card_matches_cpu(device, compute_dtype):
         assert np.linalg.norm(d_gpu - d_cpu) <= 1e-3 * np.linalg.norm(d_cpu)
     else:
         np.testing.assert_allclose(l_gpu[0], l_cpu[0], rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_high_train_step_on_card_matches_cpu(device):
+    """One matmul_precision="high" Trainer step of a 2-block GemNet-Q on the
+    card (K4) against the CPU (the plain split3 versions): the loss within
+    rtol 1e-4, the update within a relative L2 error of 1e-3; every K1/K2
+    launch split3 (2 blocks: 4 + 8 K1, 4 + 4 + 4 K2) and the K3s exact."""
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    cfg = ModelConfig(num_spherical=4, num_radial=4, num_blocks=2, emb_size_atom=32,
+                      emb_size_edge=32, emb_size_trip=16, emb_size_quad=8, emb_size_rbf=8,
+                      emb_size_cbf=8, emb_size_sbf=8, emb_size_bil_quad=8,
+                      emb_size_bil_trip=16, matmul_precision="high")
+    batch_np = _small_batch(False)
+    runs = {}
+    for dev in ("cpu", device):
+        trainer = Trainer(GemNet(cfg, generator=torch.Generator().manual_seed(0), device=dev),
+                          TrainConfig(learning_rate=1e-3, warmup_steps=1))
+        state = trainer.init_state()
+        p0 = state.params.clone()
+        _cuda.reset_launches()
+        state, loss = trainer.train_on_batch(state, to_torch(batch_np, dev), 1.0)
+        torch.cuda.synchronize()
+        runs[str(dev)] = (float(loss), (state.params - p0).cpu().numpy(), _cuda.kernel_launches())
+    (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = runs["cpu"], runs[str(device)]
+    assert n_cpu == {}
+    assert n_gpu == {"gemnet_segment_outer_sum_split3": 12,
+                     "gemnet_segment_gather_contract_split3": 12, "gemnet_sorted_segsum_f32": 14}
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    assert np.linalg.norm(d_gpu - d_cpu) <= 1e-3 * np.linalg.norm(d_cpu)

@@ -48,6 +48,24 @@ def test_training_modules_are_checked():
         assert name in rel, name
 
 
+def test_driver_and_probe_modules_are_checked():
+    """The train.py driver, checkpoints, export, the split3 and row-gather
+    ops and the probe are among the files checked above, and the split3 and
+    row-gather kernel entries are built and bound by `_cuda`."""
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
+    for name in ("train.py", "training/checkpoint.py", "compat.py", "ops/segment_outer.py",
+                 "ops/row_gather.py", "scripts/__init__.py", "scripts/gather_probe.py"):
+        assert name in rel, name
+    for source in ("segment_outer.cu", "row_gather.cu"):
+        assert source in _cuda.SOURCES and os.path.exists(os.path.join(PORT, "csrc", source))
+    for name in ("gemnet_segment_outer_sum_split3", "gemnet_segment_gather_contract_split3",
+                 "gemnet_row_gather", "gemnet_row_gather_fm"):
+        assert name in _cuda._FUNCTIONS, name
+    assert {src for src, _, _ in _cuda._FUNCTIONS.values()} == set(_cuda.SOURCES)
+
+
 def test_serving_path_imports_no_yaml_or_ase():
     """PyYAML is imported only inside the config loader, ase nowhere."""
     for path in _port_files():
