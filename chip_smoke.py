@@ -12,9 +12,14 @@ Phases:
      K3 sorted segment sum, on fp32 and on bf16 streams; K4, the split3 mode
      of K1 and K2; the row-gather probe kernels P1 and P2) against its plain
      PyTorch version on the card, at the shapes the serving path, the train
-     step and the probe give it (K4 also against the exact fp32 K1/K2);
-  4. time each kernel, its plain version and, where one PyTorch call computes
-     the same function, that call (CUDA events), beside its bound;
+     step and the probe give it (K4 also against the exact fp32 K1/K2; K2
+     and K3 also bit-equal across two launches);
+  4. time each kernel and, where one PyTorch call computes the same
+     function, that call, both ways: device time per launch (`ms`,
+     `library_ms`: 20 calls captured in a CUDA graph, replayed under CUDA
+     events) and the wrapper-inclusive call time (`call_ms`,
+     `library_call_ms`: CUDA events around a host loop of 20 calls); and the
+     plain version's call time; beside the bound;
   5. serve GemNet-Q at the config.yaml widths (random weights from a seed):
      one predict of the 32-molecule bench-small batch with the launch
      counters read around it (8 / 8 / 14 launches of K1 / K2 / K3), E and F
@@ -32,7 +37,8 @@ Phases:
      one train step per dtype with the launch counters read
      around it (pinned counts, every bf16 kernel launched); 5 bf16 steps with
      falling losses and fp32 master state; an eval on the EMA weights; then
-     3 warm-up and 10 timed steps and one profiled step per dtype;
+     3 warm-up and 10 timed steps and one profiled step per dtype (its
+     device time, and that of K1-K4 summed by kernel name);
   8. the training entry point in matmul_precision="high": one step on the
      card against the CPU, its launch census (24 / 24 split3 K1 / K2, 26 fp32
      K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.train.run` on a synthetic
@@ -394,6 +400,12 @@ def compare_kernels(cases):
         log(f"  {case_label(case)} shape {case['shape']}: max abs err {err:.3e}"
             f" (rel {err / max(scale, 1e-30):.3e}, tolerance {tol:.3e})")
         check(err <= tol, f"{case_label(case)} disagrees with its plain version")
+        if case["kernel"] in ("K2", "K3"):
+            # no float atomics: a second launch writes the same bits
+            again = kernel()
+            torch.cuda.synchronize()
+            check(all(torch.equal(o, r) for o, r in zip(outs, again)),
+                  f"{case_label(case)} differs between two launches")
         if case["dtype"] == "split3":
             a, b, ids = case["a"], case["b"], case["ids"]
             exact = ((so._outer_sum_plain(a, b, ids, case["plan"].n_segments),)
@@ -412,8 +424,14 @@ def compare_kernels(cases):
 
 
 def time_kernels(cases, power: str):
-    """Phase 4: ms of kernel, plain version and library call; the bound."""
-    from gemnet_pytorch_tpu_torch.ops._cuda import cuda_ms
+    """Phase 4: per call, the kernel's and the library call's device time
+    (`ms`, `library_ms`: CUDA-graph replay, no host in the window) and their
+    wrapper-inclusive time (`call_ms`, `library_call_ms`: CUDA events around
+    the host loop of calls); the plain version's call time; the bound."""
+    from gemnet_pytorch_tpu_torch.ops._cuda import cuda_ms, graph_ms
+
+    def fmt(x):
+        return f"{x:.4f}" if x is not None else "null"
 
     rows = {}
     for case in cases:
@@ -421,17 +439,19 @@ def time_kernels(cases, power: str):
         nbytes, flops = case_cost(case)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_flops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
-        ms, ms_lo, ms_hi = cuda_ms(kernel)
+        ms, ms_lo, ms_hi = graph_ms(kernel)
         row = dict(
-            ms=ms, plain_ms=cuda_ms(plain, iters=5)[0],
-            library_ms=cuda_ms(library)[0] if library else None,
+            ms=ms, call_ms=cuda_ms(kernel)[0], plain_ms=cuda_ms(plain, iters=5)[0],
+            library_ms=graph_ms(library)[0] if library else None,
+            library_call_ms=cuda_ms(library)[0] if library else None,
             bound_ms=max(t_bytes, t_flops),
             bound_by="bytes" if t_bytes >= t_flops else "operations",
         )
-        lib = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "null"
-        log(f"  {case_label(case)} kernel {ms:.4f} ms ({ms_lo:.4f}-{ms_hi:.4f}), plain "
-            f"{row['plain_ms']:.4f} ms, library {lib} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) [{power}]")
+        log(f"  {case_label(case)} kernel {ms:.4f} ms ({ms_lo:.4f}-{ms_hi:.4f}), call "
+            f"{row['call_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{fmt(row['library_ms'])} ms (call {fmt(row['library_call_ms'])}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.3f} GFLOP) [{power}]")
         rows[(case["kernel"], case["tag"], case["dtype"])] = row
     return rows
 
@@ -517,10 +537,33 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
     return census, per_kernel, timing, E.cpu().numpy()
 
 
-def profile(fn, what: str, top: int = 12) -> None:
+# the hand-written kernels' device functions, by the names the profiler
+# shows (K4's backward is gather_contract_split3_kernel, its forward
+# outer_sum_split3_kernel; K1's merge kernel serves K1 and K4's forward)
+PROFILE_GROUPS = {
+    "K1": ("outer_sum_kernel", "outer_sum_merge_kernel"),
+    "K2": ("gather_contract_",),
+    "K3": ("sorted_segsum_",),
+    "K4": ("outer_sum_split3_kernel", "gather_contract_split3_kernel"),
+}
+
+
+def profile_group(key: str) -> str | None:
+    """The PROFILE_GROUPS kernel a profiler key names, or None."""
+    if "split3" in key:
+        return "K4" if any(p in key for p in PROFILE_GROUPS["K4"]) else None
+    for group, prefixes in PROFILE_GROUPS.items():
+        if any(p in key for p in prefixes):
+            return group
+    return None
+
+
+def profile(fn, what: str, top: int = 12) -> dict | None:
     """Where one call's time goes: torch.profiler over one `fn()`, the
-    device's busy share of the wall time and the kernels by device time.
-    (The profiler slows the host, so its wall time exceeds the timed one.)"""
+    device's busy share of the wall time, the kernels by device time, and
+    the device ms of K1-K4 summed by group (PROFILE_GROUPS), which it
+    returns. (The profiler slows the host, so its wall time exceeds the
+    timed one.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -535,13 +578,22 @@ def profile(fn, what: str, top: int = 12) -> None:
         busy_us = sum(e.self_device_time_total for e in kernels)
     except (RuntimeError, AttributeError) as exc:  # the profiler is a measurement aid only
         log(f"  profiler breakdown: not measured ({exc})")
-        return
+        return None
     n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
     log(f"  profiled {what}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches, "
         f"{n_ops} aten op calls")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    groups = {g: [0.0, 0] for g in PROFILE_GROUPS}
+    for e in kernels:
+        g = profile_group(e.key)
+        if g:
+            groups[g][0] += e.self_device_time_total / 1e3
+            groups[g][1] += e.count
+    log(f"  {what}, hand-written kernels' device ms (launches): "
+        + ", ".join(f"{g} {ms:.3f} ({n})" for g, (ms, n) in groups.items()))
+    return dict(device_ms=busy_us / 1e3, **{g: ms for g, (ms, _) in groups.items()})
 
 
 def serve_high(cfg, mols, device, exact_E):
@@ -703,7 +755,8 @@ def timed_steps(trainer, state, batch, n_agg: int, label: str, n_timed: int = 10
     log(f"  {label}: {n_timed} timed steps, {timing['ms_per_step']:.3f} ms/step, "
         f"{timing['agg_per_s']:.4e} triplets+quads/s ({n_agg} real rows), "
         f"max_memory_allocated {timing['max_memory_allocated'] / 2**20:.1f} MiB")
-    profile(lambda: trainer.train_on_batch(state, batch, 1.0), f"{label} train step")
+    timing["profile"] = profile(lambda: trainer.train_on_batch(state, batch, 1.0),
+                                f"{label} train step")
     return timing
 
 
@@ -1002,14 +1055,22 @@ def main() -> int:
             max_abs_err=errors[key], **timings[key]))
     log(f"== kernels on the serving, training and probe paths [{power}]")
     log(f"  {'kernel':50s} " + " ".join(f"{p:>10s}" for p in paths)
-        + f" {'ms':>8s} {'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}")
+        + f" {'ms':>8s} {'call ms':>8s} {'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}"
+        + f" {'lib call':>9s}")
     for case, row in zip(cases, kernels):
         by_path = row["launches_by_path"]
         for p in ("probe",) if case["kernel"] in ("P1", "P2") else own[row["dtype"]]:
             check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
-        lib = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "null"
+        lib = [f"{row[k]:.4f}" if row[k] is not None else "null"
+               for k in ("library_ms", "library_call_ms")]
         log(f"  {row['name']:50s} " + " ".join(f"{by_path[p]:10d}" for p in paths)
-            + f" {row['ms']:8.4f} {row['bound_ms']:9.4f} {row['plain_ms']:9.4f} {lib:>10s}")
+            + f" {row['ms']:8.4f} {row['call_ms']:8.4f} {row['bound_ms']:9.4f}"
+            + f" {row['plain_ms']:9.4f} {lib[0]:>10s} {lib[1]:>9s}")
+    for dt, t in train_timing.items():
+        p = t["profile"]
+        if p:
+            log(f"  profiled {dt} step: device {p['device_ms']:.3f} ms, of which K1 "
+                f"{p['K1']:.3f}, K2 {p['K2']:.3f}, K3 {p['K3']:.3f}, K4 {p['K4']:.3f} ms")
     log(f"== done in {time.perf_counter() - t_start:.1f} s; serving "
         f"{timing['ms_per_request']:.3f} ms/request, {timing['molecules_per_s']:.1f} molecules/s; "
         + "; ".join(f"train {dt} {t['ms_per_step']:.3f} ms/step, {t['agg_per_s']:.4e} "

@@ -37,14 +37,10 @@
 // accumulators in registers; an item of an unsplit segment writes the
 // output, the items of a split segment write (S, M) partial tiles that a
 // second kernel adds in row order, so each output is written once, without
-// atomics, in a fixed order. K2 items write their own rows' da/db directly.
-// The rows stream through shared memory in chunks of kChunk rows (coalesced
-// copies of contiguous row ranges); K2 stages the segment's (S, M) cotangent
-// tile once per item. Shared rows are padded to M+1 floats where threads of
-// a warp read along s, so those reads fall in distinct banks. This is the
-// simple first design: tensor cores (bf16 mma on the staged tiles), several
-// items per block and overlap of the next chunk's load with the current
-// chunk's math are later work.
+// atomics, in a fixed order. K1's rows stream through shared memory in
+// chunks of kChunk rows (coalesced copies of contiguous row ranges); tensor
+// cores and overlap of the next chunk's load with the current chunk's math
+// are later work for K1. K2 has its own design, in its section below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,50 +127,6 @@ __global__ void outer_sum_merge_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T>
-__global__ void gather_contract_kernel(const T* __restrict__ cot,
-                                       const T* __restrict__ a,
-                                       const T* __restrict__ b,
-                                       const int4* __restrict__ items,
-                                       T* __restrict__ da,
-                                       T* __restrict__ db,
-                                       int n_seg, int S, int M) {
-  extern __shared__ float smem[];
-  const int Mp = M + 1;
-  float* c_s = smem;               // [S][Mp]   the segment's cotangent tile
-  float* a_s = c_s + S * Mp;       // [kChunk][S]
-  float* b_s = a_s + kChunk * S;   // [kChunk][Mp]
-  const int4 item = items[blockIdx.x];  // segment, row0, row1, slot
-  const int tid = threadIdx.x;
-  if (item.y == item.z) return;  // uniform across the block
-
-  for (int i = tid; i < S * M; i += blockDim.x) {
-    const int s = i / M, m = i % M;
-    c_s[s * Mp + m] = widen(cot[((size_t)s * n_seg + item.x) * M + m]);
-  }
-  for (int r = item.y; r < item.z; r += kChunk) {
-    const int nr = min(kChunk, item.z - r);
-    __syncthreads();  // the cotangent tile is staged / the last chunk consumed
-    for (int i = tid; i < nr * S; i += blockDim.x) a_s[i] = widen(a[(size_t)r * S + i]);
-    for (int i = tid; i < nr * M; i += blockDim.x) {
-      b_s[(i / M) * Mp + i % M] = widen(b[(size_t)r * M + i]);
-    }
-    __syncthreads();
-    for (int i = tid; i < nr * S; i += blockDim.x) {
-      const int t = i / S, s = i % S;
-      float acc = 0.f;
-      for (int m = 0; m < M; ++m) acc += c_s[s * Mp + m] * b_s[t * Mp + m];
-      da[(size_t)r * S + i] = narrow<T>(acc);
-    }
-    for (int i = tid; i < nr * M; i += blockDim.x) {
-      const int t = i / M, m = i % M;
-      float acc = 0.f;
-      for (int s = 0; s < S; ++s) acc += c_s[s * Mp + m] * a_s[t * S + s];
-      db[(size_t)r * M + i] = narrow<T>(acc);
-    }
-  }
-}
-
 int outer_sum_threads(int S, int M) {
   int G = (S + kMaxSPerThread - 1) / kMaxSPerThread;
   int want = kThreads / M;
@@ -185,10 +137,6 @@ int outer_sum_threads(int S, int M) {
 }
 
 size_t outer_sum_smem(int S, int M) { return sizeof(float) * (size_t)kChunk * (S + M); }
-
-size_t gather_contract_smem(int S, int M) {
-  return sizeof(float) * ((size_t)S * (M + 1) + (size_t)kChunk * (S + M + 1));
-}
 
 template <typename T>
 int outer_sum(const T* a, const T* b, const int* items, int n_items,
@@ -205,17 +153,6 @@ int outer_sum(const T* a, const T* b, const int* items, int n_items,
   if (n_merge > 0) {
     outer_sum_merge_kernel<T><<<n_merge, kThreads, 0, stream>>>(
         partial, merge_ptr, merge_seg, out, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int gather_contract(const T* cot, const T* a, const T* b, const int* items,
-                    int n_items, T* da, T* db, int n_seg, int S, int M,
-                    cudaStream_t stream) {
-  if (n_items > 0) {
-    gather_contract_kernel<T><<<n_items, kThreads, gather_contract_smem(S, M), stream>>>(
-        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
   }
   return (int)cudaGetLastError();
 }
@@ -452,13 +389,695 @@ size_t gather_contract_split3_smem(int S, int M) {
   return bytes <= kMaxSmem ? bytes : 0;
 }
 
+// ------------------------------------------------------- K2, exact fp32 and bf16
+//
+// gemnet_segment_gather_contract_{f32,bf16}; the stream contract is the one
+// at the top of this file. Three kernels, picked by shape:
+//
+// 1. S <= 16 and M <= 128 (the triplet shape, S = 7, M = 64, ~8 rows per
+//    segment), both stream types: gather_contract_warp_kernel. One warp per
+//    piece of kPieceRows consecutive rows, whatever their segments: rows
+//    carry their segment id (the sorted ids), so short segments fill every
+//    warp and the padded segment spreads over ~200 warps. A lane keeps its
+//    columns of the row's cotangent tile (S x ceil(M/32) values) in
+//    registers, reloaded when the segment changes; db[t, m] is a lane's own
+//    S FMAs, and da[t, s] a reduce-scatter of the lanes' partial dot
+//    products across the warp (log2(32) shuffle steps for S' = 8 or 16
+//    values). The perm-free row loads are coalesced (b) or broadcast (a).
+// 2. fp32, S > 16 (the quad shape, S = 49, M = 32): gather_contract_tiled_kernel.
+//    Persistent blocks (as many as the card holds) walk the work items
+//    (<= 128 rows of one segment) in chunks of 32 rows through a ring of
+//    three shared stages: cp.async copies chunks q + 1 and q + 2 while chunk
+//    q computes; an item's (S, M) cotangent tile is copied with its first
+//    chunk. a rows (196 bytes at S = 49, so rarely 16-byte aligned) are
+//    copied as whole 16-byte pieces of the chunk's contiguous bytes; b rows
+//    and the tile by row. Each thread owns a 4 x 4 register tile (4 rows x 4
+//    values of s for da, of m for db): 8 shared loads per 64 FMAs, float4s
+//    where the layout allows. Rows of a tile are 8 apart and row strides are
+//    odd in float4s (or odd in floats), so the 8 threads of a quarter warp
+//    read distinct banks or one broadcast address. Exact fp32 on the CUDA
+//    cores: the quad shape's 0.6 G FMAs take ~18 us at 67 TFLOP/s, under
+//    its 43 us of bytes, so TF32 or split passes would gain nothing.
+// 3. bf16, S > 16: gather_contract_mma_kernel, the same blocks, items and
+//    ring on the tensor cores: mma.sync m16n8k16, bf16 operands and fp32
+//    accumulators (bf16 products are exact in fp32, sums fp32, one rounding
+//    at the store). The fragments are read straight from the raw stages
+//    (bf16 a rows are 98 bytes at S = 49: pairs of values where aligned,
+//    single values otherwise, zero past S and M) and from the cotangent
+//    tile, zero-padded to 16 in shared memory; each A fragment serves a
+//    row tile's every 8-wide output tile.
+// Every output element is written once by one thread; no atomics.
+
+constexpr int kPieceRows = 8;    // rows per warp, warp kernel
+constexpr int kTileChunk = 32;   // rows per shared stage, tiled and mma kernels
+constexpr int kMmaThreads = 128;
+constexpr int kNTiles = 8;       // mma kernel: 8-wide output tiles per A fragment
+constexpr int kStages = 3;       // shared stages of rows: one computed, two in flight
+constexpr size_t kMaxDynSmem = 227 * 1024;  // a block's shared memory on sm_90
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+// a row stride (floats) of round4(x) or 4 more, holding an odd number of float4s
+__host__ __device__ constexpr int odd_stride4(int x) {
+  return (round4(x) / 4) % 2 ? round4(x) : round4(x) + 4;
+}
+__host__ __device__ constexpr int round32(int x) { return (x + 31) / 32 * 32; }
+__host__ __device__ constexpr size_t round128(size_t x) { return (x + 127) / 128 * 128; }
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+// 16 bytes, of which the first src_bytes are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Sum over the warp of each lane's N values (N a power of two, <= 32),
+// returned scattered: every lane ends with the total of value
+// (lane >> (5 - log2 N)) & (N - 1). Fixed order, no float atomics.
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
+#pragma unroll
+  for (int l = 0; l < 5; ++l) {
+    const int o = 16 >> l;
+    const int n = N >> (l + 1);  // values a lane keeps after this step
+    if (n >= 1) {
+      const bool upper = lane & o;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        if (k < n) {
+          const float send = upper ? v[k] : v[k + n];
+          const float keep = upper ? v[k + n] : v[k];
+          v[k] = keep + __shfl_xor_sync(kFullMask, send, o);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(kFullMask, v[0], o);
+    }
+  }
+  return v[0];
+}
+
+template <int N> __host__ __device__ constexpr int log2_of() {
+  if constexpr (N <= 1) {
+    return 0;
+  } else {
+    return 1 + log2_of<N / 2>();
+  }
+}
+
+template <typename T, int SP, int MPL>
+__global__ void __launch_bounds__(kThreads)
+gather_contract_warp_kernel(const T* __restrict__ cot, const T* __restrict__ a,
+                            const T* __restrict__ b, const long long* __restrict__ seg,
+                            T* __restrict__ da, T* __restrict__ db, int n, int n_seg,
+                            int S, int M) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = (blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * kPieceRows;
+  if (r0 >= n) return;  // warp-uniform
+  const int nr = min(kPieceRows, n - r0);
+  const long long my_seg = lane < nr ? seg[r0 + lane] : -1;  // ahead of the row loads
+  constexpr int kGroup = 32 / SP;  // lanes that end with the same da value
+  constexpr int kShift = log2_of<kGroup>();
+  const int s_out = lane >> kShift;
+  float c[SP][MPL];
+  long long cur = -1;
+#pragma unroll 2
+  for (int t = 0; t < nr; ++t) {
+    const long long e = __shfl_sync(kFullMask, my_seg, t);
+    if (e != cur) {  // warp-uniform
+      cur = e;
+#pragma unroll
+      for (int s = 0; s < SP; ++s) {
+#pragma unroll
+        for (int k = 0; k < MPL; ++k) {
+          const int m = lane + 32 * k;
+          c[s][k] = (s < S && m < M) ? widen(cot[((size_t)s * n_seg + e) * M + m]) : 0.f;
+        }
+      }
+    }
+    const size_t row = (size_t)(r0 + t);
+    float bv[MPL], dbv[MPL], part[SP];
+#pragma unroll
+    for (int k = 0; k < MPL; ++k) {
+      const int m = lane + 32 * k;
+      bv[k] = m < M ? widen(b[row * M + m]) : 0.f;
+      dbv[k] = 0.f;
+    }
+#pragma unroll
+    for (int s = 0; s < SP; ++s) {
+      const float av = s < S ? widen(a[row * S + s]) : 0.f;  // one address per warp
+      part[s] = 0.f;
+#pragma unroll
+      for (int k = 0; k < MPL; ++k) {
+        dbv[k] = fmaf(c[s][k], av, dbv[k]);
+        part[s] = fmaf(c[s][k], bv[k], part[s]);
+      }
+    }
+    const float das = reduce_scatter<SP>(part, lane);
+    if (lane % kGroup == 0 && s_out < S) da[row * S + s_out] = narrow<T>(das);
+#pragma unroll
+    for (int k = 0; k < MPL; ++k) {
+      const int m = lane + 32 * k;
+      if (m < M) db[row * M + m] = narrow<T>(dbv[k]);
+    }
+  }
+}
+
+// The chunks of kTileChunk rows that one block of the tiled and mma
+// kernels computes: those of work items b, b + G, b + 2G, ... (b the block,
+// G the grid), in that order, so the padded segment's items spread over the
+// grid; empty items have none. `cbuf` picks the cotangent buffer of the
+// chunk's item, the next of kStages for each item. The block's next item is
+// loaded when it enters an item, so moving on does not wait for memory.
+struct ChunkCursor {
+  int item, chunk, cbuf;
+  int4 it;    // segment, row0, row1, slot
+  int4 peek;  // items[item + gridDim.x], where that exists
+};
+
+__device__ __forceinline__ ChunkCursor first_cursor(const int4* __restrict__ items,
+                                                    int n_items) {
+  ChunkCursor c{(int)blockIdx.x - (int)gridDim.x, 0, kStages - 1, make_int4(0, 0, 0, 0),
+                make_int4(0, 0, 0, 0)};
+  if ((int)blockIdx.x < n_items) c.peek = items[blockIdx.x];
+  return c;
+}
+
+__device__ __forceinline__ bool next_item(const int4* __restrict__ items, int n_items,
+                                          ChunkCursor& c) {
+  for (c.item += gridDim.x; c.item < n_items; c.item += gridDim.x) {
+    c.it = c.peek;
+    if (c.item + (int)gridDim.x < n_items) c.peek = items[c.item + gridDim.x];
+    if (c.it.z > c.it.y) {
+      c.chunk = 0;
+      c.cbuf = c.cbuf + 1 == kStages ? 0 : c.cbuf + 1;
+      return true;
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ bool next_chunk(const int4* __restrict__ items, int n_items,
+                                           ChunkCursor& c) {
+  if ((c.chunk + 1) * kTileChunk < c.it.z - c.it.y) {
+    ++c.chunk;
+    return true;
+  }
+  return next_item(items, n_items, c);
+}
+
+// The pipeline of both kernels: chunk q computes while chunks q + 1 and
+// q + 2 are in flight (cp.async, one commit group per chunk, empty past the
+// block's last chunk); `stage(cursor, q)` issues chunk q's copies into
+// stage q % kStages, `compute(cursor, q)` consumes it after the barrier.
+// The barrier after each compute frees its stage for chunk q + kStages.
+template <typename Stage, typename Compute>
+__device__ __forceinline__ void run_chunks(const int4* __restrict__ items, int n_items,
+                                           Stage stage, Compute compute) {
+  static_assert(kStages >= 3, "two chunks in flight beside the one computed");
+  ChunkCursor cur = first_cursor(items, n_items);
+  if (!next_item(items, n_items, cur)) return;  // uniform across the block
+  stage(cur, 0);
+  cp_async_commit();
+  ChunkCursor n1 = cur;
+  bool has1 = next_chunk(items, n_items, n1);
+  if (has1) stage(n1, 1);
+  cp_async_commit();
+  ChunkCursor n2 = n1;
+  bool has2 = has1 && next_chunk(items, n_items, n2);
+  for (int q = 0;; ++q) {
+    if (has2) stage(n2, q + 2);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // chunk q landed
+    __syncthreads();
+    compute(cur, q);
+    __syncthreads();
+    if (!has1) break;
+    cur = n1;
+    n1 = n2;
+    has1 = has2;
+    if (has2) has2 = next_chunk(items, n_items, n2);
+  }
+}
+
+// `bytes` bytes from `first` into `raw` as 16-byte copies, from the 16-byte
+// boundary at or below `first`, the bytes past the last zero-filled; the
+// first byte lands at raw + (address of first mod 16). A chunk of rows is
+// contiguous in device memory whatever its rows' alignment.
+__device__ __forceinline__ void stage_raw(const void* first, size_t bytes, void* raw) {
+  const char* begin = static_cast<const char*>(first);
+  const char* end = begin + bytes;
+  const char* base = reinterpret_cast<const char*>(reinterpret_cast<size_t>(begin) & ~(size_t)15);
+  const int pieces = (int)((end - base + 15) / 16);
+  for (int i = threadIdx.x; i < pieces; i += blockDim.x) {
+    const char* src = base + 16 * i;
+    const long long rest = end - src;
+    cp_async16(static_cast<char*>(raw) + 16 * i, src, rest < 16 ? (int)rest : 16);
+  }
+}
+
+// Floats of a tiled-kernel stage of a: a chunk's rows as they lie in device
+// memory, from the 16-byte boundary at or below the first.
+__host__ __device__ constexpr int tiled_a_floats(int S) { return round4(kTileChunk * S + 8); }
+
+// Shared memory (bytes) of the tiled kernel: kStages cotangent tiles
+// [Sp][ldc] and kStages stages of a (flat) and b [kTileChunk][ldb].
+size_t tiled_smem(int S, int M) {
+  return sizeof(float) * kStages * ((size_t)round4(S) * odd_stride4(M) + tiled_a_floats(S) +
+                                    (size_t)kTileChunk * odd_stride4(M));
+}
+
+// at most 85 registers a thread: 4 blocks of 192 threads share an SM
+__global__ void __launch_bounds__(kThreads, 3)
+gather_contract_tiled_kernel(const float* __restrict__ cot, const float* __restrict__ a,
+                             const float* __restrict__ b, const int4* __restrict__ items,
+                             int n_items, float* __restrict__ da, float* __restrict__ db,
+                             int n_seg, int S, int M) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int Sp = round4(S), Mp = round4(M);
+  const int la = tiled_a_floats(S), ldb = odd_stride4(M), ldc = odd_stride4(M);
+  float* c_s = fsmem;                               // [kStages][Sp][ldc]
+  float* a_s = c_s + kStages * Sp * ldc;            // [kStages][la], rows as in memory
+  float* b_s = a_s + kStages * la;                  // [kStages][kTileChunk][ldb]
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, nwarps = nthr / 32;
+  // 16-byte copies of b rows and cotangent rows where M and alignment allow
+  const bool b16 = M % 4 == 0 && (reinterpret_cast<size_t>(b) & 15) == 0;   // uniform
+  const bool c16 = M % 4 == 0 && (reinterpret_cast<size_t>(cot) & 15) == 0;
+
+  // the padding, which the copies never write, is zero in every buffer:
+  // b's columns [M, ldb), the cotangent tiles' rows [S, Sp) and columns
+  // [M, ldc); rows by warp, columns by lane
+  for (int t = warp; t < kStages * kTileChunk; t += nwarps) {
+    for (int k = M + lane; k < ldb; k += 32) b_s[t * ldb + k] = 0.f;
+  }
+  for (int t = warp; t < kStages * Sp; t += nwarps) {
+    const bool pad_row = t % Sp >= S;
+    for (int k = pad_row ? lane : M + lane; k < ldc; k += 32) c_s[t * ldc + k] = 0.f;
+  }
+
+  // chunk q's rows into stage q % kStages and, for an item's first chunk,
+  // its cotangent tile; a as whole 16-byte pieces of its contiguous rows
+  // (196 bytes each at S = 49), b and the tile by rows: warp, columns: lane
+  auto stage = [&](const ChunkCursor& c, int q) {
+    const int r = c.it.y + c.chunk * kTileChunk;
+    const int nr = min(kTileChunk, c.it.z - r);
+    float* as = a_s + (q % kStages) * la;
+    float* bs = b_s + (q % kStages) * kTileChunk * ldb;
+    if (c.chunk == 0) {
+      float* cs = c_s + c.cbuf * Sp * ldc;
+      for (int s = warp; s < S; s += nwarps) {
+        const float* src = cot + ((size_t)s * n_seg + c.it.x) * M;
+        if (c16) {
+          for (int m = 4 * lane; m < M; m += 128) cp_async16(cs + s * ldc + m, src + m, 16);
+        } else {
+          for (int m = lane; m < M; m += 32) cp_async4(cs + s * ldc + m, src + m);
+        }
+      }
+    }
+    stage_raw(a + (size_t)r * S, (size_t)nr * S * sizeof(float), as);
+    for (int t = warp; t < nr; t += nwarps) {
+      const float* src = b + (size_t)(r + t) * M;
+      if (b16) {
+        for (int k = 4 * lane; k < M; k += 128) cp_async16(bs + t * ldb + k, src + k, 16);
+      } else {
+        for (int k = lane; k < M; k += 32) cp_async4(bs + t * ldb + k, src + k);
+      }
+    }
+  };
+
+  const int Q = Sp / 4;                 // a da thread owns s = st + Q*j, j < 4
+  const int n_da = 8 * Q, n_da_pad = round32(n_da), n_db = 2 * Mp;
+  auto compute = [&](const ChunkCursor& c, int q) {
+    const int r0 = c.it.y + c.chunk * kTileChunk;
+    // the chunk's first a value, past the bytes below it in the stage
+    const float* as = a_s + (q % kStages) * la +
+                      (reinterpret_cast<size_t>(a + (size_t)r0 * S) & 15) / sizeof(float);
+    const float* bs = b_s + (q % kStages) * kTileChunk * ldb;
+    const float* cs = c_s + c.cbuf * Sp * ldc;
+    const int r = c.it.y + c.chunk * kTileChunk;
+    const int nr = min(kTileChunk, c.it.z - r);
+    for (int tile = tid; tile < n_da_pad + n_db; tile += nthr) {  // warp-uniform branch
+      const int rt = tile % 8;  // rows rt + 8i, i < 4
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      if (tile < n_da) {
+        // da[t, s] = sum_m b[t, m] c[s, m]
+        const int st = tile / 8;
+        for (int m4 = 0; m4 < Mp; m4 += 4) {
+          float4 bv[4], cv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            bv[i] = *reinterpret_cast<const float4*>(bs + (rt + 8 * i) * ldb + m4);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cv[j] = *reinterpret_cast<const float4*>(cs + (st + Q * j) * ldc + m4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[i][j] = fmaf(bv[i].x, cv[j].x, acc[i][j]);
+              acc[i][j] = fmaf(bv[i].y, cv[j].y, acc[i][j]);
+              acc[i][j] = fmaf(bv[i].z, cv[j].z, acc[i][j]);
+              acc[i][j] = fmaf(bv[i].w, cv[j].w, acc[i][j]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = rt + 8 * i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int s = st + Q * j;
+            if (t < nr && s < S) da[(size_t)(r + t) * S + s] = acc[i][j];
+          }
+        }
+      } else if (tile >= n_da_pad) {
+        // db[t, m] = sum_s a[t, s] c[s, m]; a rows lie S floats apart
+        // (odd S: 8 rows in 8 banks), read 4 values of s at a time
+        const int m0 = 4 * ((tile - n_da_pad) / 8);
+        for (int s4 = 0; s4 < S; s4 += 4) {
+          float ak[4][4];
+          float4 cv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float* arow = as + (rt + 8 * i) * S + s4;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) ak[i][k] = s4 + k < S ? arow[k] : 0.f;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            cv[k] = *reinterpret_cast<const float4*>(cs + (s4 + k) * ldc + m0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              acc[i][0] = fmaf(ak[i][k], cv[k].x, acc[i][0]);
+              acc[i][1] = fmaf(ak[i][k], cv[k].y, acc[i][1]);
+              acc[i][2] = fmaf(ak[i][k], cv[k].z, acc[i][2]);
+              acc[i][3] = fmaf(ak[i][k], cv[k].w, acc[i][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = rt + 8 * i;
+          if (t < nr) {
+            float* dst = db + (size_t)(r + t) * M + m0;
+            if (m0 + 3 < M && b16) {
+              *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                                            acc[i][3]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                if (m0 + k < M) dst[k] = acc[i][k];
+              }
+            }
+          }
+        }
+      }
+    }
+  };
+  run_chunks(items, n_items, stage, compute);
+}
+
+// Shared memory (bytes) of the mma kernel: per stage, the bf16 cotangent
+// tile [Sp][ldc] (Sp = S, Mp = M rounded up to 16, zero beyond S and M) and
+// the raw bytes of the chunk's a and b rows.
+struct MmaSmem {
+  int Sp, Mp, ldc;
+  size_t c, raw_a, raw_b, stage, total;
+};
+
+__host__ __device__ inline MmaSmem mma_smem(int S, int M) {
+  MmaSmem L;
+  L.Sp = round16(S);
+  L.Mp = round16(M);
+  L.ldc = L.Mp + 8;  // 16 bytes past a multiple of 32: rows fall in other banks
+  L.c = round128(sizeof(bf16) * (size_t)L.Sp * L.ldc);
+  L.raw_a = round128(sizeof(bf16) * (size_t)kTileChunk * S + 32);
+  L.raw_b = round128(sizeof(bf16) * (size_t)kTileChunk * M + 32);
+  L.stage = L.c + L.raw_a + L.raw_b;
+  L.total = kStages * L.stage;
+  return L;
+}
+
+__device__ __forceinline__ unsigned bf16_pair(bf16 lo, bf16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) | ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Two consecutive bf16 values at p, one 32-bit load where p is 4-byte
+// aligned; a value at or past `valid` reads as zero.
+__device__ __forceinline__ unsigned ld_pair(const bf16* p, bool aligned, int valid) {
+  if (aligned && valid >= 2) return *reinterpret_cast<const unsigned*>(p);
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  return bf16_pair(valid > 0 ? p[0] : zero, valid > 1 ? p[1] : zero);
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+gather_contract_mma_kernel(const bf16* __restrict__ cot, const bf16* __restrict__ a,
+                           const bf16* __restrict__ b, const int4* __restrict__ items,
+                           int n_items, bf16* __restrict__ da, bf16* __restrict__ db,
+                           int n_seg, int S, int M) {
+  extern __shared__ __align__(128) unsigned char bsmem[];
+  const MmaSmem L = mma_smem(S, M);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32, nwarps = nthr / 32;
+  const int g = lane >> 2, tig = lane & 3;  // the mma fragments' row group and column pair
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  // cotangent rows copied as bf16 pairs where M is even and cot 4-byte aligned
+  const bool c4 = M % 2 == 0 && (reinterpret_cast<size_t>(cot) & 3) == 0;  // uniform
+  const int c_elems = (int)(L.c / sizeof(bf16));
+  auto c_tile = [&](int k) { return reinterpret_cast<bf16*>(bsmem + k * L.stage); };
+  auto raw_a = [&](int q) { return bsmem + (q % kStages) * L.stage + L.c; };
+  auto raw_b = [&](int q) { return raw_a(q) + L.raw_a; };
+
+  // each stage's cotangent tile is zero in rows [S, Sp) and columns [M, ldc)
+  for (int i = warp; i < kStages * L.Sp; i += nwarps) {
+    const int k = i / L.Sp, t = i - k * L.Sp;
+    bf16* row = c_tile(k) + t * L.ldc;
+    for (int m = t >= S ? lane : M + lane; m < L.ldc; m += 32) row[m] = zero;
+  }
+
+  // chunk q's a and b rows into stage q % kStages as raw bytes, and for an
+  // item's first chunk its cotangent tile into the tile of stage c.cbuf
+  auto stage = [&](const ChunkCursor& c, int q) {
+    const int r = c.it.y + c.chunk * kTileChunk;
+    const int nr = min(kTileChunk, c.it.z - r);
+    if (c.chunk == 0) {
+      bf16* cs = c_tile(c.cbuf);
+      for (int s = warp; s < S; s += nwarps) {
+        const bf16* src = cot + ((size_t)s * n_seg + c.it.x) * M;
+        if (c4) {
+          for (int m = 2 * lane; m < M; m += 64) cp_async4(cs + s * L.ldc + m, src + m);
+        } else {  // visible after the barrier that precedes this item's first chunk
+          for (int m = lane; m < M; m += 32) cs[s * L.ldc + m] = src[m];
+        }
+      }
+    }
+    stage_raw(a + (size_t)r * S, sizeof(bf16) * (size_t)nr * S, raw_a(q));
+    stage_raw(b + (size_t)r * M, sizeof(bf16) * (size_t)nr * M, raw_b(q));
+  };
+
+  const int nt_s = (S + 7) / 8, nt_m = (M + 7) / 8;  // 8-wide output tiles
+  auto compute = [&](const ChunkCursor& c, int q) {
+    const int r = c.it.y + c.chunk * kTileChunk;
+    const int nr = min(kTileChunk, c.it.z - r);
+    // the chunk's first a and b values, past the bytes below them in the stage
+    const size_t ha = (reinterpret_cast<size_t>(a + (size_t)r * S) & 15) / sizeof(bf16);
+    const size_t hb = (reinterpret_cast<size_t>(b + (size_t)r * M) & 15) / sizeof(bf16);
+    const bf16* as = reinterpret_cast<const bf16*>(raw_a(q)) + ha;
+    const bf16* bs = reinterpret_cast<const bf16*>(raw_b(q)) + hb;
+    const bf16* cs = c_tile(c.cbuf);
+    const bool a_al = S % 2 == 0 && ha % 2 == 0, b_al = M % 2 == 0 && hb % 2 == 0;
+    const int row_tiles = (nr + 15) / 16;
+    // a warp's job: 16 rows of da (A = b rows, depth M) or of db (A = a
+    // rows, depth S), up to kNTiles 8-wide output tiles at a time, so each A
+    // fragment is loaded once per k-step for all of them
+    for (int job = warp; job < 2 * row_tiles; job += nwarps) {  // warp-uniform
+      const bool is_da = job < row_tiles;
+      const int t0 = (is_da ? job : job - row_tiles) * 16;
+      const bf16* x0 = is_da ? bs + (t0 + g) * M : as + (t0 + g) * S;
+      const int W = is_da ? S : M, depth = is_da ? M : S;
+      const int x_stride = is_da ? M : S;
+      const bool x_al = is_da ? b_al : a_al;
+      const int kp = is_da ? L.Mp : L.Sp, nt = is_da ? nt_s : nt_m;
+      bf16* dst = is_da ? da : db;
+      for (int nb = 0; nb < nt; nb += kNTiles) {
+        float d[kNTiles][4];
+#pragma unroll
+        for (int u = 0; u < kNTiles; ++u) d[u][0] = d[u][1] = d[u][2] = d[u][3] = 0.f;
+        for (int k = 0; k < kp; k += 16) {
+          const int k0 = k + 2 * tig, k8 = k0 + 8;
+          unsigned af[4];
+          af[0] = ld_pair(x0 + k0, x_al, depth - k0);
+          af[1] = ld_pair(x0 + 8 * x_stride + k0, x_al, depth - k0);
+          af[2] = ld_pair(x0 + k8, x_al, depth - k8);
+          af[3] = ld_pair(x0 + 8 * x_stride + k8, x_al, depth - k8);
+#pragma unroll
+          for (int u = 0; u < kNTiles; ++u) {
+            const int n = (nb + u) * 8 + g;  // this lane's output column of tile u
+            if (nb + u < nt) {
+              unsigned bfr[2];
+              if (is_da) {  // B(k=m, n=s) = c[s][m]: pairs along a tile row
+                const bf16* crow = cs + n * L.ldc;
+                bfr[0] = *reinterpret_cast<const unsigned*>(crow + k0);
+                bfr[1] = *reinterpret_cast<const unsigned*>(crow + k8);
+              } else {      // B(k=s, n=m) = c[s][m]: pairs down a tile column
+                const bf16* ccol = cs + n;
+                bfr[0] = bf16_pair(ccol[k0 * L.ldc], ccol[(k0 + 1) * L.ldc]);
+                bfr[1] = bf16_pair(ccol[k8 * L.ldc], ccol[(k8 + 1) * L.ldc]);
+              }
+              mma_bf16(d[u], af, bfr);
+            }
+          }
+        }
+        // d[u][0..1]: row t0 + g, columns 2 tig (+1) of tile u; d[u][2..3]: row t0 + g + 8
+#pragma unroll
+        for (int u = 0; u < kNTiles; ++u) {
+          const int col = (nb + u) * 8 + 2 * tig;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int t = t0 + g + 8 * h;
+            if (nb + u < nt && t < nr) {
+              bf16* out = dst + (size_t)(r + t) * W + col;
+              if (col < W) out[0] = __float2bfloat16_rn(d[u][2 * h]);
+              if (col + 1 < W) out[1] = __float2bfloat16_rn(d[u][2 * h + 1]);
+            }
+          }
+        }
+      }
+    }
+  };
+  run_chunks(items, n_items, stage, compute);
+}
+
+// Blocks of a persistent kernel: as many as the card holds at once, at most
+// one per work item. The first launch of a kernel at a shape (an eager one,
+// never one captured into a CUDA graph) lets it take `smem` bytes of shared
+// memory and asks the occupancy; later launches reuse the answer.
+template <typename Kernel>
+int persistent_blocks(Kernel kernel, int threads, size_t smem, int n_items) {
+  struct Entry { const void* kernel; int threads; size_t smem; int blocks; };
+  static Entry cache[16];
+  static int n_cached = 0;
+  int blocks = 0;
+  for (int i = 0; i < n_cached; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == (const void*)kernel && e.threads == threads && e.smem == smem) {
+      blocks = e.blocks;
+    }
+  }
+  if (blocks == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+    if (n_cached < 16) cache[n_cached++] = Entry{(const void*)kernel, threads, smem, blocks};
+  }
+  return blocks < n_items ? blocks : n_items;
+}
+
+bool warp_shape(int S, int M) { return S >= 1 && S <= 16 && M >= 1 && M <= 128; }
+
+template <typename T, int SP>
+void launch_warp(const T* cot, const T* a, const T* b, const long long* seg, T* da, T* db,
+                 int n, int n_seg, int S, int M, cudaStream_t stream) {
+  const int warps = (n + kPieceRows - 1) / kPieceRows;
+  const unsigned blocks = (unsigned)((warps + kThreads / 32 - 1) / (kThreads / 32));
+  switch ((M + 31) / 32) {
+    case 1:
+      gather_contract_warp_kernel<T, SP, 1><<<blocks, kThreads, 0, stream>>>(
+          cot, a, b, seg, da, db, n, n_seg, S, M);
+      break;
+    case 2:
+      gather_contract_warp_kernel<T, SP, 2><<<blocks, kThreads, 0, stream>>>(
+          cot, a, b, seg, da, db, n, n_seg, S, M);
+      break;
+    case 3:
+      gather_contract_warp_kernel<T, SP, 3><<<blocks, kThreads, 0, stream>>>(
+          cot, a, b, seg, da, db, n, n_seg, S, M);
+      break;
+    default:
+      gather_contract_warp_kernel<T, SP, 4><<<blocks, kThreads, 0, stream>>>(
+          cot, a, b, seg, da, db, n, n_seg, S, M);
+  }
+}
+
+// Shared memory (bytes) K2 takes at (S, M) in either stream type; 0 where
+// the warp kernel runs it.
+size_t gather_contract_smem(int S, int M) {
+  if (warp_shape(S, M)) return 0;
+  const size_t f = tiled_smem(S, M), h = mma_smem(S, M).total;
+  return f > h ? f : h;
+}
+
+template <typename T>
+int gather_contract(const T* cot, const T* a, const T* b, const long long* seg,
+                    const int* items, int n_items, T* da, T* db, int n, int n_seg, int S,
+                    int M, cudaStream_t stream) {
+  if (S < 1 || M < 1 || gather_contract_smem(S, M) > kMaxDynSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n <= 0) return (int)cudaGetLastError();
+  if (warp_shape(S, M)) {
+    if (S <= 8) {
+      launch_warp<T, 8>(cot, a, b, seg, da, db, n, n_seg, S, M, stream);
+    } else {
+      launch_warp<T, 16>(cot, a, b, seg, da, db, n, n_seg, S, M, stream);
+    }
+  } else if (n_items > 0) {
+    const int4* it = reinterpret_cast<const int4*>(items);
+    if constexpr (sizeof(T) == 4) {
+      const int tiles = round32(round32(8 * (round4(S) / 4)) + 2 * round4(M));
+      const int threads = tiles < kThreads ? tiles : kThreads;
+      const size_t smem = tiled_smem(S, M);
+      const int blocks = persistent_blocks(gather_contract_tiled_kernel, threads, smem, n_items);
+      gather_contract_tiled_kernel<<<blocks, threads, smem, stream>>>(
+          cot, a, b, it, n_items, da, db, n_seg, S, M);
+    } else {
+      const size_t smem = mma_smem(S, M).total;
+      const int blocks = persistent_blocks(gather_contract_mma_kernel, kMmaThreads, smem, n_items);
+      gather_contract_mma_kernel<<<blocks, kMmaThreads, smem, stream>>>(
+          cot, a, b, it, n_items, da, db, n_seg, S, M);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) each kernel needs, the same for both stream types
-// (rows are widened to fp32 in shared memory); the wrapper refuses shapes
-// above the 48 KB a block gets without opting in.
+// Shared memory (bytes) each kernel needs: K1's is the same for both stream
+// types (rows are widened to fp32 in shared memory); the wrapper refuses
+// shapes above the 48 KB a block gets without opting in. K2's is the larger
+// of its fp32 and bf16 kernels' (0 where the warp kernel runs); K2 opts in
+// to more, up to the 227 KB a block may take.
 size_t gemnet_segment_outer_sum_smem(int S, int M) { return outer_sum_smem(S, M); }
 
 size_t gemnet_segment_gather_contract_smem(int S, int M) {
@@ -487,21 +1106,21 @@ int gemnet_segment_outer_sum_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b
                                   n_merge, partial, out, n_seg, S, M, stream);
 }
 
-int gemnet_segment_gather_contract_f32(const float* cot, const float* a,
-                                       const float* b, const int* items,
-                                       int n_items, float* da, float* db,
-                                       int n_seg, int S, int M,
+// K2: seg holds the n rows' (sorted) segment ids, items their work items.
+int gemnet_segment_gather_contract_f32(const float* cot, const float* a, const float* b,
+                                       const long long* seg, const int* items, int n_items,
+                                       float* da, float* db, int n, int n_seg, int S, int M,
                                        cudaStream_t stream) {
-  return gather_contract<float>(cot, a, b, items, n_items, da, db, n_seg, S, M, stream);
+  return gather_contract<float>(cot, a, b, seg, items, n_items, da, db, n, n_seg, S, M,
+                                stream);
 }
 
-int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot,
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b, const int* items,
-                                        int n_items, __nv_bfloat16* da,
-                                        __nv_bfloat16* db, int n_seg, int S,
-                                        int M, cudaStream_t stream) {
-  return gather_contract<__nv_bfloat16>(cot, a, b, items, n_items, da, db, n_seg,
+int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot, const __nv_bfloat16* a,
+                                        const __nv_bfloat16* b, const long long* seg,
+                                        const int* items, int n_items, __nv_bfloat16* da,
+                                        __nv_bfloat16* db, int n, int n_seg, int S, int M,
+                                        cudaStream_t stream) {
+  return gather_contract<__nv_bfloat16>(cot, a, b, seg, items, n_items, da, db, n, n_seg,
                                         S, M, stream);
 }
 

@@ -7,12 +7,14 @@ the sort metadata (`*_perm`/`*_sorted`, kernel inputs) as int32, and adds one
 computed once per batch on the host.
 
 A plan cuts each segment's rows into work items of at most `item_rows` rows.
-The kernels run one item per thread block (K1, K2) or thread group (K3), so a
-segment that holds thousands of rows — the padded rows all share one segment
-id — is spread over many SMs instead of serializing one. An item of a
-segment with a single item writes the output directly; the items of a split
-segment write partial sums to scratch slots, which a second pass adds in
-order. Every output is written once and the order of summation is fixed.
+The kernels run one item per thread block (K1, K2 at the quadruplet shape) or
+warp (K3), so a segment that holds thousands of rows — the padded rows all
+share one segment id — is spread over many SMs instead of serializing one.
+An item of a segment with a single item writes the output directly; the
+items of a split segment write partial sums to scratch slots, which are
+added in a fixed order: by a second kernel (K1), or by the last of the
+segment's items to finish, counted in `arrivals` (K3). Every output is
+written once and the order of summation is fixed.
 """
 
 from __future__ import annotations
@@ -33,26 +35,32 @@ class SegmentPlan(NamedTuple):
       slot -1 where the item writes the output itself;
     merge_ptr: (n_merge+1,) the slots of split segment j are
       [merge_ptr[j], merge_ptr[j+1]), in row order;
-    merge_seg: (n_merge,) the split segments."""
+    merge_seg: (n_merge,) the split segments;
+    arrivals: (n_merge,) zeros: K3's count of the finished items of each
+      split segment, which the kernel returns to zero (one stream at a
+      time may launch K3 on a plan)."""
 
     items: torch.Tensor
     merge_ptr: torch.Tensor
     merge_seg: torch.Tensor
     n_segments: int
     n_partials: int
+    arrivals: torch.Tensor
 
 
 # plan key -> (sorted id column, column whose length is the number of
 # segments, rows per work item). K1/K2 items hold whole (S, M) tiles, so
 # their items are long enough that real quadruplet segments (~63 rows) stay
-# whole; K3 items cost one thread per feature, so they are short.
+# whole; a K3 item is one warp's work, 64 rows at most (two loads of 32
+# perm entries), so the padded segment's ~9600 rows at the bench quad shape
+# spread over ~150 warps and the last of them adds ~150 partial rows.
 SEGMENT_PLANS = {
     "id3_reduce_ca_plan": ("id3_reduce_ca", "id_c", 128),
     "id4_reduce_ca_plan": ("id4_reduce_ca", "id_c", 128),
-    "trip_ba_plan": ("trip_ba_sorted", "id_c", 32),
-    "intm_db_plan": ("intm_db_sorted", "id_c", 32),
-    "quad_abd_plan": ("quad_abd_sorted", "id4_reduce_intm_ca", 32),
-    "quad_cab_plan": ("quad_cab_sorted", "id4_reduce_intm_ca", 32),
+    "trip_ba_plan": ("trip_ba_sorted", "id_c", 64),
+    "intm_db_plan": ("intm_db_sorted", "id_c", 64),
+    "quad_abd_plan": ("quad_abd_sorted", "id4_reduce_intm_ca", 64),
+    "quad_cab_plan": ("quad_cab_sorted", "id4_reduce_intm_ca", 64),
 }
 
 
@@ -80,7 +88,8 @@ def segment_plan(sorted_ids: np.ndarray, n_segments: int, item_rows: int,
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
-    return SegmentPlan(t(items), t(merge_ptr), t(merge_seg), int(n_segments), int(split.sum()))
+    return SegmentPlan(t(items), t(merge_ptr), t(merge_seg), int(n_segments), int(split.sum()),
+                       t(np.zeros(len(merge_seg))))
 
 
 def to_torch(batch: dict[str, np.ndarray], device) -> dict:

@@ -9,7 +9,9 @@ source, all together.
 Every launch goes through `launch`, which counts it (per C function and
 shape; the function's name carries the stream dtype, `_f32` or `_bf16`, or
 the `_split3` mode, for the launch census of a run) and raises when the C
-function reports a CUDA error. `cuda_ms` times a launch with CUDA events.
+function reports a CUDA error. `cuda_ms` times calls with CUDA events
+around their host loop (wrapper included); `graph_ms` times their device
+work alone, replayed from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -38,8 +40,9 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P]
-_K2_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
-_K3_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P]
+_K2_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
+_K4_BWD_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+_K3_ARGS = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
 _GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _P]
 # C function -> (source, argtypes, restype)
 _FUNCTIONS = {
@@ -52,7 +55,7 @@ _FUNCTIONS = {
     "gemnet_segment_gather_contract_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
     "gemnet_segment_outer_sum_split3": ("segment_outer.cu", _K1_ARGS, _I),
     "gemnet_segment_outer_sum_split3_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
-    "gemnet_segment_gather_contract_split3": ("segment_outer.cu", _K2_ARGS, _I),
+    "gemnet_segment_gather_contract_split3": ("segment_outer.cu", _K4_BWD_ARGS, _I),
     "gemnet_segment_gather_contract_split3_smem": ("segment_outer.cu", [_I, _I],
                                                    ctypes.c_size_t),
     "gemnet_sorted_segsum_f32": ("expand_gather.cu", _K3_ARGS, _I),
@@ -184,6 +187,36 @@ def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> tuple[flo
     return float(np.median(times)), min(times), max(times)
 
 
+def graph_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> tuple[float, float, float]:
+    """Device time of `fn` per call without the host: `iters` calls captured
+    into one CUDA graph (on the side stream `torch.cuda.graph` makes
+    current, so the wrappers' launches and their `torch.empty`s land in the
+    graph and its pool), replayed under CUDA events. (median, min, max) in
+    ms per call over `windows` replays, after `warmup` eager calls and one
+    replay. Raises when the capture fails; the replay counts no launches
+    (the wrappers run once, at capture)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.median(times)), min(times), max(times)
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor on `device`."""
     if t.device != device:
@@ -199,5 +232,6 @@ def check_plan(plan, device: torch.device) -> None:
     check_tensor(plan.items, "plan.items", torch.int32, device)
     check_tensor(plan.merge_ptr, "plan.merge_ptr", torch.int32, device)
     check_tensor(plan.merge_seg, "plan.merge_seg", torch.int32, device)
+    check_tensor(plan.arrivals, "plan.arrivals", torch.int32, device)
     if plan.items.ndim != 2 or plan.items.shape[1] != 4:
         raise ValueError(f"plan.items has shape {tuple(plan.items.shape)}, expected (n, 4)")

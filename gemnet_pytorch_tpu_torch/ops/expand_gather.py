@@ -48,7 +48,7 @@ def _segsum_cuda(x, perm, plan):
     partial = torch.empty((plan.n_partials, M), dtype=torch.float32, device=dev)
     _cuda.launch(f"gemnet_sorted_segsum_{_cuda.DTYPE_SUFFIX[dt]}", (n, M, n_seg), dev,
                  x.data_ptr(), perm.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
-                 plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
+                 plan.merge_ptr.data_ptr(), plan.merge_seg.numel(), plan.arrivals.data_ptr(),
                  partial.data_ptr(), out.data_ptr(), M)
     return out
 

@@ -10,7 +10,9 @@ by sorted segment ids (triplets/quadruplets sorted by their reduce edge):
 The output layout is the JAX package's (S, nSegments, M). On a CUDA tensor
 each op launches its hand-written kernel (`csrc/segment_outer.cu`); on a CPU
 tensor it runs the plain PyTorch version below, a line-for-line counterpart
-of `_outer_sum_xla` / `_gather_contract_xla`.
+of `_outer_sum_xla` / `_gather_contract_xla`. The K2 kernel reads each
+row's segment id from `seg_ids` (its warp kernel, at S <= 16) or the
+plan's work items (its quad-shape kernels).
 
 Dtypes follow the JAX package (`_stream_dtype`, `_out_dtype`): the streams
 are bf16 when every row input is bf16 (compute_dtype="bfloat16"), and fp32
@@ -145,7 +147,7 @@ def _outer_sum_cuda(a, b, plan, split3=False):
     return out
 
 
-def _gather_contract_cuda(cot, a, b, plan, split3=False):
+def _gather_contract_cuda(cot, a, b, seg_ids, plan, split3=False):
     dev, dt = a.device, a.dtype
     for name, t in (("cot", cot), ("a", a), ("b", b)):
         _cuda.check_tensor(t, name, dt, dev)
@@ -155,19 +157,28 @@ def _gather_contract_cuda(cot, a, b, plan, split3=False):
     n_seg = plan.n_segments
     if b.shape[0] != n or tuple(cot.shape) != (S, n_seg, M):
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}, cot {tuple(cot.shape)}")
+    da = torch.empty((n, S), dtype=dt, device=dev)
+    db = torch.empty((n, M), dtype=dt, device=dev)
     if split3:
         if _cuda.function("gemnet_segment_gather_contract_split3_smem")(S, M) == 0:
             raise ValueError(f"segment_gather_contract split3 kernel takes no S={S}, M={M}")
-        name = "gemnet_segment_gather_contract_split3"
-    elif _cuda.function("gemnet_segment_gather_contract_smem")(S, M) > 48 * 1024:
-        raise ValueError(f"segment_gather_contract kernel: S={S}, M={M} exceed 48 KB of shared memory")
-    else:
-        name = f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}"
-    da = torch.empty((n, S), dtype=dt, device=dev)
-    db = torch.empty((n, M), dtype=dt, device=dev)
-    _cuda.launch(name, (n, S, M, n_seg),
-                 dev, cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
-                 plan.items.shape[0], da.data_ptr(), db.data_ptr(), n_seg, S, M)
+        _cuda.launch("gemnet_segment_gather_contract_split3", (n, S, M, n_seg), dev,
+                     cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
+                     plan.items.shape[0], da.data_ptr(), db.data_ptr(), n_seg, S, M)
+        return da, db
+    if _cuda.function("gemnet_segment_gather_contract_smem")(S, M) > 227 * 1024:
+        raise ValueError(f"segment_gather_contract kernel: S={S}, M={M} exceed the 227 KB of "
+                         "shared memory a block may take")
+    # the warp kernel (S <= 16) reads each row's segment id: the sorted ids,
+    # int64 as the batch holds them
+    seg = seg_ids.to(torch.int64)
+    _cuda.check_tensor(seg, "seg_ids", torch.int64, dev)
+    if seg.shape != (n,):
+        raise ValueError(f"seg_ids {tuple(seg.shape)} for {n} rows")
+    _cuda.launch(f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}", (n, S, M, n_seg),
+                 dev, cot.data_ptr(), a.data_ptr(), b.data_ptr(), seg.data_ptr(),
+                 plan.items.data_ptr(), plan.items.shape[0], da.data_ptr(), db.data_ptr(), n,
+                 n_seg, S, M)
     return da, db
 
 
@@ -196,7 +207,7 @@ def gather_contract(cot, a, b, seg_ids, plan, precision="exact"):
     if a.device.type == "cuda":
         # bf16 streams read the cotangent as bf16 (segment_outer.py:586-590);
         # fp32 streams stage every operand as fp32
-        da, db = _gather_contract_cuda(cot.to(sdt), a.to(sdt), b.to(sdt), plan, split3)
+        da, db = _gather_contract_cuda(cot.to(sdt), a.to(sdt), b.to(sdt), seg_ids, plan, split3)
         return da.to(a.dtype), db.to(b.dtype)
     if a.device.type == "cpu":
         if split3:

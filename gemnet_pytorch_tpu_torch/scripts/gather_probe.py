@@ -9,13 +9,14 @@ Pallas on the TPU. At the bench quad shape, a (29184, 32) bf16 table and
   - P2, `ops.row_gather.gather_rows_fm` on the feature-major table (M, N),
     its output (M, R);
 
-each with CUDA events over windows of 20 launches (median of 5 windows,
-after a warm-up), beside the least time the card could take (the bytes it
-must move, the indices and the table read once and the result written once,
-over 3.35 TB/s), and checks each result against `table[idx]` bit
-for bit. The JAX probe chained K gathers in one dispatch to hide the TPU
-runtime's per-dispatch cost; CUDA events time the device alone, so a window
-of launches suffices.
+each by device time per launch (20 launches captured in a CUDA graph and
+replayed under CUDA events, median of 5 replays, `_cuda.graph_ms`) and, for
+P1/P2, by the wrapper-inclusive call time (`_cuda.cuda_ms`), beside the
+least time the card could take (the bytes it must move, the indices and the
+table read once and the result written once, over 3.35 TB/s), and checks
+each result against `table[idx]` bit for bit. The JAX probe chained K
+gathers in one dispatch to hide the TPU runtime's per-dispatch cost; the
+graph replay leaves the host out in the same way.
 
     python -m gemnet_pytorch_tpu_torch.scripts.gather_probe
 
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import row_gather
-from ..ops._cuda import cuda_ms
+from ..ops._cuda import cuda_ms, graph_ms
 
 N_TAB, M, R = 29184, 32, 192512
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -73,10 +74,12 @@ def main(device="cuda") -> dict:
         err = float((out.float() - expect.float()).abs().max())
         if not torch.equal(out, expect):
             raise AssertionError(f"{name} differs from table[idx] (max abs err {err})")
-        results[name] = dict(ms=cuda_ms(fn)[0], library_ms=cuda_ms(library)[0],
-                             bound_ms=bound_ms(), max_abs_err=err)
+        results[name] = dict(ms=graph_ms(fn)[0], call_ms=cuda_ms(fn)[0],
+                             library_ms=graph_ms(library)[0], bound_ms=bound_ms(),
+                             max_abs_err=err)
         r = results[name]
-        print(f"{name:18s}: {r['ms']:.4f} ms, index_select {r['library_ms']:.4f} ms, bound "
+        print(f"{name:18s}: {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms), index_select "
+              f"{r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({R * M * 2 / r['ms'] * 1e3 / 1e9:.1f} GB/s out), "
               "bit-equal to table[idx]", flush=True)
     return results

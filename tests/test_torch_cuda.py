@@ -175,24 +175,88 @@ def test_row_gather_kernels_match_plain(device, N, M, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M", [3, 4, 32, 64])
-def test_sorted_segsum_kernel_matches_plain(device, M):
-    """Any row width and an n_src that is no multiple of 128."""
+def test_sorted_segsum_kernel_matches_plain(device, M, dtype):
+    """Any row width, an n_src that is no multiple of 128, a 10 000-row
+    segment (as padded rows make), empty and 1-row segments; against the
+    plain version, bit-equal across two launches, one launch each, and the
+    plan's arrival counters back at zero."""
     from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.ops import _cuda
     from gemnet_pytorch_tpu_torch.ops import expand_gather as eg
 
     rng = np.random.default_rng(M)
-    n_src, n_rows = 1000, 7000
-    idx = rng.integers(0, n_src - 1, n_rows)
-    idx[-900:] = 0  # padded rows point at row 0 of their source
+    n_src = 1000
+    idx = np.concatenate([rng.integers(5, n_src - 7, 3000), np.arange(n_src - 7, n_src - 2),
+                          np.zeros(10_000, np.int64)])  # rows of ids 1-4, n_src-2.. stay empty
+    rng.shuffle(idx)
     perm = np.argsort(idx, kind="stable").astype(np.int32)
     srt = idx[perm].astype(np.int32)
-    plan = segment_plan(srt, n_src, 32, device)
-    x = torch.from_numpy(rng.normal(size=(n_rows, M)).astype(np.float32)).to(device)
+    plan = segment_plan(srt, n_src, SEGMENT_PLANS["quad_abd_plan"][2], device)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(len(idx), M)).astype(np.float32)).to(device).to(dt)
     tperm, tsrt = torch.from_numpy(perm).to(device), torch.from_numpy(srt).to(device)
+    _cuda.reset_launches()
     out = eg.sorted_segsum_values(x, tperm, tsrt, plan)
-    ref = torch.zeros(n_src, M, device=device).index_add_(0, torch.from_numpy(idx).to(device), x)
-    _assert_close(out, ref)
+    again = eg.sorted_segsum_values(x, tperm, tsrt, plan)
+    ref = eg._segsum_plain(x[tperm.long()], tsrt, n_src)
+    if dt == torch.bfloat16:
+        _assert_close_bf16(out, ref)
+    else:
+        _assert_close(out, ref)
+    assert torch.equal(out, again)
+    assert int(plan.arrivals.abs().sum()) == 0 and plan.merge_seg.numel() >= 1
+    assert _cuda.kernel_launches() == {f"gemnet_sorted_segsum_{_cuda.DTYPE_SUFFIX[dt]}": 2}
+
+
+def _ragged_ids(rng, n_seg):
+    """Sorted ids whose segments hold 1, 15, 16, 17, 127, 128, 129, 3, 2, 5,
+    0 and 300 rows (items of those lengths, starting at every residue mod
+    4), then random short segments."""
+    lengths = [1, 15, 16, 17, 127, 128, 129, 3, 2, 5, 0, 300]
+    head = np.repeat(np.arange(len(lengths)), lengths)
+    tail = np.sort(rng.integers(len(lengths) + 1, n_seg - 2, 2000))
+    return np.concatenate([head, tail])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,M", [(7, 64), (49, 32)])
+def test_segment_gather_contract_kernel_ragged_items(device, S, M, dtype):
+    """K2 on items of 1, 15, 16, 17, 127, 128 and 129 rows, starting at
+    every residue mod 4, empty segments, and a segment split into several
+    items: against the plain version and bit-equal across two launches."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(S + M)
+    n_seg = 400
+    ids = _ragged_ids(rng, n_seg)
+    starts = np.searchsorted(ids, np.arange(12))
+    assert set(starts % 4) == {0, 1, 2, 3}
+    plan = segment_plan(ids, n_seg, 128, device)
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device).to(dt)
+
+    a, b, cot = rand(len(ids), S), rand(len(ids), M), rand(S, n_seg, M)
+    tid = torch.from_numpy(ids).to(device)
+    _cuda.reset_launches()
+    outs = so.gather_contract(cot, a, b, tid, plan)
+    again = so.gather_contract(cot, a, b, tid, plan)
+    for o, r, o2 in zip(outs, so._gather_contract_plain(cot, a, b, tid), again):
+        if dt == torch.bfloat16:
+            _assert_close_bf16(o, r)
+        else:
+            _assert_close(o, r)
+        assert torch.equal(o, o2)
+    assert _cuda.kernel_launches() == {
+        f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}": 2}
 
 
 @pytest.mark.cuda

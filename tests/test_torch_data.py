@@ -111,6 +111,8 @@ def test_to_torch_dtypes_and_plans(synthetic_npz):
         plan = tb[key]
         assert isinstance(plan, SegmentPlan)
         assert plan.items.dtype == plan.merge_ptr.dtype == plan.merge_seg.dtype == torch.int32
+        assert plan.arrivals.dtype == torch.int32
+        np.testing.assert_array_equal(plan.arrivals.numpy(), np.zeros(plan.merge_seg.numel()))
         assert plan.n_segments == len(batch[size_key])
         np.testing.assert_array_equal(
             _plan_segment_sum(plan, np.ones((len(batch[ids_key]), 1))).ravel(),
@@ -150,6 +152,45 @@ def test_segment_plan_covers_every_row_once(item_rows):
     np.add.at(ref, ids, x)
     np.testing.assert_allclose(_plan_segment_sum(plan, x), ref, atol=1e-12)
     assert 17 in plan.merge_seg.numpy()
+
+
+@pytest.mark.parametrize("key", ["trip_ba_plan", "id4_reduce_ca_plan"])
+def test_segment_plan_long_and_empty_segments(key):
+    """At the item size of a K3 plan and of a K1/K2 plan: a 10 000-row
+    segment (the padded rows'), empty segments and 1-row segments. Every row
+    lies in exactly one item, a split segment's slots are consecutive and in
+    row order, `merge_ptr` delimits them, and `arrivals` is one int32 zero
+    per split segment."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+
+    item_rows = SEGMENT_PLANS[key][2]
+    rng = np.random.default_rng(item_rows)
+    n_seg = 500
+    ids = np.sort(np.concatenate([np.zeros(10_000, np.int64), rng.integers(3, 400, 2000),
+                                  np.arange(450, 460)]))  # ids 1, 2, 400-449, 460- stay empty
+    plan = segment_plan(ids, n_seg, item_rows, "cpu")
+    items = plan.items.numpy()
+    seg, r0, r1, slot = items.T
+    np.testing.assert_array_equal(r0[1:], r1[:-1])  # items tile the rows in order
+    assert r0[0] == 0 and r1[-1] == len(ids) and np.all(r1 - r0 <= item_rows)
+    np.testing.assert_array_equal(ids, np.repeat(seg, r1 - r0))  # each row in its segment
+    np.testing.assert_array_equal(np.unique(seg), np.arange(n_seg))  # empty ones too
+    assert np.sum(seg == 0) == -(-10_000 // item_rows)
+    split = slot >= 0
+    np.testing.assert_array_equal(slot[split], np.arange(plan.n_partials))  # row order
+    mp = plan.merge_ptr.numpy()
+    for j, e in enumerate(plan.merge_seg.numpy()):
+        np.testing.assert_array_equal(slot[seg == e], np.arange(mp[j], mp[j + 1]))
+    assert 0 in plan.merge_seg.numpy()
+    assert plan.arrivals.dtype == torch.int32
+    np.testing.assert_array_equal(plan.arrivals.numpy(), np.zeros(len(mp) - 1))
+    x = rng.normal(size=(len(ids), 2))
+    ref = np.zeros((n_seg, 2))
+    np.add.at(ref, ids, x)
+    np.testing.assert_allclose(_plan_segment_sum(plan, x), ref, atol=1e-9)
+    with pytest.raises(ValueError):
+        segment_plan(np.concatenate([ids, [n_seg]]), n_seg, item_rows, "cpu")
 
 
 def test_kernel_id_columns_are_sorted(synthetic_npz):
