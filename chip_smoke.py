@@ -12,8 +12,9 @@ Phases:
      K3 sorted segment sum, on fp32 and on bf16 streams; K4, the split3 mode
      of K1 and K2; the row-gather probe kernels P1 and P2) against its plain
      PyTorch version on the card, at the shapes the serving path, the train
-     step and the probe give it (K4 also against the exact fp32 K1/K2; K2
-     and K3 also bit-equal across two launches);
+     step and the probe give it (K4 also against the exact fp32 K1/K2, and
+     bit-equal across two replays of one captured CUDA graph; K1, K2, K3
+     and K4 bit-equal across two launches);
   4. time each kernel and, where one PyTorch call computes the same
      function, that call, both ways: device time per launch (`ms`,
      `library_ms`: 20 calls captured in a CUDA graph, replayed under CUDA
@@ -25,7 +26,7 @@ Phases:
      counters read around it (8 / 8 / 14 launches of K1 / K2 / K3), E and F
      against the same model on the CPU (first 8 molecules), then 10 timed
      requests; then one predict in matmul_precision="high" (8 / 8 split3
-     K1 / K2, 14 fp32 K3, no exact K1/K2), against the CPU;
+     K1 / K2, 14 fp32 K3, no exact K1/K2), against the CPU, and profiled;
   6. the serving calculator on a benzonitrile molecule, 5 perturbed
      geometries, against the same calculator on the CPU;
   7. train GemNet-Q at the config.yaml widths (random weights from seed 0) on
@@ -380,7 +381,8 @@ def max_err(case, outs, refs) -> tuple[float, float]:
 
 def compare_kernels(cases):
     """Phase 3: each case's kernel against its plain version (P1/P2 bit for
-    bit); K4 also against the exact fp32 plain K1/K2."""
+    bit), K1-K4 bit-equal across two launches; K4 also against the exact
+    fp32 plain K1/K2, and bit-equal across two replays of a captured graph."""
     import torch
 
     from gemnet_pytorch_tpu_torch.ops import segment_outer as so
@@ -400,12 +402,29 @@ def compare_kernels(cases):
         log(f"  {case_label(case)} shape {case['shape']}: max abs err {err:.3e}"
             f" (rel {err / max(scale, 1e-30):.3e}, tolerance {tol:.3e})")
         check(err <= tol, f"{case_label(case)} disagrees with its plain version")
-        if case["kernel"] in ("K2", "K3"):
+        if case["kernel"] in ("K1", "K2", "K3"):
             # no float atomics: a second launch writes the same bits
             again = kernel()
             torch.cuda.synchronize()
             check(all(torch.equal(o, r) for o, r in zip(outs, again)),
                   f"{case_label(case)} differs between two launches")
+        if case["dtype"] == "split3":
+            # one captured launch replayed twice: the same bits as the eager
+            # launch, so the merge tree's arrival counters return to zero
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = kernel()
+            replays = []
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                replays.append([t.clone() for t in captured])
+            del graph
+            check(all(torch.equal(o, r1) and torch.equal(o, r2)
+                      for o, r1, r2 in zip(outs, *replays)),
+                  f"{case_label(case)} differs between two replays of its captured graph")
+            check(int(case["plan"].tree_arrivals.abs().sum()) == 0,
+                  f"{case_label(case)} left its merge tree's arrival counters non-zero")
         if case["dtype"] == "split3":
             a, b, ids = case["a"], case["b"], case["ids"]
             exact = ((so._outer_sum_plain(a, b, ids, case["plan"].n_segments),)
@@ -538,13 +557,15 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
 
 
 # the hand-written kernels' device functions, by the names the profiler
-# shows (K4's backward is gather_contract_split3_kernel, its forward
-# outer_sum_split3_kernel; K1's merge kernel serves K1 and K4's forward)
+# shows (K4's backward is gather_contract_split3_ring at the quadruplet
+# shape and gather_contract_split3_kernel at the triplet shape, its forward
+# outer_sum_split3_ring / outer_sum_split3_kernel; K1's merge kernel serves
+# K1 and K4's triplet forward)
 PROFILE_GROUPS = {
     "K1": ("outer_sum_kernel", "outer_sum_merge_kernel"),
     "K2": ("gather_contract_",),
     "K3": ("sorted_segsum_",),
-    "K4": ("outer_sum_split3_kernel", "gather_contract_split3_kernel"),
+    "K4": ("outer_sum_split3_", "gather_contract_split3_"),
 }
 
 
@@ -600,8 +621,8 @@ def serve_high(cfg, mols, device, exact_E):
     """Phase 5, "high": one predict of the bench-small batch in
     matmul_precision="high" with the launch counters read around it, E/F
     against the same "high" model on the CPU (first 8 molecules, the plain
-    split3 versions) and E against the exact predict of phase 5 on the card.
-    Returns the census."""
+    split3 versions) and E against the exact predict of phase 5 on the card;
+    then one profiled "high" predict. Returns the census."""
     import dataclasses
 
     import torch
@@ -636,6 +657,7 @@ def serve_high(cfg, mols, device, exact_E):
     log(f"  'high' card vs CPU on the first 8 molecules: max |dE| {errE:.3e}, max |dF| "
         f"{errF:.3e} (rtol {SERVE_RTOL})")
     check(okE and okF, "'high' E/F on the card disagree with the CPU run")
+    profile(lambda: predict(model, batch), "'high' request")
     return census
 
 

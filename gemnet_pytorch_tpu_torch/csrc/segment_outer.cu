@@ -10,7 +10,9 @@
 //     db[t, m] = sum_s cot[s, seg(t), m] * a[t, s]
 //   replaces segment_outer.py::_bwd_kernel (launched by _gather_contract_pallas).
 // K4 gemnet_segment_outer_sum_split3, gemnet_segment_gather_contract_split3
-//   K1 and K2 in the fp32 "split3" mode, on the tensor cores (section below).
+//   K1 and K2 in the fp32 "split3" mode, on the tensor cores: the wmma
+//   kernels of the section below at the triplet shape, the ring kernels of
+//   the last section at the quadruplet shape.
 //
 // Stream types follow the JAX package's contract (segment_outer.py:152-157,
 // 205-216, 586-590): with fp32 streams everything is fp32; with bf16 streams
@@ -179,9 +181,11 @@ int outer_sum(const T* a, const T* b, const int* items, int n_items,
 // passes of 2*n*S*M flops are ~2.7 us of bf16 tensor time against ~24 us of
 // bytes. The backward moves K2's fp32 bytes for twice the flops.
 //
-// Design, the simple first one: K1/K2's work items, one thread block of 8
-// warps per item. A chunk of kChunk rows of a (n x S) and b (n x M) is staged
-// in shared memory as bf16 hi and lo tiles, S and M padded to multiples of 16
+// Design of the kernels below, the simple first one, which serve the shapes
+// the ring kernels (last section) do not take, the triplet shape among them:
+// K1/K2's work items, one thread block of 8 warps per item. A chunk of
+// kChunk rows of a (n x S) and b (n x M) is staged in shared memory as
+// bf16 hi and lo tiles, S and M padded to multiples of 16
 // and the rows to kChunk, every padded entry zero in both halves. The
 // products run as nvcuda::wmma 16x16x16 bf16 fragments with fp32
 // accumulators:
@@ -195,8 +199,6 @@ int outer_sum(const T* a, const T* b, const int* items, int n_items,
 //             per chunk, da(rows x S) = B C^T with depth M and
 //             db(rows x M) = A C with depth S, each three passes, each output
 //             tile written once by the warp that computed it.
-// wgmma, TMA and overlap of the next chunk's load with the current chunk's
-// products are later work.
 
 typedef __nv_bfloat16 bf16;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
@@ -1069,6 +1071,716 @@ int gather_contract(const T* cot, const T* a, const T* b, const long long* seg,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- K4 at the quadruplet shape: the ring
+//
+// outer_sum_split3_ring (forward) and gather_contract_split3_ring (backward)
+// replace the split3 branches of segment_outer.py::_fwd_kernel (:355-364,
+// staging :398-404) and ::_bwd_kernel (:499-513, staging :557-563,
+// :582-585) where 16 < S <= 64, M <= 32, M % 4 == 0 and the row, cotangent
+// and output tensors are 16-byte aligned (the quadruplet shape, S = 49,
+// M = 32, as the model gives it); other shapes keep the kernels above.
+//
+// What bounds them on an H100: bytes. The forward reads a and b once and
+// writes the (S, nSeg, M) output once: 81.7 MB at the bench quad shape (192
+// 512 rows, 3072 segments), 24 us at 3.35 TB/s; its three bf16 passes are
+// 3 * 2 * n * S * M = 1.8 GFLOP, ~2 us of tensor time. The backward reads a,
+// b and the cotangent and writes da and db: 144 MB, 43 us, for 3.6 GFLOP.
+//
+// Design, per block: one producer warp and four consumer warps, persistent
+// blocks walking the work items (<= 128 rows of one segment; block b takes
+// items b, b + G, b + 2G, ... of the grid's G, in row order) in chunks of
+// kRingRows rows through a ring of kRingStages shared stages. Full and
+// empty mbarriers hand each stage over; no block-wide barrier runs after
+// the set-up, so the copies never wait for the math.
+// - The producer copies a chunk's a rows (contiguous in device memory) as
+//   one bulk copy (TMA, cp.async.bulk ... complete_tx) from the 16-byte
+//   boundary at or below the first byte, clamped to the last 16-byte
+//   boundary of the tensor (the tail, <= 3 floats, by a plain load); the
+//   forward copies each b row as its own bulk copy, into rows ldb floats
+//   apart, the backward the chunk's b rows as one; the backward's first
+//   chunk of an item also copies the item's (S x M) cotangent rows.
+//   Little's law: the card's 3.35 TB/s over 132 SMs at ~1 us of latency
+//   asks ~25 KB in flight per SM. A stage holds ~10.4 KB of rows (S = 49,
+//   M = 32), so a block keeps three stages in flight while one computes,
+//   ~31 KB, and as many blocks as fit (at least two) share an SM.
+// - The stages hold raw fp32 rows. A consumer builds each mma.sync m16n8k16
+//   bf16 fragment from them in registers: hi is x's bits masked with
+//   0xFFFF0000, lo = bf16_rn(x - hi), bit for bit split_hi_lo; the passes
+//   hi*hi + hi*lo + lo*hi accumulate in fp32. Only fragments are zero past
+//   S and M; no bf16 tile and no padded column is stored.
+// - Bank conflicts: the fragment reads of a rows fall in 32 distinct banks
+//   (rows S floats apart, S odd, and the s values picked to match: s_sel
+//   and consume_db below), and so do the forward's reads of b rows (ldb = 4
+//   mod 16). The backward reads b rows M floats apart, four rows to a bank:
+//   one bulk copy per chunk in place of 32 measured faster (PERF.md §6).
+// - Forward: each consumer warp owns 16 values of s and all M columns, its
+//   accumulators in registers across the item's chunks (rows are the
+//   contraction, in the natural order). At the item's end the warp writes
+//   its 16 output rows of M floats whole, as 16-byte stores, to the output
+//   or, for an item of a split segment, to its partial slot. A split
+//   segment's partials are added through the plan's merge tree
+//   (data/batch.py::merge_tree): the last child of a node to arrive (the
+//   consumer warps' barrier, then one release-acquire atomic count in
+//   tree_arrivals) adds its <= 16 children in slot order and resets the
+//   count, so no block adds more than 16 tiles in sequence, the order is
+//   fixed and a captured graph replays.
+// - Backward: an item is one segment and each consumer warp keeps one role
+//   for it: da (two warps, 16 rows each, depth M, N = S) holding the C^T
+//   hi/lo fragments in 64 registers, or db (two warps, depth S, N = M)
+//   holding C's. A warp stages its 16 output rows in shared memory as they
+//   lie in device memory and writes them as 16-byte stores, the ragged head
+//   and tail plainly.
+
+constexpr int kRingStages = 4;
+constexpr int kRingRows = 32;
+constexpr int kConsumerWarps = 4;
+constexpr int kRingThreads = 32 * (kConsumerWarps + 1);  // the producer is the last warp
+constexpr int kRingMaxS = 64, kRingMaxM = 32;
+constexpr int kMergeFan = 16;  // data/batch.py::MERGE_FAN
+constexpr int kFirstChunk = 1, kLastChunk = 2, kEndOfWork = 4;
+constexpr int kRingHeader = 256;  // bytes: barriers, descriptors, the merge flag
+
+// the smallest y >= x with y % 16 == r (x, r multiples of 4)
+__host__ __device__ constexpr int stride_mod16(int x, int r) {
+  return x + ((r - x % 16) + 16) % 16;
+}
+// the 16-byte boundary at or below p
+__device__ __forceinline__ const char* floor16(const void* p) {
+  return reinterpret_cast<const char*>(reinterpret_cast<size_t>(p) & ~(size_t)15);
+}
+// floats from the 16-byte boundary at or below p to p: where a chunk's
+// first value lands in its stage
+__device__ __forceinline__ int head_floats(const float* p) {
+  return (int)((reinterpret_cast<size_t>(p) & 15) / sizeof(float));
+}
+
+struct RingSmem {
+  int la, ldb, lc, lo;  // floats: a rows, b row stride, cotangent tile, a warp's output scratch
+  size_t stage, total;  // bytes
+};
+
+__host__ __device__ inline RingSmem ring_smem(int S, int M, bool backward) {
+  RingSmem L;
+  L.la = round4(kRingRows * S + 4 + kRingMaxS);  // head (<= 3 floats) and reads past S
+  L.ldb = backward ? M : stride_mod16(M, 4);
+  L.lc = backward ? kRingMaxS * M : 0;
+  L.lo = backward ? round4(16 * (S > M ? S : M) + 4) : 16 * stride_mod16(M, 8);
+  L.stage = sizeof(float) * (size_t)(L.la + kRingRows * L.ldb + L.lc);
+  L.total = kRingHeader + kRingStages * L.stage + sizeof(float) * kConsumerWarps * (size_t)L.lo;
+  return L;
+}
+
+bool ring_shape(int S, int M) {
+  return S > 16 && S <= kRingMaxS && M >= 4 && M <= kRingMaxM && M % 4 == 0;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+struct ChunkDesc {  // one stage's chunk, written by the producer
+  int r, nr, flags, seg;
+  int slot, pad0, pad1, pad2;
+};
+
+struct Ring {
+  unsigned long long* full;   // [kRingStages]
+  unsigned long long* empty;  // [kRingStages]
+  ChunkDesc* desc;            // [kRingStages]
+  int* flag;                  // the merge's broadcast
+  unsigned char* stages;
+  float* scratch;
+  RingSmem L;
+
+  __device__ Ring(unsigned char* smem, int S, int M, bool backward) {
+    full = reinterpret_cast<unsigned long long*>(smem);
+    empty = full + kRingStages;
+    desc = reinterpret_cast<ChunkDesc*>(empty + kRingStages);
+    flag = reinterpret_cast<int*>(desc + kRingStages);
+    L = ring_smem(S, M, backward);
+    stages = smem + kRingHeader;
+    scratch = reinterpret_cast<float*>(stages + kRingStages * L.stage);
+  }
+  __device__ float* a(int st) const { return reinterpret_cast<float*>(stages + st * L.stage); }
+  __device__ float* b(int st) const { return a(st) + L.la; }
+  __device__ float* c(int st) const { return b(st) + kRingRows * L.ldb; }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+// `bytes` (a multiple of 16) from 16-byte aligned global `src` to 16-byte
+// aligned shared `dst`, counted on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+// *p += v at device scope, release and acquire; returns the old value
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+// the consumer warps' own barrier (named barrier 1), never the producer's
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+}
+
+// fp32 x0, x1 -> the bf16 pairs (hi0 | hi1 << 16) and (lo0 | lo1 << 16),
+// bit for bit split_hi_lo
+__device__ __forceinline__ void split_pair(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const unsigned u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __uint_as_float(u0 & 0xFFFF0000u),
+                                                 x1 - __uint_as_float(u1 & 0xFFFF0000u));
+  lo = (unsigned)__bfloat16_as_ushort(l.x) | ((unsigned)__bfloat16_as_ushort(l.y) << 16);
+}
+
+// D += A_hi B_hi + A_hi B_lo + A_lo B_hi
+__device__ __forceinline__ void mma_split3(float (&d)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_bf16(d, ah, bh);
+  mma_bf16(d, ah, bl);
+  mma_bf16(d, al, bh);
+}
+
+// The producer warp: the block's chunks in the consumers' order, each into
+// the next free stage with its descriptor; then a descriptor kEndOfWork.
+// Forward: every item (an empty one writes zeros); backward: the items with
+// rows.
+template <bool kBackward>
+__device__ void ring_produce(const Ring& R, const float* __restrict__ a,
+                            const float* __restrict__ b, const float* __restrict__ cot,
+                            const int4* __restrict__ items, int n_items, int n, int n_seg,
+                            int S, int M) {
+  const int lane = threadIdx.x % 32;
+  const char* a_end = reinterpret_cast<const char*>(a + (size_t)n * S);
+  const char* a_end16 = floor16(a_end);
+  const unsigned row_bytes = (unsigned)(M * sizeof(float));
+  int q = 0;
+  auto acquire = [&]() {
+    const int st = q % kRingStages;
+    mbar_wait(R.empty + st, ((q / kRingStages) & 1) ^ 1);
+    return st;
+  };
+  // items b, b + G, b + 2G, ... (b the block, G the grid), in that order;
+  // the next one is loaded when the block enters an item, so moving on does
+  // not wait for memory
+  auto item = [&](int k) { return k < n_items ? items[k] : make_int4(0, 0, 0, 0); };
+  int4 next = item(blockIdx.x);
+  for (int k = blockIdx.x; k < n_items; k += gridDim.x) {
+    const int4 it = next;  // segment, row0, row1, slot
+    next = item(k + gridDim.x);
+    const int len = it.z - it.y;
+    if (kBackward && len == 0) continue;  // no rows, nothing to write
+    for (int c = 0; c == 0 || c * kRingRows < len; ++c, ++q) {
+      const int st = acquire();
+      const int r = it.y + c * kRingRows;
+      const int nr = min(kRingRows, len - c * kRingRows);
+      const bool first = c == 0;
+      const char* lo = reinterpret_cast<const char*>(a + (size_t)r * S);
+      const char* hi = lo + (size_t)nr * S * sizeof(float);
+      const char* base = floor16(lo);
+      const char* stop = floor16(hi + 15);
+      if (stop > a_end) stop = a_end16;  // no byte past the tensor
+      const unsigned a_bytes = nr > 0 ? (unsigned)(stop - base) : 0u;
+      float* as = R.a(st);
+      if (lane == 0) {
+        ChunkDesc& d = R.desc[st];
+        d.r = r;
+        d.nr = nr;
+        d.flags = (first ? kFirstChunk : 0) | ((c + 1) * kRingRows >= len ? kLastChunk : 0);
+        d.seg = it.x;
+        d.slot = it.w;
+        if (nr > 0 && stop < hi) {  // the tail past the tensor's last 16-byte boundary
+          for (const char* p = stop; p < hi; p += sizeof(float)) {
+            as[(p - base) / sizeof(float)] = *reinterpret_cast<const float*>(p);
+          }
+          // these plain writes precede any later bulk copy into the stage
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        }
+        const unsigned tx = a_bytes + (unsigned)nr * row_bytes +
+                            (kBackward && first ? (unsigned)S * row_bytes : 0u);
+        mbar_arrive_expect_tx(R.full + st, tx);
+      }
+      __syncwarp();
+      if (lane == 0 && a_bytes > 0) bulk_copy(as, base, a_bytes, R.full + st);
+      float* bs = R.b(st);
+      if (kBackward) {  // the chunk's b rows as they lie in memory
+        if (lane == 0 && nr > 0) bulk_copy(bs, b + (size_t)r * M, nr * row_bytes, R.full + st);
+      } else {  // each row ldb floats from the last
+        for (int t = lane; t < nr; t += 32) {
+          bulk_copy(bs + t * R.L.ldb, b + (size_t)(r + t) * M, row_bytes, R.full + st);
+        }
+      }
+      if (kBackward && first) {
+        float* cs = R.c(st);
+        for (int s = lane; s < S; s += 32) {
+          bulk_copy(cs + s * M, cot + ((size_t)s * n_seg + it.x) * M, row_bytes, R.full + st);
+        }
+      }
+    }
+  }
+  const int st = acquire();
+  if (lane == 0) {
+    R.desc[st].flags = kEndOfWork;
+    mbar_arrive(R.full + st);
+  }
+}
+
+// The forward consumer warp w's s values: fragment row g (hf = 0) or g + 8
+// (hf = 1) is s = 32 (w / 2) + 4 (w % 2) + 8 (g / 2) + g % 2 + 2 hf. With a
+// rows S (odd) floats apart, the 8 values of g and the 4 rows 2 tig of one
+// fragment read fall in 32 distinct banks.
+__device__ __forceinline__ int s_sel(int w, int hf, int g) {
+  return 32 * (w >> 1) + 4 * (w & 1) + 8 * (g >> 1) + (g & 1) + 2 * hf;
+}
+
+// Adds the partial tile of `slot` into its merge-tree node if it is the
+// node's last child to arrive, then goes on up the tree; the four consumer
+// warps together (each has fenced its own stores of the slot's tile).
+__device__ void merge_up(const Ring& R, int slot, const int4* __restrict__ tree_nodes,
+                         const int* __restrict__ tree_parent, int* __restrict__ tree_arrivals,
+                         float* __restrict__ partial, float* __restrict__ out, int n_seg, int S,
+                         int M) {
+  const int tid = threadIdx.x;  // 0 .. 32 * kConsumerWarps - 1
+  const int T = S * M;          // floats of a tile, a multiple of 4
+  for (;;) {
+    consumer_sync();  // every warp has stored its rows of `slot`
+    if (tid == 0) {
+      const int node = tree_parent[slot];
+      const int4 nd = tree_nodes[node];
+      // release: the block's stores of `slot` (ordered before by the barrier)
+      // are visible to the child that arrives last; acquire: so are theirs
+      const int prev = atomic_add_acq_rel(tree_arrivals + node, 1);
+      *R.flag = prev == nd.y - nd.x - 1 ? node : -1;
+    }
+    consumer_sync();
+    const int node = *reinterpret_cast<volatile int*>(R.flag);
+    if (node < 0) return;
+    const int4 nd = tree_nodes[node];  // first child slot, end slot, out slot, segment
+    for (int i = 4 * tid; i < T; i += 4 * 32 * kConsumerWarps) {
+      float4 v[kMergeFan];
+#pragma unroll
+      for (int u = 0; u < kMergeFan; ++u) {
+        v[u] = nd.x + u < nd.y ? __ldcg(reinterpret_cast<const float4*>(
+                                     partial + (size_t)(nd.x + u) * T + i))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float4 acc = v[0];
+#pragma unroll
+      for (int u = 1; u < kMergeFan; ++u) {
+        if (nd.x + u < nd.y) {
+          acc.x += v[u].x;
+          acc.y += v[u].y;
+          acc.z += v[u].z;
+          acc.w += v[u].w;
+        }
+      }
+      float* dst = nd.z >= 0 ? partial + (size_t)nd.z * T + i
+                             : out + ((size_t)(i / M) * n_seg + nd.w) * M + i % M;
+      *reinterpret_cast<float4*>(dst) = acc;
+    }
+    if (tid == 0) tree_arrivals[node] = 0;  // for the next launch
+    if (nd.z < 0) return;
+    slot = nd.z;
+  }
+}
+
+__global__ void __launch_bounds__(kRingThreads, 3)
+outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
+                      const int4* __restrict__ items, int n_items,
+                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                      float* __restrict__ out, int n, int n_seg, int S, int M) {
+  extern __shared__ __align__(128) unsigned char ring_smem_raw[];
+  const Ring R(ring_smem_raw, S, M, false);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages; ++i) {
+      mbar_init(R.full + i, 1);
+      mbar_init(R.empty + i, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier
+  if (warp == kConsumerWarps) {
+    ring_produce<false>(R, a, b, nullptr, items, n_items, n, n_seg, S, M);
+    return;
+  }
+  const int g = lane >> 2, tig = lane & 3;
+  const int ldb = R.L.ldb;
+  const bool active = s_sel(warp, 0, 0) < S;  // warp-uniform: some of its s are real
+  const int s0 = s_sel(warp, 0, g), s1 = s_sel(warp, 1, g);
+  float acc[4][4];
+  for (int q = 0;; ++q) {
+    const int st = q % kRingStages;
+    mbar_wait(R.full + st, (q / kRingStages) & 1);
+    const ChunkDesc d = R.desc[st];
+    if (d.flags & kEndOfWork) break;
+    if (d.flags & kFirstChunk) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+    }
+    if (active) {
+      const float* as = R.a(st) + head_floats(a + (size_t)d.r * S);
+      const float* bs = R.b(st);
+      for (int h = 0; 16 * h < d.nr; ++h) {
+        // fragment k index 2 tig + j + 8 q is the chunk's row 16 h + 8 q + 2 tig + j
+        float av[2][2][2], bv[4][2][2];  // [hf][q][j], [u][q][j]
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int t = 16 * h + 8 * qq + 2 * tig + j;
+            const bool ok = t < d.nr;
+            av[0][qq][j] = ok ? as[t * S + s0] : 0.f;
+            av[1][qq][j] = ok ? as[t * S + s1] : 0.f;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) bv[u][qq][j] = ok ? bs[t * ldb + 8 * u + g] : 0.f;
+          }
+        }
+        unsigned ah[4], al[4];
+        split_pair(av[0][0][0], av[0][0][1], ah[0], al[0]);
+        split_pair(av[1][0][0], av[1][0][1], ah[1], al[1]);
+        split_pair(av[0][1][0], av[0][1][1], ah[2], al[2]);
+        split_pair(av[1][1][0], av[1][1][1], ah[3], al[3]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (8 * u < M) {
+            unsigned bh[2], bl[2];
+            split_pair(bv[u][0][0], bv[u][0][1], bh[0], bl[0]);
+            split_pair(bv[u][1][0], bv[u][1][1], bh[1], bl[1]);
+            mma_split3(acc[u], ah, al, bh, bl);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty + st);  // this warp is done with the stage
+    if (!(d.flags & kLastChunk)) continue;
+
+    // the item's tile: this warp's 16 rows of M floats, whole, by 16-byte
+    // stores, through its scratch [16][ldo] (ldo = 8 mod 16: conflict-free
+    // float2 stores)
+    const int ldo = R.L.lo / 16;
+    float* sc = R.scratch + warp * R.L.lo;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int col = 8 * u + 2 * tig;
+      if (col < M) {
+        *reinterpret_cast<float2*>(sc + g * ldo + col) = make_float2(acc[u][0], acc[u][1]);
+        *reinterpret_cast<float2*>(sc + (g + 8) * ldo + col) = make_float2(acc[u][2], acc[u][3]);
+      }
+    }
+    __syncwarp();
+    const int m4 = M / 4;
+    for (int i = lane; i < 16 * m4; i += 32) {
+      const int rr = i / m4, c4 = i - rr * m4;
+      const int s = s_sel(warp, rr >> 3, rr & 7);
+      if (s < S) {
+        float* dst = d.slot < 0 ? out + ((size_t)s * n_seg + d.seg) * M
+                                : partial + ((size_t)d.slot * S + s) * M;
+        *reinterpret_cast<float4*>(dst + 4 * c4) =
+            *reinterpret_cast<const float4*>(sc + rr * ldo + 4 * c4);
+      }
+    }
+    __syncwarp();  // the scratch is read before the next item writes it
+    if (d.slot >= 0) {
+      merge_up(R, d.slot, tree_nodes, tree_parent, tree_arrivals, partial, out, n_seg, S, M);
+    }
+  }
+}
+
+// A consumer warp's 16 rows of da (W = S) or db (W = M), as computed in
+// fragments, through its scratch into device memory: rows
+// [row0, row0 + nrow) of a (rows x W) tensor are one contiguous range, which
+// it writes as 16-byte stores, the ragged head and tail plainly.
+__device__ __forceinline__ void store_rows(float* sc, float* __restrict__ dst, size_t row0,
+                                           int nrow, int W, int lane) {
+  const size_t g0 = row0 * W, g1 = g0 + (size_t)nrow * W;
+  const size_t base = g0 & ~(size_t)3;  // sc[i] is dst[base + i]
+  const size_t b0 = (g0 + 3) & ~(size_t)3, b1 = g1 & ~(size_t)3;
+  if (b0 >= b1) {
+    for (size_t i = g0 + lane; i < g1; i += 32) dst[i] = sc[i - base];
+    return;
+  }
+  if (g0 + lane < b0) dst[g0 + lane] = sc[g0 + lane - base];
+  if (b1 + lane < g1) dst[b1 + lane] = sc[b1 + lane - base];
+  for (size_t v = b0 + 4 * lane; v < b1; v += 128) {
+    *reinterpret_cast<float4*>(dst + v) = *reinterpret_cast<const float4*>(sc + (v - base));
+  }
+}
+
+// backward consumer, da role: rows t0 .. t0 + 15 of each chunk;
+// da[t, s] = sum_m b[t, m] c[s, m], A = b rows (k = m), B = C^T
+__device__ void consume_da(const Ring& R, float* __restrict__ da, int t0, int S, int M) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ldb = R.L.ldb;
+  const int nts = (S + 7) / 8;  // 8-wide tiles of s
+  float* sc = R.scratch + warp * R.L.lo;
+  unsigned ch[8][2][2], cl[8][2][2];  // [s tile][k step][q]
+  for (int q = 0;; ++q) {
+    const int st = q % kRingStages;
+    mbar_wait(R.full + st, (q / kRingStages) & 1);
+    const ChunkDesc d = R.desc[st];
+    if (d.flags & kEndOfWork) break;
+    if (d.flags & kFirstChunk) {
+      const float* cs = R.c(st);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int s = 8 * u + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            const int m = 16 * h + 8 * qq + 2 * tig;  // M even: m < M means m + 1 < M
+            float2 v = make_float2(0.f, 0.f);
+            if (s < S && m < M) v = *reinterpret_cast<const float2*>(cs + s * M + m);
+            split_pair(v.x, v.y, ch[u][h][qq], cl[u][h][qq]);
+          }
+        }
+      }
+    }
+    const int nrow = min(16, d.nr - t0);
+    float acc[8][4];
+    if (nrow > 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+      const float* bs = R.b(st) + t0 * ldb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (16 * h < M) {
+          float2 v[2][2];  // [hf][q]
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+            for (int qq = 0; qq < 2; ++qq) {
+              const int m = 16 * h + 8 * qq + 2 * tig;
+              v[hf][qq] = m < M ? *reinterpret_cast<const float2*>(bs + (g + 8 * hf) * ldb + m)
+                                : make_float2(0.f, 0.f);
+            }
+          }
+          unsigned ah[4], al[4];
+          split_pair(v[0][0].x, v[0][0].y, ah[0], al[0]);
+          split_pair(v[1][0].x, v[1][0].y, ah[1], al[1]);
+          split_pair(v[0][1].x, v[0][1].y, ah[2], al[2]);
+          split_pair(v[1][1].x, v[1][1].y, ah[3], al[3]);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (u < nts) mma_split3(acc[u], ah, al, ch[u][h], cl[u][h]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty + st);
+    if (nrow <= 0) continue;
+    const size_t row0 = (size_t)d.r + t0;
+    const int sh = (int)((row0 * S) & 3);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 8 * u + 2 * tig + j;
+        if (col < S) {
+          sc[sh + g * S + col] = acc[u][j];
+          sc[sh + (g + 8) * S + col] = acc[u][2 + j];
+        }
+      }
+    }
+    __syncwarp();
+    store_rows(sc, da, row0, nrow, S, lane);
+    __syncwarp();
+  }
+}
+
+// backward consumer, db role: db[t, m] = sum_s a[t, s] c[s, m], A = a rows
+// (k = s), B = C. Fragment k index 2 tig + j + 8 q of k step h is
+// s = 32 (h / 2) + 8 tig + 4 (h % 2) + 2 q + j: with a rows S (odd) floats
+// apart, one fragment read of 8 rows g and 4 tig falls in 32 banks.
+__device__ void consume_db(const Ring& R, const float* __restrict__ a, float* __restrict__ db,
+                           int t0, int S, int M) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  float* sc = R.scratch + warp * R.L.lo;
+  unsigned ch[4][4][2], cl[4][4][2];  // [k step][m tile][q]
+  for (int q = 0;; ++q) {
+    const int st = q % kRingStages;
+    mbar_wait(R.full + st, (q / kRingStages) & 1);
+    const ChunkDesc d = R.desc[st];
+    if (d.flags & kEndOfWork) break;
+    if (d.flags & kFirstChunk) {
+      const float* cs = R.c(st);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int m = 8 * u + g;
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            const int s = 32 * (h >> 1) + 8 * tig + 4 * (h & 1) + 2 * qq;
+            const float x0 = s < S && m < M ? cs[s * M + m] : 0.f;
+            const float x1 = s + 1 < S && m < M ? cs[(s + 1) * M + m] : 0.f;
+            split_pair(x0, x1, ch[h][u][qq], cl[h][u][qq]);
+          }
+        }
+      }
+    }
+    const int nrow = min(16, d.nr - t0);
+    float acc[4][4];
+    if (nrow > 0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+      const float* as = R.a(st) + head_floats(a + (size_t)d.r * S) + t0 * S;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (32 * (h >> 1) < S) {
+          float v[2][2][2];  // [hf][q][j]
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+            for (int qq = 0; qq < 2; ++qq) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int s = 32 * (h >> 1) + 8 * tig + 4 * (h & 1) + 2 * qq + j;
+                v[hf][qq][j] = s < S ? as[(g + 8 * hf) * S + s] : 0.f;
+              }
+            }
+          }
+          unsigned ah[4], al[4];
+          split_pair(v[0][0][0], v[0][0][1], ah[0], al[0]);
+          split_pair(v[1][0][0], v[1][0][1], ah[1], al[1]);
+          split_pair(v[0][1][0], v[0][1][1], ah[2], al[2]);
+          split_pair(v[1][1][0], v[1][1][1], ah[3], al[3]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (8 * u < M) mma_split3(acc[u], ah, al, ch[h][u], cl[h][u]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty + st);
+    if (nrow <= 0) continue;
+    const size_t row0 = (size_t)d.r + t0;
+    const int sh = (int)((row0 * M) & 3);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int col = 8 * u + 2 * tig;  // M % 4 == 0: col < M means col + 1 < M
+      if (col < M) {
+        *reinterpret_cast<float2*>(sc + sh + g * M + col) = make_float2(acc[u][0], acc[u][1]);
+        *reinterpret_cast<float2*>(sc + sh + (g + 8) * M + col) =
+            make_float2(acc[u][2], acc[u][3]);
+      }
+    }
+    __syncwarp();
+    store_rows(sc, db, row0, nrow, M, lane);
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kRingThreads, 2)
+gather_contract_split3_ring(const float* __restrict__ cot, const float* __restrict__ a,
+                            const float* __restrict__ b, const int4* __restrict__ items,
+                            int n_items, float* __restrict__ da, float* __restrict__ db, int n,
+                            int n_seg, int S, int M) {
+  extern __shared__ __align__(128) unsigned char ring_smem_raw[];
+  const Ring R(ring_smem_raw, S, M, true);
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages; ++i) {
+      mbar_init(R.full + i, 1);
+      mbar_init(R.empty + i, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier
+  if (warp == kConsumerWarps) {
+    ring_produce<true>(R, a, b, cot, items, n_items, n, n_seg, S, M);
+  } else if (warp < 2) {
+    consume_da(R, da, 16 * warp, S, M);
+  } else {
+    consume_db(R, a, db, 16 * (warp - 2), S, M);
+  }
+}
+
+int outer_sum_split3(const float* a, const float* b, const int* items, int n_items,
+                     const int* merge_ptr, const int* merge_seg, int n_merge,
+                     const int* tree_nodes, const int* tree_parent, int* tree_arrivals,
+                     float* partial, float* out, int n, int n_seg, int S, int M,
+                     cudaStream_t stream) {
+  if (ring_shape(S, M) && aligned16(a) && aligned16(b) && aligned16(out) && aligned16(partial)) {
+    if (n_items > 0) {
+      const size_t smem = ring_smem(S, M, false).total;
+      const int blocks = persistent_blocks(outer_sum_split3_ring, kRingThreads, smem, n_items);
+      outer_sum_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
+          a, b, reinterpret_cast<const int4*>(items), n_items,
+          reinterpret_cast<const int4*>(tree_nodes), tree_parent, tree_arrivals, partial, out, n,
+          n_seg, S, M);
+    }
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = outer_sum_split3_smem(S, M);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (n_items > 0) {
+    outer_sum_split3_kernel<<<n_items, kThreads, smem, stream>>>(
+        a, b, reinterpret_cast<const int4*>(items), partial, out, n_seg, S, M);
+  }
+  if (n_merge > 0) {
+    outer_sum_merge_kernel<float><<<n_merge, kThreads, 0, stream>>>(
+        partial, merge_ptr, merge_seg, out, n_seg, S, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+int gather_contract_split3(const float* cot, const float* a, const float* b, const int* items,
+                           int n_items, float* da, float* db, int n, int n_seg, int S, int M,
+                           cudaStream_t stream) {
+  if (ring_shape(S, M) && aligned16(cot) && aligned16(a) && aligned16(b) && aligned16(da) &&
+      aligned16(db)) {
+    if (n_items > 0) {
+      const size_t smem = ring_smem(S, M, true).total;
+      const int blocks =
+          persistent_blocks(gather_contract_split3_ring, kRingThreads, smem, n_items);
+      gather_contract_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
+          cot, a, b, reinterpret_cast<const int4*>(items), n_items, da, db, n, n_seg, S, M);
+    }
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = gather_contract_split3_smem(S, M);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (n_items > 0) {
+    gather_contract_split3_kernel<<<n_items, kThreads, smem, stream>>>(
+        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1124,42 +1836,36 @@ int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot, const __nv_bfl
                                         S, M, stream);
 }
 
-// Shared memory (bytes) of each kernel at (S, M); 0 where the kernel takes no
-// such shape (more than 48 KB, or more than 32 forward output tiles).
-size_t gemnet_segment_outer_sum_split3_smem(int S, int M) { return outer_sum_split3_smem(S, M); }
+// Shared memory (bytes) of the kernel each entry runs at (S, M) with
+// 16-byte aligned tensors; 0 where no kernel takes the shape (more than 48
+// KB, or more than 32 forward output tiles, outside the ring's shapes).
+size_t gemnet_segment_outer_sum_split3_smem(int S, int M) {
+  return ring_shape(S, M) ? ring_smem(S, M, false).total : outer_sum_split3_smem(S, M);
+}
 
 size_t gemnet_segment_gather_contract_split3_smem(int S, int M) {
-  return gather_contract_split3_smem(S, M);
+  return ring_shape(S, M) ? ring_smem(S, M, true).total : gather_contract_split3_smem(S, M);
 }
 
+// K4 forward. The ring kernel (16 < S <= 64, M <= 32, M % 4 == 0, aligned
+// tensors) merges through the plan's tree (tree_nodes, tree_parent,
+// tree_arrivals; partial holds its n_tree_slots tiles); the kernel of the
+// other shapes through merge_ptr / merge_seg (partial: n_partials tiles).
 int gemnet_segment_outer_sum_split3(const float* a, const float* b, const int* items,
                                     int n_items, const int* merge_ptr, const int* merge_seg,
-                                    int n_merge, float* partial, float* out, int n_seg,
-                                    int S, int M, cudaStream_t stream) {
-  const size_t smem = outer_sum_split3_smem(S, M);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  if (n_items > 0) {
-    outer_sum_split3_kernel<<<n_items, kThreads, smem, stream>>>(
-        a, b, reinterpret_cast<const int4*>(items), partial, out, n_seg, S, M);
-  }
-  if (n_merge > 0) {
-    outer_sum_merge_kernel<float><<<n_merge, kThreads, 0, stream>>>(
-        partial, merge_ptr, merge_seg, out, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
+                                    int n_merge, const int* tree_nodes, const int* tree_parent,
+                                    int* tree_arrivals, float* partial, float* out, int n,
+                                    int n_seg, int S, int M, cudaStream_t stream) {
+  return outer_sum_split3(a, b, items, n_items, merge_ptr, merge_seg, n_merge, tree_nodes,
+                          tree_parent, tree_arrivals, partial, out, n, n_seg, S, M, stream);
 }
 
+// K4 backward over the n rows of a and b.
 int gemnet_segment_gather_contract_split3(const float* cot, const float* a, const float* b,
                                           const int* items, int n_items, float* da,
-                                          float* db, int n_seg, int S, int M,
+                                          float* db, int n, int n_seg, int S, int M,
                                           cudaStream_t stream) {
-  const size_t smem = gather_contract_split3_smem(S, M);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  if (n_items > 0) {
-    gather_contract_split3_kernel<<<n_items, kThreads, smem, stream>>>(
-        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
+  return gather_contract_split3(cot, a, b, items, n_items, da, db, n, n_seg, S, M, stream);
 }
 
 const char* gemnet_cuda_error_string(int code) {

@@ -12,9 +12,12 @@ warp (K3), so a segment that holds thousands of rows — the padded rows all
 share one segment id — is spread over many SMs instead of serializing one.
 An item of a segment with a single item writes the output directly; the
 items of a split segment write partial sums to scratch slots, which are
-added in a fixed order: by a second kernel (K1), or by the last of the
-segment's items to finish, counted in `arrivals` (K3). Every output is
-written once and the order of summation is fixed.
+added in a fixed order: by a second kernel (K1), by the last of the
+segment's items to finish, counted in `arrivals` (K3), or through a merge
+tree of at most MERGE_FAN children a node, each node added by the last of
+its children to finish, counted in `tree_arrivals` (the K4 forward at the
+quadruplet shape). Every output is written once and the order of summation
+is fixed.
 """
 
 from __future__ import annotations
@@ -38,7 +41,15 @@ class SegmentPlan(NamedTuple):
     merge_seg: (n_merge,) the split segments;
     arrivals: (n_merge,) zeros: K3's count of the finished items of each
       split segment, which the kernel returns to zero (one stream at a
-      time may launch K3 on a plan)."""
+      time may launch K3 on a plan);
+    tree_nodes: (n_nodes, 4) the merge tree of the split segments, as the
+      K4 forward adds their partial tiles: node i adds slots [first, end)
+      in slot order (at most MERGE_FAN of them) into slot `out`, or into
+      the output of `segment` where out is -1 (the segment's root);
+    tree_parent: (n_tree_slots,) the node each partial slot feeds (items'
+      slots first, then the inner nodes' outputs);
+    tree_arrivals: (n_nodes,) zeros: the count of a node's children that
+      have finished, returned to zero by the last of them."""
 
     items: torch.Tensor
     merge_ptr: torch.Tensor
@@ -46,6 +57,41 @@ class SegmentPlan(NamedTuple):
     n_segments: int
     n_partials: int
     arrivals: torch.Tensor
+    tree_nodes: torch.Tensor
+    tree_parent: torch.Tensor
+    tree_arrivals: torch.Tensor
+    n_tree_slots: int
+
+
+# children a merge-tree node adds in sequence
+MERGE_FAN = 16
+
+
+def merge_tree(merge_ptr: np.ndarray, merge_seg: np.ndarray,
+               n_partials: int) -> tuple[np.ndarray, np.ndarray]:
+    """(nodes, parent) of the split segments' merge trees: split segment j's
+    item slots [merge_ptr[j], merge_ptr[j+1]) are cut into groups of at most
+    MERGE_FAN consecutive slots, each group a node whose sum takes a new slot
+    (numbered from n_partials on); those slots are grouped again, and so on,
+    until one group is left, the root, which writes the segment's output.
+    Every node's children are consecutive slots."""
+    nodes, parent = [], np.full(n_partials, -1, np.int64)
+    next_slot = n_partials
+    for j, seg in enumerate(merge_seg):
+        level = np.arange(merge_ptr[j], merge_ptr[j + 1])
+        while True:
+            groups = [level[i:i + MERGE_FAN] for i in range(0, len(level), MERGE_FAN)]
+            root = len(groups) == 1
+            outs = np.arange(next_slot, next_slot + (0 if root else len(groups)))
+            next_slot += len(outs)
+            parent = np.concatenate([parent, np.full(len(outs), -1)])
+            for k, grp in enumerate(groups):
+                parent[grp] = len(nodes)
+                nodes.append((grp[0], grp[-1] + 1, -1 if root else outs[k], seg))
+            if root:
+                break
+            level = outs
+    return np.asarray(nodes, np.int64).reshape(-1, 4), parent
 
 
 # plan key -> (sorted id column, column whose length is the number of
@@ -88,8 +134,11 @@ def segment_plan(sorted_ids: np.ndarray, n_segments: int, item_rows: int,
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
 
-    return SegmentPlan(t(items), t(merge_ptr), t(merge_seg), int(n_segments), int(split.sum()),
-                       t(np.zeros(len(merge_seg))))
+    n_partials = int(split.sum())
+    nodes, parent = merge_tree(merge_ptr, merge_seg, n_partials)
+    return SegmentPlan(t(items), t(merge_ptr), t(merge_seg), int(n_segments), n_partials,
+                       t(np.zeros(len(merge_seg))), t(nodes), t(parent), t(np.zeros(len(nodes))),
+                       len(parent))
 
 
 def to_torch(batch: dict[str, np.ndarray], device) -> dict:

@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P]
 _K2_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
-_K4_BWD_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+_K4_FWD_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_K4_BWD_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
 _K3_ARGS = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
 _GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _P]
 # C function -> (source, argtypes, restype)
@@ -53,7 +54,7 @@ _FUNCTIONS = {
     "gemnet_segment_gather_contract_f32": ("segment_outer.cu", _K2_ARGS, _I),
     "gemnet_segment_gather_contract_bf16": ("segment_outer.cu", _K2_ARGS, _I),
     "gemnet_segment_gather_contract_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
-    "gemnet_segment_outer_sum_split3": ("segment_outer.cu", _K1_ARGS, _I),
+    "gemnet_segment_outer_sum_split3": ("segment_outer.cu", _K4_FWD_ARGS, _I),
     "gemnet_segment_outer_sum_split3_smem": ("segment_outer.cu", [_I, _I], ctypes.c_size_t),
     "gemnet_segment_gather_contract_split3": ("segment_outer.cu", _K4_BWD_ARGS, _I),
     "gemnet_segment_gather_contract_split3_smem": ("segment_outer.cu", [_I, _I],
@@ -233,5 +234,8 @@ def check_plan(plan, device: torch.device) -> None:
     check_tensor(plan.merge_ptr, "plan.merge_ptr", torch.int32, device)
     check_tensor(plan.merge_seg, "plan.merge_seg", torch.int32, device)
     check_tensor(plan.arrivals, "plan.arrivals", torch.int32, device)
+    check_tensor(plan.tree_nodes, "plan.tree_nodes", torch.int32, device)
+    check_tensor(plan.tree_parent, "plan.tree_parent", torch.int32, device)
+    check_tensor(plan.tree_arrivals, "plan.tree_arrivals", torch.int32, device)
     if plan.items.ndim != 2 or plan.items.shape[1] != 4:
         raise ValueError(f"plan.items has shape {tuple(plan.items.shape)}, expected (n, 4)")

@@ -33,7 +33,8 @@ the plain split3 versions below. As in `_use_split3`, it applies to fp32
 streams only: bf16 streams ignore it.
 
 `plan` is the `data.batch.SegmentPlan` of the sorted ids (work items of the
-kernels); the plain versions use `seg_ids`. The two ops are
+kernels, and the merge tree through which the split3 forward adds a long
+segment's partial tiles); the plain versions use `seg_ids`. The two ops are
 `torch.autograd.Function`s whose backwards call each other, so they
 differentiate to any order (grad-of-grad for force training), as the JAX
 custom VJPs do; each returns its gradients in the dtypes of its inputs. The
@@ -128,17 +129,24 @@ def _outer_sum_cuda(a, b, plan, split3=False):
     n_seg = plan.n_segments
     if b.shape[0] != n:
         raise ValueError(f"a has {n} rows, b has {b.shape[0]}")
+    out = torch.empty((S, n_seg, M), dtype=dt, device=dev)
     if split3:
         if _cuda.function("gemnet_segment_outer_sum_split3_smem")(S, M) == 0:
             raise ValueError(f"segment_outer_sum split3 kernel takes no S={S}, M={M}")
-        name = "gemnet_segment_outer_sum_split3"
-    elif _cuda.function("gemnet_segment_outer_sum_threads")(S, M) == 0:
+        # partial tiles of the items and of the merge tree's inner nodes
+        partial = torch.empty((plan.n_tree_slots, S, M), dtype=torch.float32, device=dev)
+        _cuda.launch("gemnet_segment_outer_sum_split3", (n, S, M, n_seg), dev,
+                     a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
+                     plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
+                     plan.tree_nodes.data_ptr(), plan.tree_parent.data_ptr(),
+                     plan.tree_arrivals.data_ptr(), partial.data_ptr(), out.data_ptr(), n, n_seg,
+                     S, M)
+        return out
+    if _cuda.function("gemnet_segment_outer_sum_threads")(S, M) == 0:
         raise ValueError(f"segment_outer_sum kernel takes no S={S}, M={M}")
-    elif _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
+    if _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
         raise ValueError(f"segment_outer_sum kernel: S={S}, M={M} exceed 48 KB of shared memory")
-    else:
-        name = f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}"
-    out = torch.empty((S, n_seg, M), dtype=dt, device=dev)
+    name = f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}"
     partial = torch.empty((plan.n_partials, S, M), dtype=torch.float32, device=dev)
     _cuda.launch(name, (n, S, M, n_seg), dev,
                  a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
@@ -164,7 +172,7 @@ def _gather_contract_cuda(cot, a, b, seg_ids, plan, split3=False):
             raise ValueError(f"segment_gather_contract split3 kernel takes no S={S}, M={M}")
         _cuda.launch("gemnet_segment_gather_contract_split3", (n, S, M, n_seg), dev,
                      cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
-                     plan.items.shape[0], da.data_ptr(), db.data_ptr(), n_seg, S, M)
+                     plan.items.shape[0], da.data_ptr(), db.data_ptr(), n, n_seg, S, M)
         return da, db
     if _cuda.function("gemnet_segment_gather_contract_smem")(S, M) > 227 * 1024:
         raise ValueError(f"segment_gather_contract kernel: S={S}, M={M} exceed the 227 KB of "

@@ -1,19 +1,22 @@
-"""Old against new: K2 and K3 from an earlier copy of their sources beside
-the current ones, on the card, at the bench-small shapes.
+"""Old against new: the kernels of an earlier copy of `segment_outer.cu`
+(K1, K2 on fp32 and bf16 streams, and K4, their split3 mode) beside the
+current ones, on the card, at the bench-small shapes.
 
-    git archive <commit> gemnet_pytorch_tpu_torch/csrc | tar -x -C <dir>
+    git archive 5f3cd9f gemnet_pytorch_tpu_torch/csrc | tar -x -C <dir>
     python -m gemnet_pytorch_tpu_torch.scripts.kernel_ab <dir>/gemnet_pytorch_tpu_torch/csrc
 
 Run from the repository root (it takes its cases from `chip_smoke.py`). The
-earlier `segment_outer.cu` and `expand_gather.cu` are built with the same
-nvcc flags into `_build/ab/` and bound with the C interface of the first
-design: K2 without the rows' segment ids, K3 with a separate merge kernel
-and no arrival counters, on 32-row items. Per case (K2 and K3, fp32 and
-bf16 streams), it checks both versions against the plain version
-(chip_smoke's KERNEL_RTOL), then times them by CUDA-graph replay
-(`_cuda.graph_ms`, device time per launch) in turns: old, new, new, old;
-then the library call where there is one; beside the bound. Prints one line
-per case and a JSON list. Runs on the card only.
+earlier `segment_outer.cu` is built with the same nvcc flags into
+`_build/ab/` and bound with the C interface its entries had at 5f3cd9f:
+K1 and K2 as today, the K4 forward merging through merge_ptr / merge_seg
+(a second, one-block kernel), the K4 backward without the row count. Per
+case (K1 and K2, forward and backward, at the triplet and the quadruplet
+shape, per stream type), it checks both versions against the plain version
+(chip_smoke's KERNEL_RTOL), K4 also against the exact fp32 one (chip_smoke's
+SPLIT3_EXACT_RTOL), then times them by CUDA-graph replay (`_cuda.graph_ms`,
+device time per launch, the forward's merge included) in turns: old, new,
+new, old; beside the bound. Prints one line per case and a JSON list. Runs
+on the card only.
 """
 
 from __future__ import annotations
@@ -27,37 +30,33 @@ from pathlib import Path
 import torch
 
 from ..config import ModelConfig
-from ..data import segment_plan, to_torch
+from ..data import to_torch
 from ..ops import _cuda
+from ..ops import segment_outer as so
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-OLD_K2_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
-OLD_K3_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P]
-OLD_K3_ITEM_ROWS = 32
+OLD_K4_FWD_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+OLD_K4_BWD_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+OLD_ARGS = {"gemnet_segment_outer_sum_split3": OLD_K4_FWD_ARGS,
+            "gemnet_segment_gather_contract_split3": OLD_K4_BWD_ARGS,
+            **{f"gemnet_segment_outer_sum_{sfx}": _cuda._K1_ARGS for sfx in ("f32", "bf16")},
+            **{f"gemnet_segment_gather_contract_{sfx}": _cuda._K2_ARGS for sfx in ("f32", "bf16")}}
 
 
-def build_old(csrc: Path) -> dict[str, ctypes.CDLL]:
-    """The earlier sources' libraries, built together (one nvcc each)."""
+def build_old(csrc: Path) -> ctypes.CDLL:
+    """The earlier segment_outer.cu's library, with its K1/K2/K4 entries bound."""
     out_dir = _cuda.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for source in ("segment_outer.cu", "expand_gather.cu"):
-        lib = out_dir / f"lib{Path(source).stem}-old.so"
-        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(csrc / source)]
-        jobs[source] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for source, (lib, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the earlier {source}:\n{log}")
-        libs[source] = ctypes.CDLL(str(lib))
-    for suffix in ("f32", "bf16"):
-        fn = getattr(libs["segment_outer.cu"], f"gemnet_segment_gather_contract_{suffix}")
-        fn.argtypes, fn.restype = OLD_K2_ARGS, _I
-        fn = getattr(libs["expand_gather.cu"], f"gemnet_sorted_segsum_{suffix}")
-        fn.argtypes, fn.restype = OLD_K3_ARGS, _I
-    return libs
+    lib_path = out_dir / "libsegment_outer-old.so"
+    cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib_path), str(csrc / "segment_outer.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the earlier segment_outer.cu:\n{proc.stdout}")
+    lib = ctypes.CDLL(str(lib_path))
+    for name, args in OLD_ARGS.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, _I
+    return lib
 
 
 def _check(code: int, what: str) -> None:
@@ -65,37 +64,49 @@ def _check(code: int, what: str) -> None:
         raise RuntimeError(f"earlier {what} failed to launch: CUDA error {code}")
 
 
-def old_call(libs, case):
-    """The earlier kernel of a K2 or K3 case, as a call returning a tuple."""
-    suffix = _cuda.DTYPE_SUFFIX[torch.bfloat16 if case["dtype"] == "bf16" else torch.float32]
-    if case["kernel"] == "K2":
-        fn = getattr(libs["segment_outer.cu"], f"gemnet_segment_gather_contract_{suffix}")
-        cot, a, b, plan = case["cot"], case["a"], case["b"], case["plan"]
-        n, S = a.shape
-        M = b.shape[1]
+def old_call(lib, case):
+    """The earlier kernel of a K1/K2 case, as a call returning a tuple."""
+    a, b, plan = case["a"], case["b"], case["plan"]
+    n, S = a.shape
+    M = b.shape[1]
+    n_seg = plan.n_segments
+    label = f"{case['kernel']} {case['tag']} {case['dtype']}"
+    if case["kernel"] == "K1":
+        fn = getattr(lib, f"gemnet_segment_outer_sum_{case['dtype']}")
 
-        def k2():
-            da = torch.empty_like(a)
-            db = torch.empty_like(b)
-            _check(fn(cot.data_ptr(), a.data_ptr(), b.data_ptr(), plan.items.data_ptr(),
-                      plan.items.shape[0], da.data_ptr(), db.data_ptr(), plan.n_segments, S, M,
-                      torch.cuda.current_stream().cuda_stream), "K2")
-            return da, db
-        return k2
-    fn = getattr(libs["expand_gather.cu"], f"gemnet_sorted_segsum_{suffix}")
-    x, perm, n_seg = case["x"], case["perm"], case["plan"].n_segments
-    plan = segment_plan(case["sorted"].cpu().numpy(), n_seg, OLD_K3_ITEM_ROWS, x.device)
-    M = x.shape[1]
+        def fwd():
+            out = torch.empty((S, n_seg, M), dtype=a.dtype, device=a.device)
+            partial = torch.empty((plan.n_partials, S, M), dtype=torch.float32, device=a.device)
+            _check(fn(
+                a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
+                plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
+                partial.data_ptr(), out.data_ptr(), n_seg, S, M,
+                torch.cuda.current_stream().cuda_stream), label)
+            return (out,)
+        return fwd
+    fn = getattr(lib, f"gemnet_segment_gather_contract_{case['dtype']}")
+    cot = case["cot"]
+    # K2 takes the rows' segment ids and the row count; K4's backward neither
+    seg = case["ids"].to(torch.int64)
+    rows = () if case["dtype"] == "split3" else (seg.data_ptr(),)
+    n_arg = () if case["dtype"] == "split3" else (n,)
 
-    def k3():
-        out = torch.empty((n_seg, M), dtype=x.dtype, device=x.device)
-        partial = torch.empty((plan.n_partials, M), dtype=torch.float32, device=x.device)
-        _check(fn(x.data_ptr(), perm.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
-                  plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
-                  partial.data_ptr(), out.data_ptr(), M,
-                  torch.cuda.current_stream().cuda_stream), "K3")
-        return (out,)
-    return k3
+    def bwd():
+        da = torch.empty_like(a)
+        db = torch.empty_like(b)
+        _check(fn(cot.data_ptr(), a.data_ptr(), b.data_ptr(), *rows, plan.items.data_ptr(),
+                  plan.items.shape[0], da.data_ptr(), db.data_ptr(), *n_arg, n_seg, S, M,
+                  torch.cuda.current_stream().cuda_stream), label)
+        return da, db
+    return bwd
+
+
+def exact_call(case):
+    """The exact fp32 plain K1/K2 of a split3 case."""
+    a, b, ids = case["a"], case["b"], case["ids"]
+    if case["kernel"] == "K1":
+        return lambda: (so._outer_sum_plain(a, b, ids, case["plan"].n_segments),)
+    return lambda: so._gather_contract_plain(case["cot"], a, b, ids)
 
 
 def main(csrc: str, device="cuda") -> list[dict]:
@@ -106,38 +117,44 @@ def main(csrc: str, device="cuda") -> list[dict]:
         raise RuntimeError("kernel_ab times kernels on a CUDA device")
     _cuda.set_matmul_precision()
     _cuda.build()
-    libs = build_old(Path(csrc))
+    lib = build_old(Path(csrc))
     power = chip_smoke.card_line()
     cfg = ModelConfig()
     batch_np, _ = chip_smoke.padded_batch(cfg, chip_smoke.bench_molecules(seed=0))
     cases = [c for c in chip_smoke.kernel_cases(cfg, to_torch(batch_np, device), device)
-             if c["kernel"] in ("K2", "K3") and c["dtype"] in ("f32", "bf16")]
+             if c["kernel"] in ("K1", "K2")]
     rows = []
     for case in cases:
-        new, plain, library = chip_smoke.case_functions(case)
-        old = old_call(libs, case)
+        new, plain, _ = chip_smoke.case_functions(case)
+        old = old_call(lib, case)
+        split3 = case["dtype"] == "split3"
         refs = plain()
-        tol = chip_smoke.KERNEL_RTOL[case["dtype"]]
+        exact = exact_call(case)() if split3 else None
         errs = {}
         for name, fn in (("old", old), ("new", new)):
-            err, scale = chip_smoke.max_err(case, fn(), refs)
+            outs = fn()
+            err, scale = chip_smoke.max_err(case, outs, refs)
             errs[name] = err
-            chip_smoke.check(err <= tol * max(scale, 1.0),
+            chip_smoke.check(err <= chip_smoke.KERNEL_RTOL[case["dtype"]] * max(scale, 1.0),
                              f"{chip_smoke.case_label(case)}: the {name} kernel disagrees "
                              "with its plain version")
+            if not split3:
+                continue
+            rel = [e / max(x, 1e-30) for e, x in (chip_smoke.max_err(case, (o,), (r,))
+                                                  for o, r in zip(outs, exact))]
+            chip_smoke.check(0 < min(rel) and max(rel) <= chip_smoke.SPLIT3_EXACT_RTOL,
+                             f"{chip_smoke.case_label(case)}: the {name} kernel is "
+                             f"{rel} of max |exact| from exact fp32")
         times = [_cuda.graph_ms(fn)[0] for fn in (old, new, new, old)]
         nbytes, flops = chip_smoke.case_cost(case)
         row = dict(kernel=case["kernel"], tag=case["tag"], dtype=case["dtype"],
                    old_ms=times[0], new_ms=times[1], new_ms_2=times[2], old_ms_2=times[3],
-                   library_ms=_cuda.graph_ms(library)[0] if library else None,
                    bound_ms=max(nbytes / chip_smoke.PEAK_BYTES_PER_S,
                                 flops / chip_smoke.PEAK_FLOPS[case["dtype"]]) * 1e3,
                    old_err=errs["old"], new_err=errs["new"], card=power)
-        lib = f"{row['library_ms']:.4f}" if row["library_ms"] is not None else "null"
         print(f"{chip_smoke.case_label(case)}: old {times[0]:.4f} / {times[3]:.4f} ms, new "
-              f"{times[1]:.4f} / {times[2]:.4f} ms, library {lib} ms, bound "
-              f"{row['bound_ms']:.4f} ms; max abs err vs plain old {errs['old']:.3e}, new "
-              f"{errs['new']:.3e} [{power}]", flush=True)
+              f"{times[1]:.4f} / {times[2]:.4f} ms, bound {row['bound_ms']:.4f} ms; max abs "
+              f"err vs plain old {errs['old']:.3e}, new {errs['new']:.3e} [{power}]", flush=True)
         rows.append(row)
     return rows
 

@@ -259,6 +259,84 @@ def test_segment_gather_contract_kernel_ragged_items(device, S, M, dtype):
         f"gemnet_segment_gather_contract_{_cuda.DTYPE_SUFFIX[dt]}": 2}
 
 
+def _k4_ids(rng, n_seg):
+    """Sorted ids whose segments hold 0, 1, 15, 16, 17, 31, 32, 33, 63, 128,
+    129 and 9600 rows, then random short segments; an odd row count, so with
+    odd S the rows end past the tensor's last 16-byte boundary."""
+    lengths = [0, 1, 15, 16, 17, 31, 32, 33, 63, 128, 129, 9600]
+    head = np.repeat(np.arange(len(lengths)), lengths)
+    tail = np.sort(rng.integers(len(lengths), n_seg, 1502))
+    return np.concatenate([head, tail])
+
+
+# K4 vs its plain split3 version (share of the plain output's magnitude): the
+# same bf16 products, exact in fp32, summed in fp32 in another order
+SPLIT3_RTOL = 1e-5
+# K4 vs the exact fp32 K1/K2, share of max |exact| per output: the JAX
+# package's split3 bound (tests/test_segment_outer.py)
+SPLIT3_EXACT_RTOL = 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [49, 25])
+def test_split3_quad_kernels(device, S):
+    """The K4 ring kernels (forward with its merge tree, backward) at M = 32
+    on segments of 0-129 rows and one of 9600, rows that start off 16-byte
+    boundaries and a last chunk that ends at the tensor's end: against the
+    plain split3 versions and the exact fp32 ones, bit-equal across two
+    launches and across two replays of one captured CUDA graph, and the merge
+    tree's counters back at zero."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(S)
+    n_seg, M = 700, 32
+    ids = _k4_ids(rng, n_seg)
+    n = len(ids)
+    assert n % 2 == 1
+    plan = segment_plan(ids, n_seg, 128, device)
+    assert plan.tree_nodes.shape[0] > 1  # the 9600-row segment merges in two levels
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+    a, b, cot = rand(n, S), rand(n, M), rand(S, n_seg, M)
+    tid = torch.from_numpy(ids).to(device)
+
+    def k4():
+        return (so.outer_sum(a, b, tid, plan, "split3"),
+                *so.gather_contract(cot, a, b, tid, plan, "split3"))
+
+    _cuda.reset_launches()
+    outs, again = k4(), k4()
+    torch.cuda.synchronize()
+    assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_split3": 2,
+                                       "gemnet_segment_gather_contract_split3": 2}
+    plain = (so._outer_sum_split3_plain(a, b, tid, n_seg),
+             *so._gather_contract_split3_plain(cot, a, b, tid))
+    exact = (so._outer_sum_plain(a, b, tid, n_seg), *so._gather_contract_plain(cot, a, b, tid))
+    for o, o2, p, e in zip(outs, again, plain, exact):
+        assert torch.equal(o, o2)
+        assert float((o - p).abs().max()) <= SPLIT3_RTOL * float(p.abs().max())
+        rel = float((o - e).abs().max()) / float(e.abs().max())
+        assert 0 < rel <= SPLIT3_EXACT_RTOL
+    assert int(plan.tree_arrivals.abs().sum()) == 0
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k4()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in captured])
+    for o, r1, r2 in zip(outs, *replays):
+        assert torch.equal(r1, r2) and torch.equal(r1, o)
+    assert int(plan.tree_arrivals.abs().sum()) == 0
+
+
 @pytest.mark.cuda
 def test_launch_counter_and_input_checks(device):
     from gemnet_pytorch_tpu_torch.data import segment_plan

@@ -193,6 +193,61 @@ def test_segment_plan_long_and_empty_segments(key):
         segment_plan(np.concatenate([ids, [n_seg]]), n_seg, item_rows, "cpu")
 
 
+def _tree_segment_sum(plan, x):
+    """numpy model of the K4 forward over a plan: per-item sums into the
+    output or the item's partial slot, then the merge tree's nodes, each
+    adding its children in slot order into its slot or the output."""
+    out = np.full((plan.n_segments, x.shape[1]), np.nan)
+    partial = np.full((plan.n_tree_slots, x.shape[1]), np.nan)
+    for seg, r0, r1, slot in plan.items.numpy():
+        (out if slot < 0 else partial)[seg if slot < 0 else slot] = x[r0:r1].sum(0)
+    for first, end, slot, seg in plan.tree_nodes.numpy():
+        assert not np.isnan(partial[first:end]).any()  # every child is written before
+        (out if slot < 0 else partial)[seg if slot < 0 else slot] = partial[first:end].sum(0)
+    return out
+
+
+@pytest.mark.parametrize("rows", [129, 2048, 2049, 9600, 32768, 40000])
+def test_segment_plan_merge_tree(rows):
+    """The K4 forward's merge tree of a long segment (9600 rows: the padded
+    rows' at the bench quad shape) beside short and empty ones, at the K1/K2
+    item size: every partial slot feeds exactly one node, no node adds more
+    than MERGE_FAN children, a node's children are consecutive slots, one
+    root per split segment writes its output, the counters are int32 zeros,
+    and the tree's sums equal the segment sums."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.data.batch import MERGE_FAN, SEGMENT_PLANS
+
+    item_rows = SEGMENT_PLANS["id4_reduce_ca_plan"][2]
+    rng = np.random.default_rng(rows)
+    n_seg = 300
+    ids = np.sort(np.concatenate([rng.integers(0, 250, 3000), np.full(rows, 260),
+                                  np.full(300, 7)]))  # 261-299 stay empty
+    plan = segment_plan(ids, n_seg, item_rows, "cpu")
+    nodes, parent = plan.tree_nodes.numpy(), plan.tree_parent.numpy()
+    first, end, out_slot, seg = nodes.T
+    assert np.all(end - first >= 1) and np.all(end - first <= MERGE_FAN)
+    assert plan.n_tree_slots == len(parent) >= plan.n_partials
+    children = np.concatenate([np.arange(f, e) for f, e in zip(first, end)])
+    np.testing.assert_array_equal(np.sort(children), np.arange(plan.n_tree_slots))
+    for i, (f, e) in enumerate(zip(first, end)):
+        np.testing.assert_array_equal(parent[f:e], i)
+    inner = out_slot >= 0
+    np.testing.assert_array_equal(np.sort(out_slot[inner]),
+                                  np.arange(plan.n_partials, plan.n_tree_slots))
+    assert np.all(seg[inner] == seg[parent[out_slot[inner]]])  # a node feeds its own segment
+    np.testing.assert_array_equal(np.sort(seg[~inner]), plan.merge_seg.numpy())
+    levels = int(np.ceil(np.log(-(-rows // item_rows)) / np.log(MERGE_FAN) - 1e-9))
+    assert np.sum(seg == 260) == sum(-(-(-(-rows // item_rows)) // MERGE_FAN**k) for k in
+                                     range(1, levels + 1))
+    assert plan.tree_arrivals.dtype == torch.int32
+    np.testing.assert_array_equal(plan.tree_arrivals.numpy(), np.zeros(len(nodes)))
+    x = rng.normal(size=(len(ids), 2))
+    ref = np.zeros((n_seg, 2))
+    np.add.at(ref, ids, x)
+    np.testing.assert_allclose(_tree_segment_sum(plan, x), ref, atol=1e-9)
+
+
 def test_kernel_id_columns_are_sorted(synthetic_npz):
     """The segment kernels' precondition (checked here, not on the hot path):
     every column they reduce over is ascending, padded rows included."""
