@@ -12,9 +12,10 @@ Phases:
      K3 sorted segment sum, on fp32 and on bf16 streams; K4, the split3 mode
      of K1 and K2; the row-gather probe kernels P1 and P2) against its plain
      PyTorch version on the card, at the shapes the serving path, the train
-     step and the probe give it (K4 also against the exact fp32 K1/K2, and
-     bit-equal across two replays of one captured CUDA graph; K1, K2, K3
-     and K4 bit-equal across two launches);
+     step and the probe give it (K4 also against the exact fp32 K1/K2; K1
+     and K4 bit-equal across two replays of one captured CUDA graph, their
+     merge trees' counters back at zero; K1, K2, K3 and K4 bit-equal across
+     two launches);
   4. time each kernel and, where one PyTorch call computes the same
      function, that call, both ways: device time per launch (`ms`,
      `library_ms`: 20 calls captured in a CUDA graph, replayed under CUDA
@@ -381,8 +382,9 @@ def max_err(case, outs, refs) -> tuple[float, float]:
 
 def compare_kernels(cases):
     """Phase 3: each case's kernel against its plain version (P1/P2 bit for
-    bit), K1-K4 bit-equal across two launches; K4 also against the exact
-    fp32 plain K1/K2, and bit-equal across two replays of a captured graph."""
+    bit), K1-K4 bit-equal across two launches; K1 and K4 bit-equal across
+    two replays of a captured graph; K4 also against the exact fp32 plain
+    K1/K2."""
     import torch
 
     from gemnet_pytorch_tpu_torch.ops import segment_outer as so
@@ -408,7 +410,7 @@ def compare_kernels(cases):
             torch.cuda.synchronize()
             check(all(torch.equal(o, r) for o, r in zip(outs, again)),
                   f"{case_label(case)} differs between two launches")
-        if case["dtype"] == "split3":
+        if case["kernel"] == "K1" or case["dtype"] == "split3":
             # one captured launch replayed twice: the same bits as the eager
             # launch, so the merge tree's arrival counters return to zero
             graph = torch.cuda.CUDAGraph()
@@ -557,12 +559,16 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
 
 
 # the hand-written kernels' device functions, by the names the profiler
-# shows (K4's backward is gather_contract_split3_ring at the quadruplet
-# shape and gather_contract_split3_kernel at the triplet shape, its forward
-# outer_sum_split3_ring / outer_sum_split3_kernel; K1's merge kernel serves
-# K1 and K4's triplet forward)
+# shows (K1 is outer_sum_ffma_ring (fp32) / outer_sum_mma_ring (bf16) at the
+# quadruplet shape, outer_sum_warp_kernel at the triplet shape and
+# outer_sum_kernel at other shapes; K4's backward is
+# gather_contract_split3_ring at the quadruplet shape and
+# gather_contract_split3_kernel at the triplet shape, its forward
+# outer_sum_split3_ring / outer_sum_split3_kernel; the merge kernel of K1's
+# general kernel serves K4's triplet forward too)
 PROFILE_GROUPS = {
-    "K1": ("outer_sum_kernel", "outer_sum_merge_kernel"),
+    "K1": ("outer_sum_kernel", "outer_sum_merge_kernel", "outer_sum_ffma_ring",
+           "outer_sum_mma_ring", "outer_sum_warp_kernel"),
     "K2": ("gather_contract_",),
     "K3": ("sorted_segsum_",),
     "K4": ("outer_sum_split3_", "gather_contract_split3_"),

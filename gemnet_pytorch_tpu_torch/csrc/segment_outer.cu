@@ -4,7 +4,9 @@
 // K1 gemnet_segment_outer_sum_{f32,bf16}
 //     out[s, e, m] = sum_{t : seg(t) = e} a[t, s] * b[t, m]
 //   replaces gemnet_pytorch_tpu/ops/pallas/segment_outer.py::_fwd_kernel
-//   (launched by _outer_sum_pallas).
+//   (launched by _outer_sum_pallas), its non-split3 branch (:366-369): the
+//   kernels of the last section at the triplet and the quadruplet shape,
+//   the general kernel below at other shapes.
 // K2 gemnet_segment_gather_contract_{f32,bf16}
 //     da[t, s] = sum_m cot[s, seg(t), m] * b[t, m]
 //     db[t, m] = sum_s cot[s, seg(t), m] * a[t, s]
@@ -12,14 +14,15 @@
 // K4 gemnet_segment_outer_sum_split3, gemnet_segment_gather_contract_split3
 //   K1 and K2 in the fp32 "split3" mode, on the tensor cores: the wmma
 //   kernels of the section below at the triplet shape, the ring kernels of
-//   the last section at the quadruplet shape.
+//   the section "K4 at the quadruplet shape" at the quadruplet shape.
 //
 // Stream types follow the JAX package's contract (segment_outer.py:152-157,
 // 205-216, 586-590): with fp32 streams everything is fp32; with bf16 streams
 // (compute_dtype="bfloat16") the rows, and K2's cotangent, are read as bf16
-// and widened to fp32 in shared memory, every product and sum is fp32, and
-// the stores round once to bf16: K1's output, K2's da and db. K1's partial
-// tiles of a split segment stay fp32 until the merge rounds their sum.
+// (kept as bf16 in shared memory, or widened there to fp32), every product
+// and sum is fp32, and the stores round once to bf16: K1's output, K2's da
+// and db. K1's partial tiles of a split segment stay fp32 until the merge
+// rounds their sum.
 //
 // Rows are sorted by segment. The host cuts each segment's rows into work
 // items of at most 128 rows (data/batch.py::segment_plan): items[i] =
@@ -32,17 +35,13 @@
 // 67 TFLOP/s / 3.35 TB/s = 20 (bf16 streams halve the bytes). K2 moves a, b,
 // da, db and cot: ~145 MB at the quad shape in fp32, ~72 MB in bf16.
 //
-// Design: one thread block per work item. The padded rows of a batch all
-// share one segment id (thousands of rows); items spread such a segment
-// over many SMs, where one block per segment left a single SM serializing
-// it while the card idled. K1 threads own (s, m) output elements with the
-// accumulators in registers; an item of an unsplit segment writes the
-// output, the items of a split segment write (S, M) partial tiles that a
-// second kernel adds in row order, so each output is written once, without
-// atomics, in a fixed order. K1's rows stream through shared memory in
-// chunks of kChunk rows (coalesced copies of contiguous row ranges); tensor
-// cores and overlap of the next chunk's load with the current chunk's math
-// are later work for K1. K2 has its own design, in its section below.
+// Work items, and the merge of a split segment: K1 and K4's forward give
+// each item its accumulators in registers; an item of an unsplit segment
+// writes the output, the items of a split segment write (S, M) fp32 partial
+// tiles, added without atomics in a fixed order. The padded rows of a batch
+// all share one segment id (thousands of rows), and items spread such a
+// segment over many SMs. K1's kernels are in the last section, K2 has its
+// own design in its section below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +63,16 @@ template <> __device__ __forceinline__ float narrow<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+
+// ------------------------------------------------ K1, the general kernel
+//
+// K1 at the shapes the kernels of the last section do not take (narrow
+// widths): one thread block per work item; threads own (s, m) output
+// elements with the accumulators in registers; a chunk of kChunk rows at a
+// time is widened to fp32 in shared memory between two block barriers. The
+// items of a split segment write partial tiles that a second kernel,
+// outer_sum_merge_kernel (which K4's triplet forward uses too), adds in row
+// order.
 
 template <typename T>
 __global__ void outer_sum_kernel(const T* __restrict__ a,
@@ -141,10 +150,10 @@ int outer_sum_threads(int S, int M) {
 size_t outer_sum_smem(int S, int M) { return sizeof(float) * (size_t)kChunk * (S + M); }
 
 template <typename T>
-int outer_sum(const T* a, const T* b, const int* items, int n_items,
-              const int* merge_ptr, const int* merge_seg, int n_merge,
-              float* partial, T* out, int n_seg, int S, int M,
-              cudaStream_t stream) {
+int outer_sum_general(const T* a, const T* b, const int* items, int n_items,
+                      const int* merge_ptr, const int* merge_seg, int n_merge,
+                      float* partial, T* out, int n_seg, int S, int M,
+                      cudaStream_t stream) {
   const int threads = outer_sum_threads(S, M);
   if (threads == 0) return (int)cudaErrorInvalidConfiguration;
   if (n_items > 0) {
@@ -978,25 +987,28 @@ gather_contract_mma_kernel(const bf16* __restrict__ cot, const bf16* __restrict_
 
 // Blocks of a persistent kernel: as many as the card holds at once, at most
 // one per work item. The first launch of a kernel at a shape (an eager one,
-// never one captured into a CUDA graph) lets it take `smem` bytes of shared
-// memory and asks the occupancy; later launches reuse the answer.
+// never one captured into a CUDA graph) lets it take the most shared memory
+// any of its shapes so far asked for, at least `smem` bytes (so a launch at
+// an earlier, larger shape still may), and asks the occupancy; later
+// launches reuse the answer.
 template <typename Kernel>
 int persistent_blocks(Kernel kernel, int threads, size_t smem, int n_items) {
   struct Entry { const void* kernel; int threads; size_t smem; int blocks; };
   static Entry cache[16];
   static int n_cached = 0;
   int blocks = 0;
+  size_t most = smem;
   for (int i = 0; i < n_cached; ++i) {
     const Entry& e = cache[i];
-    if (e.kernel == (const void*)kernel && e.threads == threads && e.smem == smem) {
-      blocks = e.blocks;
-    }
+    if (e.kernel != (const void*)kernel) continue;
+    if (e.threads == threads && e.smem == smem) blocks = e.blocks;
+    if (e.smem > most) most = e.smem;
   }
   if (blocks == 0) {
     int device = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     blocks = sms * (per_sm > 0 ? per_sm : 1);
     if (n_cached < 16) cache[n_cached++] = Entry{(const void*)kernel, threads, smem, blocks};
@@ -1079,6 +1091,8 @@ int gather_contract(const T* cot, const T* a, const T* b, const long long* seg,
 // :582-585) where 16 < S <= 64, M <= 32, M % 4 == 0 and the row, cotangent
 // and output tensors are 16-byte aligned (the quadruplet shape, S = 49,
 // M = 32, as the model gives it); other shapes keep the kernels above.
+// The forward's body (outer_sum_mma_body) and the producer (ring_produce)
+// also serve K1 at this shape (last section).
 //
 // What bounds them on an H100: bytes. The forward reads a and b once and
 // writes the (S, nSeg, M) output once: 81.7 MB at the bench quad shape (192
@@ -1148,23 +1162,37 @@ __host__ __device__ constexpr int stride_mod16(int x, int r) {
 __device__ __forceinline__ const char* floor16(const void* p) {
   return reinterpret_cast<const char*>(reinterpret_cast<size_t>(p) & ~(size_t)15);
 }
-// floats from the 16-byte boundary at or below p to p: where a chunk's
+// values from the 16-byte boundary at or below p to p: where a chunk's
 // first value lands in its stage
-__device__ __forceinline__ int head_floats(const float* p) {
-  return (int)((reinterpret_cast<size_t>(p) & 15) / sizeof(float));
+template <typename T> __device__ __forceinline__ int head_floats(const T* p) {
+  return (int)((reinterpret_cast<size_t>(p) & 15) / sizeof(T));
 }
 
 struct RingSmem {
-  int la, ldb, lc, lo;  // floats: a rows, b row stride, cotangent tile, a warp's output scratch
+  int la, ldb, lc, lo;  // 4-byte words: a rows, b row stride, cotangent tile, a warp's scratch
   size_t stage, total;  // bytes
 };
 
-__host__ __device__ inline RingSmem ring_smem(int S, int M, bool backward) {
+// The kernels on the ring: K4's forward and backward, and K1's fp32
+// (FFMA) and bf16 (mma) forward
+enum RingKind { kRingSplit3Fwd, kRingSplit3Bwd, kRingFfma, kRingMma };
+
+__host__ __device__ inline RingSmem ring_smem(int S, int M, RingKind kind) {
   RingSmem L;
-  L.la = round4(kRingRows * S + 4 + kRingMaxS);  // head (<= 3 floats) and reads past S
-  L.ldb = backward ? M : stride_mod16(M, 4);
+  const bool backward = kind == kRingSplit3Bwd;
+  if (kind == kRingMma) {  // bf16 rows: head (<= 7 values) and reads past S
+    L.la = round4((kRingRows * S + kRingMaxS + 9) / 2);
+    L.ldb = stride_mod16(M / 2, 4);  // rows 80 bytes apart at M = 32
+  } else {                 // fp32 rows: head (<= 3 floats) and reads past S
+    L.la = round4(kRingRows * S + 4 + kRingMaxS);
+    L.ldb = kind == kRingSplit3Fwd ? stride_mod16(M, 4) : M;
+  }
   L.lc = backward ? kRingMaxS * M : 0;
-  L.lo = backward ? round4(16 * (S > M ? S : M) + 4) : 16 * stride_mod16(M, 8);
+  if (kind == kRingFfma) {
+    L.lo = round4(S * (M + 4));  // the warp's whole (S, M) tile, rows M + 4 floats apart
+  } else {
+    L.lo = backward ? round4(16 * (S > M ? S : M) + 4) : 16 * stride_mod16(M, 8);
+  }
   L.stage = sizeof(float) * (size_t)(L.la + kRingRows * L.ldb + L.lc);
   L.total = kRingHeader + kRingStages * L.stage + sizeof(float) * kConsumerWarps * (size_t)L.lo;
   return L;
@@ -1173,6 +1201,9 @@ __host__ __device__ inline RingSmem ring_smem(int S, int M, bool backward) {
 bool ring_shape(int S, int M) {
   return S > 16 && S <= kRingMaxS && M >= 4 && M <= kRingMaxM && M % 4 == 0;
 }
+
+// bf16 rows on the ring: each b row a whole number of 16-byte pieces
+bool mma_ring_shape(int S, int M) { return ring_shape(S, M) && M % 8 == 0; }
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
@@ -1190,12 +1221,12 @@ struct Ring {
   float* scratch;
   RingSmem L;
 
-  __device__ Ring(unsigned char* smem, int S, int M, bool backward) {
+  __device__ Ring(unsigned char* smem, int S, int M, RingKind kind) {
     full = reinterpret_cast<unsigned long long*>(smem);
     empty = full + kRingStages;
     desc = reinterpret_cast<ChunkDesc*>(empty + kRingStages);
     flag = reinterpret_cast<int*>(desc + kRingStages);
-    L = ring_smem(S, M, backward);
+    L = ring_smem(S, M, kind);
     stages = smem + kRingHeader;
     scratch = reinterpret_cast<float*>(stages + kRingStages * L.stage);
   }
@@ -1270,16 +1301,17 @@ __device__ __forceinline__ void mma_split3(float (&d)[4], const unsigned (&ah)[4
 // The producer warp: the block's chunks in the consumers' order, each into
 // the next free stage with its descriptor; then a descriptor kEndOfWork.
 // Forward: every item (an empty one writes zeros); backward: the items with
-// rows.
-template <bool kBackward>
-__device__ void ring_produce(const Ring& R, const float* __restrict__ a,
-                            const float* __restrict__ b, const float* __restrict__ cot,
-                            const int4* __restrict__ items, int n_items, int n, int n_seg,
-                            int S, int M) {
+// rows. kRowB: each b row its own bulk copy, R.L.ldb words from the last;
+// else the chunk's b rows as they lie in memory, one bulk copy. T: the
+// rows' type (fp32, or bf16 for K1's bf16 streams), copied as it is.
+template <typename T, bool kBackward, bool kRowB>
+__device__ void ring_produce(const Ring& R, const T* __restrict__ a, const T* __restrict__ b,
+                            const T* __restrict__ cot, const int4* __restrict__ items,
+                            int n_items, int n, int n_seg, int S, int M) {
   const int lane = threadIdx.x % 32;
   const char* a_end = reinterpret_cast<const char*>(a + (size_t)n * S);
   const char* a_end16 = floor16(a_end);
-  const unsigned row_bytes = (unsigned)(M * sizeof(float));
+  const unsigned row_bytes = (unsigned)(M * sizeof(T));
   int q = 0;
   auto acquire = [&]() {
     const int st = q % kRingStages;
@@ -1302,12 +1334,12 @@ __device__ void ring_produce(const Ring& R, const float* __restrict__ a,
       const int nr = min(kRingRows, len - c * kRingRows);
       const bool first = c == 0;
       const char* lo = reinterpret_cast<const char*>(a + (size_t)r * S);
-      const char* hi = lo + (size_t)nr * S * sizeof(float);
+      const char* hi = lo + (size_t)nr * S * sizeof(T);
       const char* base = floor16(lo);
       const char* stop = floor16(hi + 15);
       if (stop > a_end) stop = a_end16;  // no byte past the tensor
       const unsigned a_bytes = nr > 0 ? (unsigned)(stop - base) : 0u;
-      float* as = R.a(st);
+      char* as = reinterpret_cast<char*>(R.a(st));
       if (lane == 0) {
         ChunkDesc& d = R.desc[st];
         d.r = r;
@@ -1316,8 +1348,8 @@ __device__ void ring_produce(const Ring& R, const float* __restrict__ a,
         d.seg = it.x;
         d.slot = it.w;
         if (nr > 0 && stop < hi) {  // the tail past the tensor's last 16-byte boundary
-          for (const char* p = stop; p < hi; p += sizeof(float)) {
-            as[(p - base) / sizeof(float)] = *reinterpret_cast<const float*>(p);
+          for (const char* p = stop; p < hi; p += sizeof(T)) {
+            *reinterpret_cast<T*>(as + (p - base)) = *reinterpret_cast<const T*>(p);
           }
           // these plain writes precede any later bulk copy into the stage
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -1329,9 +1361,9 @@ __device__ void ring_produce(const Ring& R, const float* __restrict__ a,
       __syncwarp();
       if (lane == 0 && a_bytes > 0) bulk_copy(as, base, a_bytes, R.full + st);
       float* bs = R.b(st);
-      if (kBackward) {  // the chunk's b rows as they lie in memory
+      if (!kRowB) {  // the chunk's b rows as they lie in memory
         if (lane == 0 && nr > 0) bulk_copy(bs, b + (size_t)r * M, nr * row_bytes, R.full + st);
-      } else {  // each row ldb floats from the last
+      } else {  // each row ldb words from the last
         for (int t = lane; t < nr; t += 32) {
           bulk_copy(bs + t * R.L.ldb, b + (size_t)(r + t) * M, row_bytes, R.full + st);
         }
@@ -1359,15 +1391,74 @@ __device__ __forceinline__ int s_sel(int w, int hf, int g) {
   return 32 * (w >> 1) + 4 * (w & 1) + 8 * (g >> 1) + (g & 1) + 2 * hf;
 }
 
+// four fp32 values to p: 16 bytes, or 8 bytes of bf16 rounded once
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// Node nd = {first child slot, end slot, out slot, segment} of a merge
+// tree: its children's (S, M) fp32 tiles (TS floats, a multiple of 4)
+// added in slot order into slot `out`, or into the output of `segment`
+// (rounded once to T) where out is -1. Thread tid of nthreads takes kVec
+// groups of 4 floats at a time, the loads of all children and all kVec
+// groups in flight together: each round of loads costs a latency, so a
+// merge by few threads (one warp) takes kVec = 2.
+template <int kVec, typename T>
+__device__ __forceinline__ void merge_node(int4 nd, float* __restrict__ partial,
+                                           T* __restrict__ out, int n_seg, int TS, int M,
+                                           int tid, int nthreads) {
+  for (int i0 = 4 * tid; i0 < TS; i0 += 4 * nthreads * kVec) {
+    float4 v[kMergeFan][kVec];
+#pragma unroll
+    for (int u = 0; u < kMergeFan; ++u) {
+#pragma unroll
+      for (int h = 0; h < kVec; ++h) {
+        const int i = i0 + 4 * nthreads * h;
+        const float* src = partial + (size_t)(nd.x + u) * TS + i;
+        v[u][h] = nd.x + u < nd.y && i < TS ? __ldcg(reinterpret_cast<const float4*>(src))
+                                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kVec; ++h) {
+      const int i = i0 + 4 * nthreads * h;
+      float4 acc = v[0][h];
+#pragma unroll
+      for (int u = 1; u < kMergeFan; ++u) {
+        if (nd.x + u < nd.y) {
+          acc.x += v[u][h].x;
+          acc.y += v[u][h].y;
+          acc.z += v[u][h].z;
+          acc.w += v[u][h].w;
+        }
+      }
+      if (i < TS) {
+        if (nd.z >= 0) {
+          store4(partial + (size_t)nd.z * TS + i, acc);
+        } else {
+          store4(out + ((size_t)(i / M) * n_seg + nd.w) * M + i % M, acc);
+        }
+      }
+    }
+  }
+}
+
 // Adds the partial tile of `slot` into its merge-tree node if it is the
 // node's last child to arrive, then goes on up the tree; the four consumer
-// warps together (each has fenced its own stores of the slot's tile).
+// warps together (each has fenced its own stores of the slot's tile). The
+// root rounds to the output's type T once.
+template <int kVec, typename T>
 __device__ void merge_up(const Ring& R, int slot, const int4* __restrict__ tree_nodes,
                          const int* __restrict__ tree_parent, int* __restrict__ tree_arrivals,
-                         float* __restrict__ partial, float* __restrict__ out, int n_seg, int S,
+                         float* __restrict__ partial, T* __restrict__ out, int n_seg, int S,
                          int M) {
   const int tid = threadIdx.x;  // 0 .. 32 * kConsumerWarps - 1
-  const int T = S * M;          // floats of a tile, a multiple of 4
+  const int TS = S * M;         // floats of a tile, a multiple of 4
   for (;;) {
     consumer_sync();  // every warp has stored its rows of `slot`
     if (tid == 0) {
@@ -1381,43 +1472,35 @@ __device__ void merge_up(const Ring& R, int slot, const int4* __restrict__ tree_
     consumer_sync();
     const int node = *reinterpret_cast<volatile int*>(R.flag);
     if (node < 0) return;
-    const int4 nd = tree_nodes[node];  // first child slot, end slot, out slot, segment
-    for (int i = 4 * tid; i < T; i += 4 * 32 * kConsumerWarps) {
-      float4 v[kMergeFan];
-#pragma unroll
-      for (int u = 0; u < kMergeFan; ++u) {
-        v[u] = nd.x + u < nd.y ? __ldcg(reinterpret_cast<const float4*>(
-                                     partial + (size_t)(nd.x + u) * T + i))
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      float4 acc = v[0];
-#pragma unroll
-      for (int u = 1; u < kMergeFan; ++u) {
-        if (nd.x + u < nd.y) {
-          acc.x += v[u].x;
-          acc.y += v[u].y;
-          acc.z += v[u].z;
-          acc.w += v[u].w;
-        }
-      }
-      float* dst = nd.z >= 0 ? partial + (size_t)nd.z * T + i
-                             : out + ((size_t)(i / M) * n_seg + nd.w) * M + i % M;
-      *reinterpret_cast<float4*>(dst) = acc;
-    }
+    const int4 nd = tree_nodes[node];
+    merge_node<kVec>(nd, partial, out, n_seg, TS, M, tid, 32 * kConsumerWarps);
     if (tid == 0) tree_arrivals[node] = 0;  // for the next launch
     if (nd.z < 0) return;
     slot = nd.z;
   }
 }
 
-__global__ void __launch_bounds__(kRingThreads, 3)
-outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
-                      const int4* __restrict__ items, int n_items,
-                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
-                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
-                      float* __restrict__ out, int n, int n_seg, int S, int M) {
+// Two consecutive rows' values of one column, t and t + 1, as a bf16 pair
+// (the fragment's k pair); rows at or past nr read as zero.
+__device__ __forceinline__ unsigned col_pair(const bf16* p, int stride, int t, int nr) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  return bf16_pair(t < nr ? p[t * stride] : zero, t + 1 < nr ? p[(t + 1) * stride] : zero);
+}
+
+// The ring forward on the tensor cores, one consumer warp per 16 values of
+// s (s_sel) and all M columns. T = float: K4, fp32 rows split into bf16 hi
+// and lo in registers, three products; T = bf16: K1 on bf16 streams, the
+// bf16 rows as they are, one product. fp32 accumulators in both; the
+// output rounds once to T.
+template <typename T>
+__device__ __forceinline__ void outer_sum_mma_body(
+    const T* __restrict__ a, const T* __restrict__ b, const int4* __restrict__ items,
+    int n_items, const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+    int* __restrict__ tree_arrivals, float* __restrict__ partial, T* __restrict__ out, int n,
+    int n_seg, int S, int M) {
+  constexpr bool kSplit3 = sizeof(T) == sizeof(float);
   extern __shared__ __align__(128) unsigned char ring_smem_raw[];
-  const Ring R(ring_smem_raw, S, M, false);
+  const Ring R(ring_smem_raw, S, M, kSplit3 ? kRingSplit3Fwd : kRingMma);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kRingStages; ++i) {
@@ -1428,11 +1511,11 @@ outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
   }
   __syncthreads();  // the only block-wide barrier
   if (warp == kConsumerWarps) {
-    ring_produce<false>(R, a, b, nullptr, items, n_items, n, n_seg, S, M);
+    ring_produce<T, false, true>(R, a, b, nullptr, items, n_items, n, n_seg, S, M);
     return;
   }
   const int g = lane >> 2, tig = lane & 3;
-  const int ldb = R.L.ldb;
+  const int ldb = R.L.ldb * (int)(sizeof(float) / sizeof(T));  // in values of T
   const bool active = s_sel(warp, 0, 0) < S;  // warp-uniform: some of its s are real
   const int s0 = s_sel(warp, 0, g), s1 = s_sel(warp, 1, g);
   float acc[4][4];
@@ -1446,35 +1529,50 @@ outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
       for (int u = 0; u < 4; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
     }
     if (active) {
-      const float* as = R.a(st) + head_floats(a + (size_t)d.r * S);
-      const float* bs = R.b(st);
+      const T* as = reinterpret_cast<const T*>(R.a(st)) + head_floats(a + (size_t)d.r * S);
+      const T* bs = reinterpret_cast<const T*>(R.b(st));
       for (int h = 0; 16 * h < d.nr; ++h) {
-        // fragment k index 2 tig + j + 8 q is the chunk's row 16 h + 8 q + 2 tig + j
-        float av[2][2][2], bv[4][2][2];  // [hf][q][j], [u][q][j]
+        if constexpr (kSplit3) {
+          // fragment k index 2 tig + j + 8 q is the chunk's row 16 h + 8 q + 2 tig + j
+          float av[2][2][2], bv[4][2][2];  // [hf][q][j], [u][q][j]
 #pragma unroll
-        for (int qq = 0; qq < 2; ++qq) {
+          for (int qq = 0; qq < 2; ++qq) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int t = 16 * h + 8 * qq + 2 * tig + j;
-            const bool ok = t < d.nr;
-            av[0][qq][j] = ok ? as[t * S + s0] : 0.f;
-            av[1][qq][j] = ok ? as[t * S + s1] : 0.f;
+            for (int j = 0; j < 2; ++j) {
+              const int t = 16 * h + 8 * qq + 2 * tig + j;
+              const bool ok = t < d.nr;
+              av[0][qq][j] = ok ? as[t * S + s0] : 0.f;
+              av[1][qq][j] = ok ? as[t * S + s1] : 0.f;
 #pragma unroll
-            for (int u = 0; u < 4; ++u) bv[u][qq][j] = ok ? bs[t * ldb + 8 * u + g] : 0.f;
+              for (int u = 0; u < 4; ++u) bv[u][qq][j] = ok ? bs[t * ldb + 8 * u + g] : 0.f;
+            }
           }
-        }
-        unsigned ah[4], al[4];
-        split_pair(av[0][0][0], av[0][0][1], ah[0], al[0]);
-        split_pair(av[1][0][0], av[1][0][1], ah[1], al[1]);
-        split_pair(av[0][1][0], av[0][1][1], ah[2], al[2]);
-        split_pair(av[1][1][0], av[1][1][1], ah[3], al[3]);
+          unsigned ah[4], al[4];
+          split_pair(av[0][0][0], av[0][0][1], ah[0], al[0]);
+          split_pair(av[1][0][0], av[1][0][1], ah[1], al[1]);
+          split_pair(av[0][1][0], av[0][1][1], ah[2], al[2]);
+          split_pair(av[1][1][0], av[1][1][1], ah[3], al[3]);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (8 * u < M) {
-            unsigned bh[2], bl[2];
-            split_pair(bv[u][0][0], bv[u][0][1], bh[0], bl[0]);
-            split_pair(bv[u][1][0], bv[u][1][1], bh[1], bl[1]);
-            mma_split3(acc[u], ah, al, bh, bl);
+          for (int u = 0; u < 4; ++u) {
+            if (8 * u < M) {
+              unsigned bh[2], bl[2];
+              split_pair(bv[u][0][0], bv[u][0][1], bh[0], bl[0]);
+              split_pair(bv[u][1][0], bv[u][1][1], bh[1], bl[1]);
+              mma_split3(acc[u], ah, al, bh, bl);
+            }
+          }
+        } else {
+          // the same fragments from bf16 values: rows t and t + 1 of column s or m
+          const int t0 = 16 * h + 2 * tig, t1 = t0 + 8;
+          const unsigned af[4] = {col_pair(as + s0, S, t0, d.nr), col_pair(as + s1, S, t0, d.nr),
+                                  col_pair(as + s0, S, t1, d.nr), col_pair(as + s1, S, t1, d.nr)};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (8 * u < M) {
+              const unsigned bfr[2] = {col_pair(bs + 8 * u + g, ldb, t0, d.nr),
+                                       col_pair(bs + 8 * u + g, ldb, t1, d.nr)};
+              mma_bf16(acc[u], af, bfr);
+            }
           }
         }
       }
@@ -1484,8 +1582,8 @@ outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
     if (!(d.flags & kLastChunk)) continue;
 
     // the item's tile: this warp's 16 rows of M floats, whole, by 16-byte
-    // stores, through its scratch [16][ldo] (ldo = 8 mod 16: conflict-free
-    // float2 stores)
+    // stores (8-byte ones of bf16), through its scratch [16][ldo] (ldo = 8
+    // mod 16: conflict-free float2 stores)
     const int ldo = R.L.lo / 16;
     float* sc = R.scratch + warp * R.L.lo;
 #pragma unroll
@@ -1502,17 +1600,29 @@ outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
       const int rr = i / m4, c4 = i - rr * m4;
       const int s = s_sel(warp, rr >> 3, rr & 7);
       if (s < S) {
-        float* dst = d.slot < 0 ? out + ((size_t)s * n_seg + d.seg) * M
-                                : partial + ((size_t)d.slot * S + s) * M;
-        *reinterpret_cast<float4*>(dst + 4 * c4) =
-            *reinterpret_cast<const float4*>(sc + rr * ldo + 4 * c4);
+        const float4 v = *reinterpret_cast<const float4*>(sc + rr * ldo + 4 * c4);
+        if (d.slot < 0) {
+          store4(out + ((size_t)s * n_seg + d.seg) * M + 4 * c4, v);
+        } else {
+          store4(partial + ((size_t)d.slot * S + s) * M + 4 * c4, v);
+        }
       }
     }
     __syncwarp();  // the scratch is read before the next item writes it
     if (d.slot >= 0) {
-      merge_up(R, d.slot, tree_nodes, tree_parent, tree_arrivals, partial, out, n_seg, S, M);
+      merge_up<1>(R, d.slot, tree_nodes, tree_parent, tree_arrivals, partial, out, n_seg, S, M);
     }
   }
+}
+
+__global__ void __launch_bounds__(kRingThreads, 3)
+outer_sum_split3_ring(const float* __restrict__ a, const float* __restrict__ b,
+                      const int4* __restrict__ items, int n_items,
+                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                      float* __restrict__ out, int n, int n_seg, int S, int M) {
+  outer_sum_mma_body<float>(a, b, items, n_items, tree_nodes, tree_parent, tree_arrivals,
+                            partial, out, n, n_seg, S, M);
 }
 
 // A consumer warp's 16 rows of da (W = S) or db (W = M), as computed in
@@ -1710,7 +1820,7 @@ gather_contract_split3_ring(const float* __restrict__ cot, const float* __restri
                             int n_items, float* __restrict__ da, float* __restrict__ db, int n,
                             int n_seg, int S, int M) {
   extern __shared__ __align__(128) unsigned char ring_smem_raw[];
-  const Ring R(ring_smem_raw, S, M, true);
+  const Ring R(ring_smem_raw, S, M, kRingSplit3Bwd);
   const int warp = threadIdx.x / 32;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kRingStages; ++i) {
@@ -1721,7 +1831,7 @@ gather_contract_split3_ring(const float* __restrict__ cot, const float* __restri
   }
   __syncthreads();  // the only block-wide barrier
   if (warp == kConsumerWarps) {
-    ring_produce<true>(R, a, b, cot, items, n_items, n, n_seg, S, M);
+    ring_produce<float, true, false>(R, a, b, cot, items, n_items, n, n_seg, S, M);
   } else if (warp < 2) {
     consume_da(R, da, 16 * warp, S, M);
   } else {
@@ -1736,7 +1846,7 @@ int outer_sum_split3(const float* a, const float* b, const int* items, int n_ite
                      cudaStream_t stream) {
   if (ring_shape(S, M) && aligned16(a) && aligned16(b) && aligned16(out) && aligned16(partial)) {
     if (n_items > 0) {
-      const size_t smem = ring_smem(S, M, false).total;
+      const size_t smem = ring_smem(S, M, kRingSplit3Fwd).total;
       const int blocks = persistent_blocks(outer_sum_split3_ring, kRingThreads, smem, n_items);
       outer_sum_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
           a, b, reinterpret_cast<const int4*>(items), n_items,
@@ -1764,7 +1874,7 @@ int gather_contract_split3(const float* cot, const float* a, const float* b, con
   if (ring_shape(S, M) && aligned16(cot) && aligned16(a) && aligned16(b) && aligned16(da) &&
       aligned16(db)) {
     if (n_items > 0) {
-      const size_t smem = ring_smem(S, M, true).total;
+      const size_t smem = ring_smem(S, M, kRingSplit3Bwd).total;
       const int blocks =
           persistent_blocks(gather_contract_split3_ring, kRingThreads, smem, n_items);
       gather_contract_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
@@ -1781,41 +1891,484 @@ int gather_contract_split3(const float* cot, const float* a, const float* b, con
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ K1 on Hopper
+//
+// gemnet_segment_outer_sum_{f32,bf16} at the model's shapes; they replace
+// segment_outer.py::_fwd_kernel's non-split3 branch (:366-369), launched by
+// _outer_sum_pallas (:375), and keep its stream contract (file header).
+//
+// What bounds K1 on an H100: bytes. At the bench quad shape (192 512 rows,
+// S = 49, M = 32, 3072 segments) it reads and writes 81.7 MB in fp32, 24.4
+// us at 3.35 TB/s, for 2 n S M = 0.60 GFLOP (9.0 us at 67 TFLOP/s of FFMA);
+// bf16 streams halve the bytes (12.2 us) and put the product on the tensor
+// cores (0.6 us at 989 TFLOP/s). At the triplet shape (25 600 rows, S = 7,
+// M = 64, real segments ~8 rows) 12.8 MB, 3.8 us, and the work is latency:
+// ~3100 items of a few rows each, and one padded segment of ~1600 rows.
+//
+// Design.
+// - Quadruplet shape (ring_shape, 16-byte aligned tensors): the ring of
+//   K4's forward, a producer warp copying each chunk of kRingRows rows by
+//   TMA into a kRingStages ring, four consumer warps handing stages back
+//   through mbarriers, persistent blocks, no block-wide barrier after
+//   set-up; a split segment's partial tiles added through the plan's merge
+//   tree (merge_up: no block adds more than 16 tiles, fixed order, counters
+//   back at zero).
+//   - fp32 (outer_sum_ffma_ring): exact fp32 FFMAs. Each consumer warp
+//     takes rows w, w + 4, ... of a chunk and sums the whole (S, M) tile;
+//     lane (g = lane % 8, mg = lane / 8) owns s = g + 8 j (j < JS =
+//     ceil(S / 8)) and m = 8 mg .. 8 mg + 7: per row JS a loads (8 distinct
+//     consecutive addresses, broadcast) and two float4 b loads for 8 JS
+//     FFMAs, 56 FFMAs per 9 shared loads at S = 49. The instructions:
+//     192 512 rows x (56 FFMA + 9 loads) / (132 SMs x 4 schedulers) ~ 24k
+//     cycles, ~13 us at 1.8 GHz, under the copies' 24 us; a chunk's b rows
+//     are one bulk copy (lanes read 4 distinct float4s, conflict-free). At
+//     the item's end the four warps' tiles are added in warp order through
+//     shared memory (rows M + 4 floats apart) and written as whole 128-byte
+//     rows.
+//   - bf16 (outer_sum_mma_ring): K4's forward with T = bf16
+//     (outer_sum_mma_body): the stages hold bf16 rows as they lie in memory
+//     (a chunk's a bytes from the 16-byte boundary below them, the <= 7
+//     values past the tensor's last boundary read plainly; b rows 80 bytes
+//     apart at M = 32, conflict-free fragment reads); each warp builds
+//     mma.sync m16n8k16 bf16 fragments straight from them, one product,
+//     fp32 accumulators, and the output rounds once at the store (64-byte
+//     rows).
+// - Triplet shape (S <= 8, M <= 64, M % 4 == 0, outer_sum_warp_kernel,
+//   both stream types): a 128-row block item is the wrong unit for ~8-row
+//   segments. Persistent blocks of four warps; each warp owns an item at a
+//   time (items w, w + W, ... of the grid's W warps, their descriptors
+//   loaded 32 at a time) and walks its rows in chunks of kWarpRows through
+//   its own ring of kWarpStages stages (cp.async, the next two chunks in
+//   flight, the next items' among them); each lane owns columns 2 lane,
+//   2 lane + 1 for all S values of s (16 fp32 accumulators), widening bf16
+//   in registers (at S = 7 the tensor cores buy nothing). The tile is
+//   written as one 256-byte (fp32) or 128-byte (bf16) row per s. The
+//   triplet plan's items are 16 rows (data/batch.py::SEGMENT_PLANS), so the
+//   padded segment spreads over ~100 warps; its partial tiles merge through
+//   the plan's tree, a warp per node (warp_merge_up), whose latency rounds
+//   are the launch's critical path: measured on the H100 (PERF.md §6), a
+//   warp streaming 128-row items, and a merge with sc fences and 16 loads in
+//   flight per lane, each cost several microseconds.
+// Other shapes take the general kernel of the first section.
+
+constexpr int kWarpRows = 16;     // rows per stage of a warp's ring
+constexpr int kWarpStages = 3;    // one summed, two in flight
+constexpr int kWarpItemThreads = 128;
+constexpr int kWarpMaxS = 8, kWarpMaxM = 64;
+
+__global__ void __launch_bounds__(kRingThreads, 3)
+outer_sum_mma_ring(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                   const int4* __restrict__ items, int n_items,
+                   const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                   int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                   bf16* __restrict__ out, int n, int n_seg, int S, int M) {
+  outer_sum_mma_body<bf16>(a, b, items, n_items, tree_nodes, tree_parent, tree_arrivals,
+                           partial, out, n, n_seg, S, M);
+}
+
+template <int JS>
+__global__ void __launch_bounds__(kRingThreads, 3)
+outer_sum_ffma_ring(const float* __restrict__ a, const float* __restrict__ b,
+                    const int4* __restrict__ items, int n_items,
+                    const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                    int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                    float* __restrict__ out, int n, int n_seg, int S, int M) {
+  extern __shared__ __align__(128) unsigned char ring_smem_raw[];
+  const Ring R(ring_smem_raw, S, M, kRingFfma);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages; ++i) {
+      mbar_init(R.full + i, 1);
+      mbar_init(R.empty + i, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier
+  if (warp == kConsumerWarps) {
+    ring_produce<float, false, false>(R, a, b, nullptr, items, n_items, n, n_seg, S, M);
+    return;
+  }
+  const int g = lane & 7, m0 = 8 * (lane >> 3);
+  const int ldo = M + 4;
+  float acc[JS][8];
+  for (int q = 0;; ++q) {
+    const int st = q % kRingStages;
+    mbar_wait(R.full + st, (q / kRingStages) & 1);
+    const ChunkDesc d = R.desc[st];
+    if (d.flags & kEndOfWork) break;
+    if (d.flags & kFirstChunk) {
+#pragma unroll
+      for (int j = 0; j < JS; ++j)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
+    }
+    // past S and M the reads stay in shared memory and feed accumulators
+    // that are never stored
+    const float* as = R.a(st) + head_floats(a + (size_t)d.r * S) + g;
+    const float* bs = R.b(st) + m0;
+#pragma unroll 2
+    for (int t = warp; t < d.nr; t += kConsumerWarps) {
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + t * M);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + t * M + 4);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        const float av = as[t * S + 8 * j];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(av, bv[k], acc[j][k]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(R.empty + st);  // this warp is done with the stage
+    if (!(d.flags & kLastChunk)) continue;
+
+    // the item's tile: the four warps' tiles, added in warp order
+    consumer_sync();  // the last item's tiles are read
+    float* sc = R.scratch + warp * R.L.lo;
+#pragma unroll
+    for (int j = 0; j < JS; ++j) {
+      const int s = g + 8 * j;
+      if (s < S) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (m0 + 4 * h < M) {
+            *reinterpret_cast<float4*>(sc + s * ldo + m0 + 4 * h) = make_float4(
+                acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2], acc[j][4 * h + 3]);
+          }
+        }
+      }
+    }
+    consumer_sync();
+    const int m4 = M / 4;
+    for (int i = threadIdx.x; i < S * m4; i += 32 * kConsumerWarps) {
+      const int s = i / m4, c = 4 * (i - s * m4);
+      float4 v = *reinterpret_cast<const float4*>(R.scratch + s * ldo + c);
+#pragma unroll
+      for (int w = 1; w < kConsumerWarps; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(R.scratch + w * R.L.lo + s * ldo + c);
+        v.x += x.x;
+        v.y += x.y;
+        v.z += x.z;
+        v.w += x.w;
+      }
+      if (d.slot < 0) {
+        store4(out + ((size_t)s * n_seg + d.seg) * M + c, v);
+      } else {
+        store4(partial + ((size_t)d.slot * S + s) * M + c, v);
+      }
+    }
+    if (d.slot >= 0) {
+      merge_up<1>(R, d.slot, tree_nodes, tree_parent, tree_arrivals, partial, out, n_seg, S, M);
+    }
+  }
+}
+
+// two fp32 values from two consecutive values of T, and back (bf16: one
+// rounding each)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Bytes of a warp's stage: a chunk's a rows (and reads past S), then its b
+// rows, each from the 16-byte boundary below them.
+__host__ __device__ constexpr int warp_stage_a(int S, int es) {
+  return round16(es * (kWarpRows * S + kWarpMaxS) + 16);
+}
+__host__ __device__ constexpr int warp_stage(int S, int M, int es) {
+  return warp_stage_a(S, es) + round16(es * kWarpRows * M + 16);
+}
+size_t warp_outer_smem(int S, int M, int es) {
+  return (size_t)kWarpStages * warp_stage(S, M, es) * (kWarpItemThreads / 32);
+}
+
+bool warp_outer_shape(int S, int M) {
+  return S >= 1 && S <= kWarpMaxS && M >= 4 && M <= kWarpMaxM && M % 4 == 0;
+}
+
+// `bytes` bytes from `first` into `raw` as a warp's 16-byte cp.async copies,
+// from the 16-byte boundary at or below `first` (within the tensor, which
+// is 16-byte aligned), never past the last byte
+__device__ __forceinline__ void warp_stage_raw(const void* first, size_t bytes, void* raw,
+                                               int lane) {
+  const char* begin = static_cast<const char*>(first);
+  const char* end = begin + bytes;
+  const char* base = floor16(begin);
+  const int pieces = (int)((end - base + 15) / 16);
+  for (int i = lane; i < pieces; i += 32) {
+    const char* src = base + 16 * i;
+    const long long rest = end - src;
+    cp_async16(static_cast<char*>(raw) + 16 * i, src, rest < 16 ? (int)rest : 16);
+  }
+}
+
+// Adds the warp's partial tile `slot` into its merge-tree node if it is the
+// node's last child to arrive, then goes on up the tree: merge_up for one
+// warp.
+template <typename T>
+__device__ void warp_merge_up(int slot, const int4* __restrict__ tree_nodes,
+                              const int* __restrict__ tree_parent, int* __restrict__ tree_arrivals,
+                              float* __restrict__ partial, T* __restrict__ out, int n_seg, int S,
+                              int M, int lane) {
+  for (;;) {
+    __syncwarp();  // every lane has stored its columns of `slot`
+    int node = 0, last = 0;
+    if (lane == 0) {
+      node = tree_parent[slot];
+      const int4 nd = tree_nodes[node];
+      // release: the warp's stores of `slot` (ordered before by the warp
+      // barrier) are visible to the child that arrives last; acquire: so
+      // are theirs, to the lanes after the barrier below
+      last = atomic_add_acq_rel(tree_arrivals + node, 1) == nd.y - nd.x - 1;
+    }
+    node = __shfl_sync(kFullMask, node, 0);
+    if (!__shfl_sync(kFullMask, last, 0)) return;
+    const int4 nd = tree_nodes[node];
+    merge_node<2>(nd, partial, out, n_seg, S * M, M, lane, 32);
+    if (lane == 0) tree_arrivals[node] = 0;  // for the next launch
+    if (nd.z < 0) return;
+    slot = nd.z;
+  }
+}
+
+// A warp's place in its chunks: the j-th of its items (items w, w + W, ...
+// of the grid's W warps), chunk c of it. Lane l holds the descriptor of the
+// warp's item 32 (j / 32) + l, all 32 loaded together, so moving on to an
+// item waits for no load.
+struct WarpCursor {
+  int j, c;
+  int4 it;    // segment, row0, row1, slot
+  int4 mine;  // this lane's prefetched descriptor
+};
+
+__device__ __forceinline__ bool warp_next(const int4* __restrict__ items, int n_items, int w,
+                                          int W, int lane, WarpCursor& cur) {
+  if ((cur.c + 1) * kWarpRows < cur.it.z - cur.it.y) {
+    ++cur.c;
+    return true;
+  }
+  ++cur.j;
+  cur.c = 0;
+  if (w + cur.j * W >= n_items) return false;  // warp-uniform
+  if (cur.j % 32 == 0) {
+    const int k = w + (cur.j + lane) * W;
+    cur.mine = k < n_items ? items[k] : make_int4(0, 0, 0, 0);
+  }
+  const int l = cur.j % 32;
+  cur.it = make_int4(__shfl_sync(kFullMask, cur.mine.x, l), __shfl_sync(kFullMask, cur.mine.y, l),
+                     __shfl_sync(kFullMask, cur.mine.z, l), __shfl_sync(kFullMask, cur.mine.w, l));
+  return true;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarpItemThreads)
+outer_sum_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const int4* __restrict__ items, int n_items,
+                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                      T* __restrict__ out, int n_seg, int S, int M) {
+  extern __shared__ __align__(128) unsigned char warp_smem_raw[];
+  constexpr int es = sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const int W = gridDim.x * (kWarpItemThreads / 32);
+  const int sa = warp_stage_a(S, es), sb = warp_stage(S, M, es);
+  unsigned char* ring = warp_smem_raw + (threadIdx.x / 32) * kWarpStages * sb;
+  const int m = 2 * lane;  // this lane's columns m, m + 1
+
+  // chunk c of item it into stage q % kWarpStages: its a and b rows as they
+  // lie in memory
+  auto stage = [&](const WarpCursor& c, int q) {
+    const int r = c.it.y + c.c * kWarpRows;
+    const int nr = min(kWarpRows, c.it.z - r);
+    if (nr > 0) {
+      unsigned char* st = ring + (q % kWarpStages) * sb;
+      warp_stage_raw(a + (size_t)r * S, (size_t)es * nr * S, st, lane);
+      warp_stage_raw(b + (size_t)r * M, (size_t)es * nr * M, st + sa, lane);
+    }
+  };
+
+  float acc[kWarpMaxS][2];
+#pragma unroll
+  for (int s = 0; s < kWarpMaxS; ++s) acc[s][0] = acc[s][1] = 0.f;
+  const int w = blockIdx.x * (kWarpItemThreads / 32) + threadIdx.x / 32;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  WarpCursor cur{-1, 0, zero, zero};
+  if (!warp_next(items, n_items, w, W, lane, cur)) return;  // warp-uniform
+  // two chunks in flight beside the one summed
+  static_assert(kWarpStages == 3, "the pipeline keeps kWarpStages - 1 chunks in flight");
+  stage(cur, 0);
+  cp_async_commit();
+  WarpCursor n1 = cur;
+  bool has1 = warp_next(items, n_items, w, W, lane, n1);
+  if (has1) stage(n1, 1);
+  cp_async_commit();
+  WarpCursor n2 = n1;
+  bool has2 = has1 && warp_next(items, n_items, w, W, lane, n2);
+  for (int q = 0;; ++q) {
+    if (has2) stage(n2, q + 2);
+    cp_async_commit();
+    cp_async_wait<kWarpStages - 1>();  // chunk q landed
+    __syncwarp();
+    const int r = cur.it.y + cur.c * kWarpRows;
+    const int nr = min(kWarpRows, cur.it.z - r);
+    const unsigned char* st = ring + (q % kWarpStages) * sb;
+    const T* as = reinterpret_cast<const T*>(st) + head_floats(a + (size_t)r * S);
+    const T* bs = reinterpret_cast<const T*>(st + sa) + head_floats(b + (size_t)r * M);
+#pragma unroll 4
+    for (int t = 0; t < nr; ++t) {
+      const float2 bv = m < M ? load2(bs + t * M + m) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int s = 0; s < kWarpMaxS; ++s) {
+        if (s < S) {
+          const float av = widen(as[t * S + s]);  // one address across the warp
+          acc[s][0] = fmaf(av, bv.x, acc[s][0]);
+          acc[s][1] = fmaf(av, bv.y, acc[s][1]);
+        }
+      }
+    }
+    __syncwarp();  // the stage is read before chunk q + kWarpStages lands in it
+    if ((cur.c + 1) * kWarpRows >= cur.it.z - cur.it.y) {  // the item's last chunk
+      const int4 it = cur.it;
+      if (m < M) {
+#pragma unroll
+        for (int s = 0; s < kWarpMaxS; ++s) {
+          if (s < S) {
+            if (it.w < 0) {
+              store2(out + ((size_t)s * n_seg + it.x) * M + m, acc[s][0], acc[s][1]);
+            } else {
+              store2(partial + ((size_t)it.w * S + s) * M + m, acc[s][0], acc[s][1]);
+            }
+          }
+        }
+      }
+      if (it.w >= 0) {
+        warp_merge_up(it.w, tree_nodes, tree_parent, tree_arrivals, partial, out, n_seg, S, M,
+                      lane);
+      }
+#pragma unroll
+      for (int s = 0; s < kWarpMaxS; ++s) acc[s][0] = acc[s][1] = 0.f;
+    }
+    if (!has1) break;
+    cur = n1;
+    n1 = n2;
+    has1 = has2;
+    if (has2) has2 = warp_next(items, n_items, w, W, lane, n2);
+  }
+  cp_async_wait<0>();
+}
+
+template <int JS>
+int launch_ffma(const float* a, const float* b, const int4* items, int n_items,
+                const int4* tree_nodes, const int* tree_parent, int* tree_arrivals,
+                float* partial, float* out, int n, int n_seg, int S, int M,
+                cudaStream_t stream) {
+  const size_t smem = ring_smem(S, M, kRingFfma).total;
+  const int blocks = persistent_blocks(outer_sum_ffma_ring<JS>, kRingThreads, smem, n_items);
+  outer_sum_ffma_ring<JS><<<blocks, kRingThreads, smem, stream>>>(
+      a, b, items, n_items, tree_nodes, tree_parent, tree_arrivals, partial, out, n, n_seg, S, M);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int outer_sum(const T* a, const T* b, const int* items, int n_items, const int* merge_ptr,
+              const int* merge_seg, int n_merge, const int* tree_nodes, const int* tree_parent,
+              int* tree_arrivals, float* partial, T* out, int n, int n_seg, int S, int M,
+              cudaStream_t stream) {
+  const int4* it = reinterpret_cast<const int4*>(items);
+  const int4* tn = reinterpret_cast<const int4*>(tree_nodes);
+  if (n_items <= 0) return (int)cudaGetLastError();
+  if (warp_outer_shape(S, M) && aligned16(a) && aligned16(b) && aligned16(out) &&
+      aligned16(partial)) {
+    const size_t smem = warp_outer_smem(S, M, sizeof(T));
+    const int warps = kWarpItemThreads / 32;
+    const int blocks = persistent_blocks(outer_sum_warp_kernel<T>, kWarpItemThreads, smem,
+                                         (n_items + warps - 1) / warps);
+    outer_sum_warp_kernel<T><<<blocks, kWarpItemThreads, smem, stream>>>(
+        a, b, it, n_items, tn, tree_parent, tree_arrivals, partial, out, n_seg, S, M);
+    return (int)cudaGetLastError();
+  }
+  const bool ring = aligned16(a) && aligned16(b) && aligned16(out) && aligned16(partial);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (ring && ring_shape(S, M)) {
+      switch ((S + 7) / 8) {  // 3 .. 8
+        case 3: return launch_ffma<3>(a, b, it, n_items, tn, tree_parent, tree_arrivals,
+                                      partial, out, n, n_seg, S, M, stream);
+        case 4: return launch_ffma<4>(a, b, it, n_items, tn, tree_parent, tree_arrivals,
+                                      partial, out, n, n_seg, S, M, stream);
+        case 5: return launch_ffma<5>(a, b, it, n_items, tn, tree_parent, tree_arrivals,
+                                      partial, out, n, n_seg, S, M, stream);
+        case 6: return launch_ffma<6>(a, b, it, n_items, tn, tree_parent, tree_arrivals,
+                                      partial, out, n, n_seg, S, M, stream);
+        case 7: return launch_ffma<7>(a, b, it, n_items, tn, tree_parent, tree_arrivals,
+                                      partial, out, n, n_seg, S, M, stream);
+        default: return launch_ffma<8>(a, b, it, n_items, tn, tree_parent, tree_arrivals,
+                                       partial, out, n, n_seg, S, M, stream);
+      }
+    }
+  } else {
+    if (ring && mma_ring_shape(S, M)) {
+      const size_t smem = ring_smem(S, M, kRingMma).total;
+      const int blocks = persistent_blocks(outer_sum_mma_ring, kRingThreads, smem, n_items);
+      outer_sum_mma_ring<<<blocks, kRingThreads, smem, stream>>>(
+          a, b, it, n_items, tn, tree_parent, tree_arrivals, partial, out, n, n_seg, S, M);
+      return (int)cudaGetLastError();
+    }
+  }
+  return outer_sum_general<T>(a, b, items, n_items, merge_ptr, merge_seg, n_merge, partial, out,
+                              n_seg, S, M, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) each kernel needs: K1's is the same for both stream
-// types (rows are widened to fp32 in shared memory); the wrapper refuses
-// shapes above the 48 KB a block gets without opting in. K2's is the larger
-// of its fp32 and bf16 kernels' (0 where the warp kernel runs); K2 opts in
-// to more, up to the 227 KB a block may take.
+// Shared memory (bytes) and threads per block of K1's general kernel (the
+// shapes the K1 kernels for the model's shapes do not take; every shape
+// they take, the general kernel takes too): the wrapper refuses shapes
+// above the 48 KB a block gets without opting in, and 0 threads. K2's
+// shared memory is the larger of its fp32 and bf16 kernels' (0 where the
+// warp kernel runs it); K2 opts in to more, up to the 227 KB a block may
+// take.
 size_t gemnet_segment_outer_sum_smem(int S, int M) { return outer_sum_smem(S, M); }
 
 size_t gemnet_segment_gather_contract_smem(int S, int M) {
   return gather_contract_smem(S, M);
 }
 
-// Threads per K1 block: G groups of M threads, each group owning at most
-// kMaxSPerThread values of s. 0 if no such block fits in 1024 threads.
+// G groups of M threads, each group owning at most kMaxSPerThread values
+// of s. 0 if no such block fits in 1024 threads.
 int gemnet_segment_outer_sum_threads(int S, int M) { return outer_sum_threads(S, M); }
 
-int gemnet_segment_outer_sum_f32(const float* a, const float* b, const int* items,
-                                 int n_items, const int* merge_ptr,
-                                 const int* merge_seg, int n_merge, float* partial,
-                                 float* out, int n_seg, int S, int M,
-                                 cudaStream_t stream) {
-  return outer_sum<float>(a, b, items, n_items, merge_ptr, merge_seg, n_merge,
-                          partial, out, n_seg, S, M, stream);
+// K1. The kernels of the model's shapes merge a split segment through the
+// plan's tree (tree_nodes, tree_parent, tree_arrivals; partial holds its
+// n_tree_slots tiles), the general kernel through merge_ptr / merge_seg
+// (the first n_partials of those tiles); n is the row count.
+int gemnet_segment_outer_sum_f32(const float* a, const float* b, const int* items, int n_items,
+                                 const int* merge_ptr, const int* merge_seg, int n_merge,
+                                 const int* tree_nodes, const int* tree_parent,
+                                 int* tree_arrivals, float* partial, float* out, int n,
+                                 int n_seg, int S, int M, cudaStream_t stream) {
+  return outer_sum<float>(a, b, items, n_items, merge_ptr, merge_seg, n_merge, tree_nodes,
+                          tree_parent, tree_arrivals, partial, out, n, n_seg, S, M, stream);
 }
 
 int gemnet_segment_outer_sum_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                                  const int* items, int n_items,
-                                  const int* merge_ptr, const int* merge_seg,
-                                  int n_merge, float* partial, __nv_bfloat16* out,
-                                  int n_seg, int S, int M, cudaStream_t stream) {
-  return outer_sum<__nv_bfloat16>(a, b, items, n_items, merge_ptr, merge_seg,
-                                  n_merge, partial, out, n_seg, S, M, stream);
+                                  const int* items, int n_items, const int* merge_ptr,
+                                  const int* merge_seg, int n_merge, const int* tree_nodes,
+                                  const int* tree_parent, int* tree_arrivals, float* partial,
+                                  __nv_bfloat16* out, int n, int n_seg, int S, int M,
+                                  cudaStream_t stream) {
+  return outer_sum<__nv_bfloat16>(a, b, items, n_items, merge_ptr, merge_seg, n_merge,
+                                  tree_nodes, tree_parent, tree_arrivals, partial, out, n,
+                                  n_seg, S, M, stream);
 }
 
 // K2: seg holds the n rows' (sorted) segment ids, items their work items.
@@ -1840,11 +2393,12 @@ int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot, const __nv_bfl
 // 16-byte aligned tensors; 0 where no kernel takes the shape (more than 48
 // KB, or more than 32 forward output tiles, outside the ring's shapes).
 size_t gemnet_segment_outer_sum_split3_smem(int S, int M) {
-  return ring_shape(S, M) ? ring_smem(S, M, false).total : outer_sum_split3_smem(S, M);
+  return ring_shape(S, M) ? ring_smem(S, M, kRingSplit3Fwd).total : outer_sum_split3_smem(S, M);
 }
 
 size_t gemnet_segment_gather_contract_split3_smem(int S, int M) {
-  return ring_shape(S, M) ? ring_smem(S, M, true).total : gather_contract_split3_smem(S, M);
+  return ring_shape(S, M) ? ring_smem(S, M, kRingSplit3Bwd).total
+                           : gather_contract_split3_smem(S, M);
 }
 
 // K4 forward. The ring kernel (16 < S <= 64, M <= 32, M % 4 == 0, aligned

@@ -7,17 +7,19 @@ the sort metadata (`*_perm`/`*_sorted`, kernel inputs) as int32, and adds one
 computed once per batch on the host.
 
 A plan cuts each segment's rows into work items of at most `item_rows` rows.
-The kernels run one item per thread block (K1, K2 at the quadruplet shape) or
-warp (K3), so a segment that holds thousands of rows — the padded rows all
-share one segment id — is spread over many SMs instead of serializing one.
-An item of a segment with a single item writes the output directly; the
-items of a split segment write partial sums to scratch slots, which are
-added in a fixed order: by a second kernel (K1), by the last of the
-segment's items to finish, counted in `arrivals` (K3), or through a merge
-tree of at most MERGE_FAN children a node, each node added by the last of
-its children to finish, counted in `tree_arrivals` (the K4 forward at the
-quadruplet shape). Every output is written once and the order of summation
-is fixed.
+The kernels run one item at a time per thread block (K1, K2 and K4 at the
+quadruplet shape) or warp (K1 at the triplet shape, K3), so a segment that
+holds thousands of rows — the padded rows all share one segment id — is
+spread over many SMs instead of serializing one. An item of a segment with
+a single item writes the output directly; the items of a split segment
+write partial sums to scratch slots, which are added in a fixed order: by
+the last of the segment's items to finish, counted in `arrivals` (K3);
+through a merge tree of at most MERGE_FAN children a node, each node added
+by the last of its children to finish, counted in `tree_arrivals` (K1 at
+the model's shapes, the K4 forward at the quadruplet shape); or, at the
+shapes those kernels do not take, by a second kernel over `merge_ptr` /
+`merge_seg` (K1's general kernel, the K4 forward at the triplet shape).
+Every output is written once and the order of summation is fixed.
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ class SegmentPlan(NamedTuple):
     arrivals: (n_merge,) zeros: K3's count of the finished items of each
       split segment, which the kernel returns to zero (one stream at a
       time may launch K3 on a plan);
-    tree_nodes: (n_nodes, 4) the merge tree of the split segments, as the
-      K4 forward adds their partial tiles: node i adds slots [first, end)
+    tree_nodes: (n_nodes, 4) the merge tree of the split segments, as K1
+      and the K4 forward add their partial tiles: node i adds slots [first, end)
       in slot order (at most MERGE_FAN of them) into slot `out`, or into
       the output of `segment` where out is -1 (the segment's root);
     tree_parent: (n_tree_slots,) the node each partial slot feeds (items'
@@ -95,13 +97,20 @@ def merge_tree(merge_ptr: np.ndarray, merge_seg: np.ndarray,
 
 
 # plan key -> (sorted id column, column whose length is the number of
-# segments, rows per work item). K1/K2 items hold whole (S, M) tiles, so
-# their items are long enough that real quadruplet segments (~63 rows) stay
-# whole; a K3 item is one warp's work, 64 rows at most (two loads of 32
-# perm entries), so the padded segment's ~9600 rows at the bench quad shape
-# spread over ~150 warps and the last of them adds ~150 partial rows.
+# segments, rows per work item). K1/K2 items at the quadruplet shape hold
+# whole (S, M) tiles, so they are long enough that real quadruplet segments
+# (~63 rows) stay whole. At the triplet shape a K1 item is one warp's work
+# (real segments ~8 rows): 16-row items spread the padded segment's ~1600
+# rows over ~100 warps, where a warp streaming 128-row items was the
+# launch's long pole, and its ~100 partial tiles merge in two tree levels
+# (on the H100, 0.0119 ms against 0.0164 ms with 128-row items, PERF.md
+# §6, scripts/k1_parts.py); K2 reads the triplet rows' ids, not the items, and K4's triplet
+# kernels take any item size. A K3 item is one warp's work, 64 rows at
+# most (two loads of 32 perm entries), so the padded segment's ~9600 rows
+# at the bench quad shape spread over ~150 warps and the last of them adds
+# ~150 partial rows.
 SEGMENT_PLANS = {
-    "id3_reduce_ca_plan": ("id3_reduce_ca", "id_c", 128),
+    "id3_reduce_ca_plan": ("id3_reduce_ca", "id_c", 16),
     "id4_reduce_ca_plan": ("id4_reduce_ca", "id_c", 128),
     "trip_ba_plan": ("trip_ba_sorted", "id_c", 64),
     "intm_db_plan": ("intm_db_sorted", "id_c", 64),

@@ -39,9 +39,12 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_K1_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P]
+# K1 and the K4 forward take the same arguments: a, b, items, n_items,
+# merge_ptr, merge_seg, n_merge, tree_nodes, tree_parent, tree_arrivals,
+# partial, out, n, n_seg, S, M, stream
+_K1_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _K2_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
-_K4_FWD_ARGS = [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_K4_FWD_ARGS = _K1_ARGS
 _K4_BWD_ARGS = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P]
 _K3_ARGS = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]
 _GATHER_ARGS = [_P, _P, _P, _I, _I, _I, _P]

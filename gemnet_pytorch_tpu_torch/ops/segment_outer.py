@@ -10,9 +10,13 @@ by sorted segment ids (triplets/quadruplets sorted by their reduce edge):
 The output layout is the JAX package's (S, nSegments, M). On a CUDA tensor
 each op launches its hand-written kernel (`csrc/segment_outer.cu`); on a CPU
 tensor it runs the plain PyTorch version below, a line-for-line counterpart
-of `_outer_sum_xla` / `_gather_contract_xla`. The K2 kernel reads each
-row's segment id from `seg_ids` (its warp kernel, at S <= 16) or the
-plan's work items (its quad-shape kernels).
+of `_outer_sum_xla` / `_gather_contract_xla`. The K1 kernels read the
+plan's work items and merge a split segment's partial tiles through its
+merge tree (`tree_nodes`, `tree_parent`, `tree_arrivals`), K1's general
+kernel at narrow widths through `merge_ptr` / `merge_seg`; the K2 kernel
+reads each row's segment id from `seg_ids` (its warp kernel, at S <= 16)
+or the plan's work items (its quad-shape kernels); K4 as K1 and K2, its
+triplet forward through `merge_ptr` / `merge_seg`.
 
 Dtypes follow the JAX package (`_stream_dtype`, `_out_dtype`): the streams
 are bf16 when every row input is bf16 (compute_dtype="bfloat16"), and fp32
@@ -33,7 +37,7 @@ the plain split3 versions below. As in `_use_split3`, it applies to fp32
 streams only: bf16 streams ignore it.
 
 `plan` is the `data.batch.SegmentPlan` of the sorted ids (work items of the
-kernels, and the merge tree through which the split3 forward adds a long
+kernels, and the merge tree through which the forward adds a long
 segment's partial tiles); the plain versions use `seg_ids`. The two ops are
 `torch.autograd.Function`s whose backwards call each other, so they
 differentiate to any order (grad-of-grad for force training), as the JAX
@@ -129,29 +133,28 @@ def _outer_sum_cuda(a, b, plan, split3=False):
     n_seg = plan.n_segments
     if b.shape[0] != n:
         raise ValueError(f"a has {n} rows, b has {b.shape[0]}")
-    out = torch.empty((S, n_seg, M), dtype=dt, device=dev)
     if split3:
         if _cuda.function("gemnet_segment_outer_sum_split3_smem")(S, M) == 0:
             raise ValueError(f"segment_outer_sum split3 kernel takes no S={S}, M={M}")
-        # partial tiles of the items and of the merge tree's inner nodes
-        partial = torch.empty((plan.n_tree_slots, S, M), dtype=torch.float32, device=dev)
-        _cuda.launch("gemnet_segment_outer_sum_split3", (n, S, M, n_seg), dev,
-                     a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
-                     plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
-                     plan.tree_nodes.data_ptr(), plan.tree_parent.data_ptr(),
-                     plan.tree_arrivals.data_ptr(), partial.data_ptr(), out.data_ptr(), n, n_seg,
-                     S, M)
-        return out
-    if _cuda.function("gemnet_segment_outer_sum_threads")(S, M) == 0:
-        raise ValueError(f"segment_outer_sum kernel takes no S={S}, M={M}")
-    if _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
-        raise ValueError(f"segment_outer_sum kernel: S={S}, M={M} exceed 48 KB of shared memory")
-    name = f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}"
-    partial = torch.empty((plan.n_partials, S, M), dtype=torch.float32, device=dev)
+        name = "gemnet_segment_outer_sum_split3"
+    else:
+        # every shape the kernels for the model's shapes take, the general
+        # kernel takes too: its limits are the entry's
+        if _cuda.function("gemnet_segment_outer_sum_threads")(S, M) == 0:
+            raise ValueError(f"segment_outer_sum kernel takes no S={S}, M={M}")
+        if _cuda.function("gemnet_segment_outer_sum_smem")(S, M) > 48 * 1024:
+            raise ValueError(f"segment_outer_sum kernel: S={S}, M={M} exceed 48 KB of shared "
+                             "memory")
+        name = f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}"
+    out = torch.empty((S, n_seg, M), dtype=dt, device=dev)
+    # fp32 partial tiles of the items and of the merge tree's inner nodes
+    # (the general kernels use the items' first n_partials)
+    partial = torch.empty((plan.n_tree_slots, S, M), dtype=torch.float32, device=dev)
     _cuda.launch(name, (n, S, M, n_seg), dev,
                  a.data_ptr(), b.data_ptr(), plan.items.data_ptr(), plan.items.shape[0],
                  plan.merge_ptr.data_ptr(), plan.merge_seg.data_ptr(), plan.merge_seg.numel(),
-                 partial.data_ptr(), out.data_ptr(), n_seg, S, M)
+                 plan.tree_nodes.data_ptr(), plan.tree_parent.data_ptr(),
+                 plan.tree_arrivals.data_ptr(), partial.data_ptr(), out.data_ptr(), n, n_seg, S, M)
     return out
 
 

@@ -337,6 +337,92 @@ def test_split3_quad_kernels(device, S):
     assert int(plan.tree_arrivals.abs().sum()) == 0
 
 
+def _k1_ids(rng, n_seg, long_rows):
+    """Sorted ids whose segments hold 0, 1, 7, 8, 31, 32, 33, 127, 128, 129,
+    1600 and `long_rows` rows, then random short segments; an odd row count,
+    so with odd S the rows end past the tensor's last 16-byte boundary."""
+    lengths = [0, 1, 7, 8, 31, 32, 33, 127, 128, 129, 1600, long_rows]
+    head = np.repeat(np.arange(len(lengths)), lengths)
+    tail = np.sort(rng.integers(len(lengths), n_seg, 2000))
+    return np.concatenate([head, tail])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,M", [(7, 64), (49, 32)], ids=["triplet", "quad"])
+def test_outer_sum_routes(device, S, M, dtype):
+    """K1 at the model's two shapes, per stream type (the warp kernel at the
+    triplet shape, the FFMA and mma ring kernels at the quadruplet shape), on
+    segments of 0-129, 1600 and 9600 rows (merge trees of one and two
+    levels): against the plain version, bit-equal across two launches and
+    across two replays of one captured CUDA graph, the merge tree's counters
+    back at zero."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(S + M)
+    n_seg = 700
+    ids = _k1_ids(rng, n_seg, 9601)
+    n = len(ids)
+    assert n % 2 == 1
+    plan = segment_plan(ids, n_seg, 128, device)
+    assert plan.tree_nodes.shape[0] > 2  # the 9601-row segment merges in two levels
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device).to(dt)
+
+    a, b = rand(n, S), rand(n, M)
+    tid = torch.from_numpy(ids).to(device)
+    _cuda.reset_launches()
+    out, again = so.outer_sum(a, b, tid, plan), so.outer_sum(a, b, tid, plan)
+    torch.cuda.synchronize()
+    assert _cuda.kernel_launches() == {f"gemnet_segment_outer_sum_{_cuda.DTYPE_SUFFIX[dt]}": 2}
+    ref = so._outer_sum_plain(a, b, tid, n_seg)
+    if dt == torch.bfloat16:
+        _assert_close_bf16(out, ref)
+    else:
+        _assert_close(out, ref)
+    assert torch.equal(out, again)
+    assert int(plan.tree_arrivals.abs().sum()) == 0
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = so.outer_sum(a, b, tid, plan)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(captured.clone())
+    assert torch.equal(replays[0], out) and torch.equal(replays[1], out)
+    assert int(plan.tree_arrivals.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_outer_sum_shape_changes(device, dtype):
+    """K1's persistent triplet kernel at the model's width, then at a narrow
+    one (less shared memory), then at the model's width again: each launch
+    takes the shared memory its shape needs, whatever came before."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    rng = np.random.default_rng(3)
+    ids = _sorted_ids(rng, 3000, 300, long_seg=250, long_rows=700)
+    plan = segment_plan(ids, 300, 16, device)
+    tid = torch.from_numpy(ids).to(device)
+    for S, M in ((7, 64), (3, 8), (7, 64)):
+        a, b = (torch.from_numpy(rng.normal(size=(len(ids), w)).astype(np.float32)).to(device)
+                .to(getattr(torch, dtype)) for w in (S, M))
+        out, ref = so.outer_sum(a, b, tid, plan), so._outer_sum_plain(a, b, tid, 300)
+        if dtype == "bfloat16":
+            _assert_close_bf16(out, ref)
+        else:
+            _assert_close(out, ref)
+
+
 @pytest.mark.cuda
 def test_launch_counter_and_input_checks(device):
     from gemnet_pytorch_tpu_torch.data import segment_plan

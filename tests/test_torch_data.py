@@ -154,7 +154,7 @@ def test_segment_plan_covers_every_row_once(item_rows):
     assert 17 in plan.merge_seg.numpy()
 
 
-@pytest.mark.parametrize("key", ["trip_ba_plan", "id4_reduce_ca_plan"])
+@pytest.mark.parametrize("key", ["trip_ba_plan", "id4_reduce_ca_plan", "id3_reduce_ca_plan"])
 def test_segment_plan_long_and_empty_segments(key):
     """At the item size of a K3 plan and of a K1/K2 plan: a 10 000-row
     segment (the padded rows'), empty segments and 1-row segments. Every row
@@ -207,18 +207,10 @@ def _tree_segment_sum(plan, x):
     return out
 
 
-@pytest.mark.parametrize("rows", [129, 2048, 2049, 9600, 32768, 40000])
-def test_segment_plan_merge_tree(rows):
-    """The K4 forward's merge tree of a long segment (9600 rows: the padded
-    rows' at the bench quad shape) beside short and empty ones, at the K1/K2
-    item size: every partial slot feeds exactly one node, no node adds more
-    than MERGE_FAN children, a node's children are consecutive slots, one
-    root per split segment writes its output, the counters are int32 zeros,
-    and the tree's sums equal the segment sums."""
+def _check_merge_tree(rows, item_rows):
     from gemnet_pytorch_tpu_torch.data import segment_plan
-    from gemnet_pytorch_tpu_torch.data.batch import MERGE_FAN, SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.data.batch import MERGE_FAN
 
-    item_rows = SEGMENT_PLANS["id4_reduce_ca_plan"][2]
     rng = np.random.default_rng(rows)
     n_seg = 300
     ids = np.sort(np.concatenate([rng.integers(0, 250, 3000), np.full(rows, 260),
@@ -246,6 +238,21 @@ def test_segment_plan_merge_tree(rows):
     ref = np.zeros((n_seg, 2))
     np.add.at(ref, ids, x)
     np.testing.assert_allclose(_tree_segment_sum(plan, x), ref, atol=1e-9)
+
+
+@pytest.mark.parametrize("rows", [129, 2048, 2049, 9600, 32768, 40000])
+def test_segment_plan_merge_tree(rows):
+    """The merge tree of K1 and the K4 forward for a long segment (9600
+    rows: the padded rows' at the bench quad shape) beside short and empty
+    ones, at the item sizes of the quadruplet and the triplet plans: every
+    partial slot feeds exactly one node, no node adds more than MERGE_FAN
+    children, a node's children are consecutive slots, one root per split
+    segment writes its output, the counters are int32 zeros, and the tree's
+    sums equal the segment sums."""
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+
+    for key in ("id4_reduce_ca_plan", "id3_reduce_ca_plan"):
+        _check_merge_tree(rows, SEGMENT_PLANS[key][2])
 
 
 def test_kernel_id_columns_are_sorted(synthetic_npz):

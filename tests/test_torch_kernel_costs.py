@@ -1,4 +1,4 @@
-"""chip_smoke's bound of each K2/K3/K4 case (`case_cost`: the bytes each input
+"""chip_smoke's bound of each K1/K2/K3/K4 case (`case_cost`: the bytes each input
 is read once and each output written once, the operations) at the bench-small
 shapes, against the byte counts and bounds PERF.md states for them. Runs on
 the CPU: the cost is computed from shapes alone."""
@@ -13,6 +13,10 @@ import chip_smoke  # noqa: E402
 
 # (kernel, dtype, shape) -> (MB, bound ms) as PERF.md's kernel table gives them
 BENCH = [
+    ("K1", "f32", (192512, 49, 32, 3072), 81.7, 0.0244),
+    ("K1", "bf16", (192512, 49, 32, 3072), 40.8, 0.0122),
+    ("K1", "f32", (25600, 7, 64, 3072), 12.8, 0.0038),
+    ("K1", "bf16", (25600, 7, 64, 3072), 6.4, 0.0019),
     ("K2", "f32", (192512, 49, 32, 3072), 144.0, 0.0430),
     ("K2", "bf16", (192512, 49, 32, 3072), 72.0, 0.0215),
     ("K2", "f32", (25600, 7, 64, 3072), 20.1, 0.0060),
@@ -39,7 +43,7 @@ def test_case_cost_matches_perf_md(kernel, dtype, shape, mb, bound_ms):
     assert round(nbytes / 1e6, 1) == mb
     t_bytes = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
     t_flops = flops / chip_smoke.PEAK_FLOPS[dtype] * 1e3
-    assert t_bytes > t_flops  # bytes bound every K2/K3/K4 row
+    assert t_bytes > t_flops  # bytes bound every K1/K2/K3/K4 row
     assert round(t_bytes, 4) == bound_ms
 
 
