@@ -13,9 +13,10 @@ Phases:
      of K1 and K2; the row-gather probe kernels P1 and P2) against its plain
      PyTorch version on the card, at the shapes the serving path, the train
      step and the probe give it (K4 also against the exact fp32 K1/K2; K1
-     and K4 bit-equal across two replays of one captured CUDA graph, their
-     merge trees' counters back at zero; K1, K2, K3 and K4 bit-equal across
-     two launches);
+     and K4, forward and backward at both shapes, bit-equal across two
+     replays of one captured CUDA graph, their merge trees' counters back
+     at zero, the triplet K4 forward's tree among them; K1, K2, K3 and K4
+     bit-equal across two launches);
   4. time each kernel and, where one PyTorch call computes the same
      function, that call, both ways: device time per launch (`ms`,
      `library_ms`: 20 calls captured in a CUDA graph, replayed under CUDA
@@ -564,8 +565,11 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
 # outer_sum_kernel at other shapes; K4's backward is
 # gather_contract_split3_ring at the quadruplet shape and
 # gather_contract_split3_kernel at the triplet shape, its forward
-# outer_sum_split3_ring / outer_sum_split3_kernel; the merge kernel of K1's
-# general kernel serves K4's triplet forward too)
+# outer_sum_split3_ring at the quadruplet shape, outer_sum_split3_warp (K1's
+# warp kernel with split3 products) at the triplet shape and
+# outer_sum_split3_kernel at other shapes. The merge kernel of K1's general
+# kernel also serves K4's wmma forward, at shapes the model does not give:
+# it counts under K1)
 PROFILE_GROUPS = {
     "K1": ("outer_sum_kernel", "outer_sum_merge_kernel", "outer_sum_ffma_ring",
            "outer_sum_mma_ring", "outer_sum_warp_kernel"),

@@ -12,9 +12,11 @@
 //     db[t, m] = sum_s cot[s, seg(t), m] * a[t, s]
 //   replaces segment_outer.py::_bwd_kernel (launched by _gather_contract_pallas).
 // K4 gemnet_segment_outer_sum_split3, gemnet_segment_gather_contract_split3
-//   K1 and K2 in the fp32 "split3" mode, on the tensor cores: the wmma
-//   kernels of the section below at the triplet shape, the ring kernels of
-//   the section "K4 at the quadruplet shape" at the quadruplet shape.
+//   K1 and K2 in the fp32 "split3" mode: at the quadruplet shape the ring
+//   kernels of the section "K4 at the quadruplet shape" (tensor cores); at
+//   the triplet shape the forward is K1's warp-per-item kernel with split3
+//   products on the CUDA cores (last section) and the backward the wmma
+//   kernel of the section below, which also serves the other shapes.
 //
 // Stream types follow the JAX package's contract (segment_outer.py:152-157,
 // 205-216, 586-590): with fp32 streams everything is fp32; with bf16 streams
@@ -71,8 +73,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float
 // elements with the accumulators in registers; a chunk of kChunk rows at a
 // time is widened to fp32 in shared memory between two block barriers. The
 // items of a split segment write partial tiles that a second kernel,
-// outer_sum_merge_kernel (which K4's triplet forward uses too), adds in row
-// order.
+// outer_sum_merge_kernel (which K4's wmma forward uses too, at the shapes
+// neither the warp kernel nor the ring takes), adds in row order.
 
 template <typename T>
 __global__ void outer_sum_kernel(const T* __restrict__ a,
@@ -191,9 +193,12 @@ int outer_sum_general(const T* a, const T* b, const int* items, int n_items,
 // bytes. The backward moves K2's fp32 bytes for twice the flops.
 //
 // Design of the kernels below, the simple first one, which serve the shapes
-// the ring kernels (last section) do not take, the triplet shape among them:
-// K1/K2's work items, one thread block of 8 warps per item. A chunk of
-// kChunk rows of a (n x S) and b (n x M) is staged in shared memory as
+// the faster kernels do not take: the backward at the triplet shape, and
+// both directions at shapes the model does not give (the forward at the
+// triplet shape is K1's warp kernel, last section; both at the quadruplet
+// shape the ring kernels). K1/K2's work items, one thread block of 8 warps
+// per item. A chunk of kChunk rows of a (n x S) and b (n x M) is staged in
+// shared memory as
 // bf16 hi and lo tiles, S and M padded to multiples of 16
 // and the rows to kChunk, every padded entry zero in both halves. The
 // products run as nvcuda::wmma 16x16x16 bf16 fragments with fp32
@@ -1839,35 +1844,6 @@ gather_contract_split3_ring(const float* __restrict__ cot, const float* __restri
   }
 }
 
-int outer_sum_split3(const float* a, const float* b, const int* items, int n_items,
-                     const int* merge_ptr, const int* merge_seg, int n_merge,
-                     const int* tree_nodes, const int* tree_parent, int* tree_arrivals,
-                     float* partial, float* out, int n, int n_seg, int S, int M,
-                     cudaStream_t stream) {
-  if (ring_shape(S, M) && aligned16(a) && aligned16(b) && aligned16(out) && aligned16(partial)) {
-    if (n_items > 0) {
-      const size_t smem = ring_smem(S, M, kRingSplit3Fwd).total;
-      const int blocks = persistent_blocks(outer_sum_split3_ring, kRingThreads, smem, n_items);
-      outer_sum_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
-          a, b, reinterpret_cast<const int4*>(items), n_items,
-          reinterpret_cast<const int4*>(tree_nodes), tree_parent, tree_arrivals, partial, out, n,
-          n_seg, S, M);
-    }
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = outer_sum_split3_smem(S, M);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  if (n_items > 0) {
-    outer_sum_split3_kernel<<<n_items, kThreads, smem, stream>>>(
-        a, b, reinterpret_cast<const int4*>(items), partial, out, n_seg, S, M);
-  }
-  if (n_merge > 0) {
-    outer_sum_merge_kernel<float><<<n_merge, kThreads, 0, stream>>>(
-        partial, merge_ptr, merge_seg, out, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
-}
-
 int gather_contract_split3(const float* cot, const float* a, const float* b, const int* items,
                            int n_items, float* da, float* db, int n, int n_seg, int S, int M,
                            cudaStream_t stream) {
@@ -1934,9 +1910,10 @@ int gather_contract_split3(const float* cot, const float* a, const float* b, con
 //     fp32 accumulators, and the output rounds once at the store (64-byte
 //     rows).
 // - Triplet shape (S <= 8, M <= 64, M % 4 == 0, outer_sum_warp_kernel,
-//   both stream types): a 128-row block item is the wrong unit for ~8-row
-//   segments. Persistent blocks of four warps; each warp owns an item at a
-//   time (items w, w + W, ... of the grid's W warps, their descriptors
+//   both stream types; and K4's forward, outer_sum_split3_warp, the same
+//   body with split3 products): a 128-row block item is the wrong unit for
+//   ~8-row segments. Persistent blocks of four warps; each warp owns an
+//   item at a time (items w, w + W, ... of the grid's W warps, their descriptors
 //   loaded 32 at a time) and walks its rows in chunks of kWarpRows through
 //   its own ring of kWarpStages stages (cp.async, the next two chunks in
 //   flight, the next items' among them); each lane owns columns 2 lane,
@@ -1949,6 +1926,19 @@ int gather_contract_split3(const float* cot, const float* a, const float* b, con
 //   are the launch's critical path: measured on the H100 (PERF.md §6), a
 //   warp streaming 128-row items, and a merge with sc fences and 16 loads in
 //   flight per lane, each cost several microseconds.
+//   K4's forward there (split3) replaces the wmma kernel
+//   (outer_sum_split3_kernel, kept for other shapes) and its second,
+//   one-block merge launch. It moves K1's fp32 bytes (12.8 MB, 3.8 us at
+//   3.35 TB/s); at S = 7 a lane does 28 FFMAs per row and its two b splits,
+//   so the tensor cores again buy nothing. The warp's lanes split the
+//   chunk's a values together, once, into a buffer of (hi, lo) fp32 pairs
+//   (1 KB a warp), which the row loop reads as one broadcast 8-byte load a
+//   value; a_hi b_hi + a_hi b_lo is one FFMA by b_hi + b_lo, exact in fp32,
+//   and a_lo b_hi a second. Measured on the H100 (PERF.md §6): every lane
+//   splitting each a value as it read it, with three FFMAs a product,
+//   0.0176 ms; the split in place as one word (hi's bits | lo's bf16 bits)
+//   that each read decodes with two integer instructions, 0.0161 ms. The
+//   split segment's partial tiles merge through the plan's tree, as K1's.
 // Other shapes take the general kernel of the first section.
 
 constexpr int kWarpRows = 16;     // rows per stage of a warp's ring
@@ -2086,8 +2076,10 @@ __host__ __device__ constexpr int warp_stage_a(int S, int es) {
 __host__ __device__ constexpr int warp_stage(int S, int M, int es) {
   return warp_stage_a(S, es) + round16(es * kWarpRows * M + 16);
 }
-size_t warp_outer_smem(int S, int M, int es) {
-  return (size_t)kWarpStages * warp_stage(S, M, es) * (kWarpItemThreads / 32);
+// the warps' rings; split3: and each warp's buffer of split a values
+size_t warp_outer_smem(int S, int M, int es, bool split3) {
+  const size_t split = split3 ? sizeof(float2) * kWarpRows * S : 0;
+  return (kWarpStages * (size_t)warp_stage(S, M, es) + split) * (kWarpItemThreads / 32);
 }
 
 bool warp_outer_shape(int S, int M) {
@@ -2168,19 +2160,40 @@ __device__ __forceinline__ bool warp_next(const int4* __restrict__ items, int n_
   return true;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarpItemThreads)
-outer_sum_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      const int4* __restrict__ items, int n_items,
-                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
-                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
-                      T* __restrict__ out, int n_seg, int S, int M) {
+// fp32 x -> its split3 halves as fp32 values, bit for bit split_hi_lo's:
+// hi is x's bits masked with 0xFFFF0000, lo = bf16_rn(x - hi) widened. A
+// product of two halves is exact in fp32, as on the tensor cores.
+__device__ __forceinline__ float2 split_f(float x) {
+  const float h = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+  return make_float2(h, __bfloat162float(__float2bfloat16_rn(x - h)));
+}
+
+// The warp-per-item forward. kSplit3 = false: K1, T = float or bf16 (widened
+// in registers), one exact fp32 FFMA per product. kSplit3 = true: K4's
+// forward, T = float. The warp's lanes split the chunk's a values together,
+// once, into the warp's (hi, lo) buffer after its ring; a lane splits its
+// two b values once per row (split_f). hi*hi + hi*lo is one FFMA of a_hi by
+// b_hi + b_lo: that sum is exact in fp32 (b_lo's bits lie within the 24
+// below b_hi's leading bit, since b - b_hi keeps only the 16 low bits of b's
+// mantissa), and the FFMA rounds a_hi b_hi + a_hi b_lo, both exact, once;
+// lo*hi is a second FFMA.
+template <typename T, bool kSplit3>
+__device__ __forceinline__ void outer_sum_warp_body(
+    const T* __restrict__ a, const T* __restrict__ b, const int4* __restrict__ items,
+    int n_items, const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+    int* __restrict__ tree_arrivals, float* __restrict__ partial, T* __restrict__ out, int n_seg,
+    int S, int M) {
+  static_assert(!kSplit3 || sizeof(T) == sizeof(float), "split3 takes fp32 rows");
   extern __shared__ __align__(128) unsigned char warp_smem_raw[];
   constexpr int es = sizeof(T);
   const int lane = threadIdx.x % 32;
   const int W = gridDim.x * (kWarpItemThreads / 32);
   const int sa = warp_stage_a(S, es), sb = warp_stage(S, M, es);
   unsigned char* ring = warp_smem_raw + (threadIdx.x / 32) * kWarpStages * sb;
+  // split3: the chunk's a values as (hi, lo), [kWarpRows][S], after the rings
+  float2* ab =
+      reinterpret_cast<float2*>(warp_smem_raw + kWarpItemThreads / 32 * kWarpStages * sb) +
+      (threadIdx.x / 32) * kWarpRows * S;
   const int m = 2 * lane;  // this lane's columns m, m + 1
 
   // chunk c of item it into stage q % kWarpStages: its a and b rows as they
@@ -2222,15 +2235,34 @@ outer_sum_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
     const unsigned char* st = ring + (q % kWarpStages) * sb;
     const T* as = reinterpret_cast<const T*>(st) + head_floats(a + (size_t)r * S);
     const T* bs = reinterpret_cast<const T*>(st + sa) + head_floats(b + (size_t)r * M);
+    if constexpr (kSplit3) {
+      for (int i = lane; i < nr * S; i += 32) ab[i] = split_f(widen(as[i]));
+      __syncwarp();
+    }
 #pragma unroll 4
     for (int t = 0; t < nr; ++t) {
       const float2 bv = m < M ? load2(bs + t * M + m) : make_float2(0.f, 0.f);
+      if constexpr (kSplit3) {
+        const float2 b0 = split_f(bv.x), b1 = split_f(bv.y);  // (hi, lo)
+        const float s0 = b0.x + b0.y, s1 = b1.x + b1.y;       // exact
 #pragma unroll
-      for (int s = 0; s < kWarpMaxS; ++s) {
-        if (s < S) {
-          const float av = widen(as[t * S + s]);  // one address across the warp
-          acc[s][0] = fmaf(av, bv.x, acc[s][0]);
-          acc[s][1] = fmaf(av, bv.y, acc[s][1]);
+        for (int s = 0; s < kWarpMaxS; ++s) {
+          if (s < S) {
+            const float2 av = ab[t * S + s];  // (hi, lo), one address across the warp
+            acc[s][0] = fmaf(av.x, s0, acc[s][0]);
+            acc[s][0] = fmaf(av.y, b0.x, acc[s][0]);
+            acc[s][1] = fmaf(av.x, s1, acc[s][1]);
+            acc[s][1] = fmaf(av.y, b1.x, acc[s][1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < kWarpMaxS; ++s) {
+          if (s < S) {
+            const float av = widen(as[t * S + s]);  // one address across the warp
+            acc[s][0] = fmaf(av, bv.x, acc[s][0]);
+            acc[s][1] = fmaf(av, bv.y, acc[s][1]);
+          }
         }
       }
     }
@@ -2265,6 +2297,84 @@ outer_sum_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
   cp_async_wait<0>();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kWarpItemThreads)
+outer_sum_warp_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const int4* __restrict__ items, int n_items,
+                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                      T* __restrict__ out, int n_seg, int S, int M) {
+  outer_sum_warp_body<T, false>(a, b, items, n_items, tree_nodes, tree_parent, tree_arrivals,
+                                partial, out, n_seg, S, M);
+}
+
+// K4's forward at the warp shape: its own name, so that the profiler's
+// groups (chip_smoke.PROFILE_GROUPS) count it under K4
+__global__ void __launch_bounds__(kWarpItemThreads)
+outer_sum_split3_warp(const float* __restrict__ a, const float* __restrict__ b,
+                      const int4* __restrict__ items, int n_items,
+                      const int4* __restrict__ tree_nodes, const int* __restrict__ tree_parent,
+                      int* __restrict__ tree_arrivals, float* __restrict__ partial,
+                      float* __restrict__ out, int n_seg, int S, int M) {
+  outer_sum_warp_body<float, true>(a, b, items, n_items, tree_nodes, tree_parent, tree_arrivals,
+                                   partial, out, n_seg, S, M);
+}
+
+// Launches a warp-per-item kernel (K1's or K4's) over n_items > 0 items.
+template <typename T, typename Kernel>
+int launch_warp_outer(Kernel kernel, size_t smem, const T* a, const T* b, const int4* items,
+                      int n_items, const int4* tree_nodes, const int* tree_parent,
+                      int* tree_arrivals, float* partial, T* out, int n_seg, int S, int M,
+                      cudaStream_t stream) {
+  const int warps = kWarpItemThreads / 32;
+  const int blocks = persistent_blocks(kernel, kWarpItemThreads, smem,
+                                       (n_items + warps - 1) / warps);
+  kernel<<<blocks, kWarpItemThreads, smem, stream>>>(a, b, items, n_items, tree_nodes,
+                                                     tree_parent, tree_arrivals, partial, out,
+                                                     n_seg, S, M);
+  return (int)cudaGetLastError();
+}
+
+// K4's forward: the warp kernel (K1's, split3 products) at the triplet
+// shape, the ring at the quadruplet shape, the wmma kernel and its merge
+// kernel at other shapes
+int outer_sum_split3(const float* a, const float* b, const int* items, int n_items,
+                     const int* merge_ptr, const int* merge_seg, int n_merge,
+                     const int* tree_nodes, const int* tree_parent, int* tree_arrivals,
+                     float* partial, float* out, int n, int n_seg, int S, int M,
+                     cudaStream_t stream) {
+  const bool aligned = aligned16(a) && aligned16(b) && aligned16(out) && aligned16(partial);
+  if (warp_outer_shape(S, M) && aligned) {
+    if (n_items <= 0) return (int)cudaGetLastError();
+    return launch_warp_outer(outer_sum_split3_warp, warp_outer_smem(S, M, sizeof(float), true),
+                             a, b, reinterpret_cast<const int4*>(items), n_items,
+                             reinterpret_cast<const int4*>(tree_nodes), tree_parent,
+                             tree_arrivals, partial, out, n_seg, S, M, stream);
+  }
+  if (ring_shape(S, M) && aligned) {
+    if (n_items > 0) {
+      const size_t smem = ring_smem(S, M, kRingSplit3Fwd).total;
+      const int blocks = persistent_blocks(outer_sum_split3_ring, kRingThreads, smem, n_items);
+      outer_sum_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
+          a, b, reinterpret_cast<const int4*>(items), n_items,
+          reinterpret_cast<const int4*>(tree_nodes), tree_parent, tree_arrivals, partial, out, n,
+          n_seg, S, M);
+    }
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = outer_sum_split3_smem(S, M);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (n_items > 0) {
+    outer_sum_split3_kernel<<<n_items, kThreads, smem, stream>>>(
+        a, b, reinterpret_cast<const int4*>(items), partial, out, n_seg, S, M);
+  }
+  if (n_merge > 0) {
+    outer_sum_merge_kernel<float><<<n_merge, kThreads, 0, stream>>>(
+        partial, merge_ptr, merge_seg, out, n_seg, S, M);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int JS>
 int launch_ffma(const float* a, const float* b, const int4* items, int n_items,
                 const int4* tree_nodes, const int* tree_parent, int* tree_arrivals,
@@ -2287,13 +2397,9 @@ int outer_sum(const T* a, const T* b, const int* items, int n_items, const int* 
   if (n_items <= 0) return (int)cudaGetLastError();
   if (warp_outer_shape(S, M) && aligned16(a) && aligned16(b) && aligned16(out) &&
       aligned16(partial)) {
-    const size_t smem = warp_outer_smem(S, M, sizeof(T));
-    const int warps = kWarpItemThreads / 32;
-    const int blocks = persistent_blocks(outer_sum_warp_kernel<T>, kWarpItemThreads, smem,
-                                         (n_items + warps - 1) / warps);
-    outer_sum_warp_kernel<T><<<blocks, kWarpItemThreads, smem, stream>>>(
-        a, b, it, n_items, tn, tree_parent, tree_arrivals, partial, out, n_seg, S, M);
-    return (int)cudaGetLastError();
+    return launch_warp_outer(outer_sum_warp_kernel<T>, warp_outer_smem(S, M, sizeof(T), false),
+                             a, b, it, n_items, tn, tree_parent, tree_arrivals, partial, out,
+                             n_seg, S, M, stream);
   }
   const bool ring = aligned16(a) && aligned16(b) && aligned16(out) && aligned16(partial);
   if constexpr (sizeof(T) == sizeof(float)) {
@@ -2391,8 +2497,11 @@ int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot, const __nv_bfl
 
 // Shared memory (bytes) of the kernel each entry runs at (S, M) with
 // 16-byte aligned tensors; 0 where no kernel takes the shape (more than 48
-// KB, or more than 32 forward output tiles, outside the ring's shapes).
+// KB, or more than 32 forward output tiles, outside the warp kernel's and
+// the ring's shapes). Every shape the forward's warp kernel takes, its wmma
+// kernel takes too, for unaligned tensors.
 size_t gemnet_segment_outer_sum_split3_smem(int S, int M) {
+  if (warp_outer_shape(S, M)) return warp_outer_smem(S, M, sizeof(float), true);
   return ring_shape(S, M) ? ring_smem(S, M, kRingSplit3Fwd).total : outer_sum_split3_smem(S, M);
 }
 
@@ -2401,10 +2510,11 @@ size_t gemnet_segment_gather_contract_split3_smem(int S, int M) {
                            : gather_contract_split3_smem(S, M);
 }
 
-// K4 forward. The ring kernel (16 < S <= 64, M <= 32, M % 4 == 0, aligned
-// tensors) merges through the plan's tree (tree_nodes, tree_parent,
-// tree_arrivals; partial holds its n_tree_slots tiles); the kernel of the
-// other shapes through merge_ptr / merge_seg (partial: n_partials tiles).
+// K4 forward. The warp kernel (S <= 8, M <= 64, M % 4 == 0) and the ring
+// kernel (16 < S <= 64, M <= 32, M % 4 == 0), on aligned tensors, merge
+// through the plan's tree (tree_nodes, tree_parent, tree_arrivals; partial
+// holds its n_tree_slots tiles); the kernel of the other shapes through
+// merge_ptr / merge_seg (partial: n_partials tiles).
 int gemnet_segment_outer_sum_split3(const float* a, const float* b, const int* items,
                                     int n_items, const int* merge_ptr, const int* merge_seg,
                                     int n_merge, const int* tree_nodes, const int* tree_parent,

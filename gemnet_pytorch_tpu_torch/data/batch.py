@@ -8,17 +8,18 @@ computed once per batch on the host.
 
 A plan cuts each segment's rows into work items of at most `item_rows` rows.
 The kernels run one item at a time per thread block (K1, K2 and K4 at the
-quadruplet shape) or warp (K1 at the triplet shape, K3), so a segment that
+quadruplet shape) or warp (K1 and the K4 forward at the triplet shape, K3),
+so a segment that
 holds thousands of rows — the padded rows all share one segment id — is
 spread over many SMs instead of serializing one. An item of a segment with
 a single item writes the output directly; the items of a split segment
 write partial sums to scratch slots, which are added in a fixed order: by
 the last of the segment's items to finish, counted in `arrivals` (K3);
 through a merge tree of at most MERGE_FAN children a node, each node added
-by the last of its children to finish, counted in `tree_arrivals` (K1 at
-the model's shapes, the K4 forward at the quadruplet shape); or, at the
-shapes those kernels do not take, by a second kernel over `merge_ptr` /
-`merge_seg` (K1's general kernel, the K4 forward at the triplet shape).
+by the last of its children to finish, counted in `tree_arrivals` (K1 and
+the K4 forward at the model's shapes); or, at the shapes those kernels do
+not take, by a second kernel over `merge_ptr` / `merge_seg` (K1's general
+kernel, the K4 forward's wmma kernel).
 Every output is written once and the order of summation is fixed.
 """
 
@@ -104,8 +105,9 @@ def merge_tree(merge_ptr: np.ndarray, merge_seg: np.ndarray,
 # rows over ~100 warps, where a warp streaming 128-row items was the
 # launch's long pole, and its ~100 partial tiles merge in two tree levels
 # (on the H100, 0.0119 ms against 0.0164 ms with 128-row items, PERF.md
-# §6, scripts/k1_parts.py); K2 reads the triplet rows' ids, not the items, and K4's triplet
-# kernels take any item size. A K3 item is one warp's work, 64 rows at
+# §6, scripts/k1_parts.py); the K4 forward runs K1's warp kernel on the same
+# items. K2 reads the triplet rows' ids, not the items, and K4's triplet
+# backward takes any item size. A K3 item is one warp's work, 64 rows at
 # most (two loads of 32 perm entries), so the padded segment's ~9600 rows
 # at the bench quad shape spread over ~150 warps and the last of them adds
 # ~150 partial rows.

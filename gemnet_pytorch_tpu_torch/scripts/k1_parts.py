@@ -1,6 +1,7 @@
-"""K1 (segment_outer_sum, fp32 and bf16 streams) with parts of its kernels
-switched off, on the card, at the bench-small shapes: where a launch's
-time goes.
+"""K1 (segment_outer_sum, fp32 and bf16 streams) and the K4 forward at the
+triplet shape (K1's warp kernel with split3 products) with parts of their
+kernels switched off, on the card, at the bench-small shapes: where a
+launch's time goes.
 
     python -m gemnet_pytorch_tpu_torch.scripts.k1_parts
 
@@ -14,9 +15,10 @@ wrong, and only the time is read):
   copies    triplet only: the rows are copied and nothing else is done.
 Times each by CUDA-graph replay (`_cuda.graph_ms`, device time per
 launch) at both shapes and stream types, the triplet also with work items
-of 16, 32, 64 and 128 rows; and K4 at the triplet shape (split3, forward
-and backward) with 16- and 128-row items. Prints one line each. Runs on
-the card only.
+of 16, 32, 64 and 128 rows (the K4 forward's parts at the triplet shape
+too, on its 16-row plan); and K4 at the triplet shape (split3, forward and
+backward) with 16- and 128-row items. Prints one line each. Runs on the
+card only.
 """
 
 from __future__ import annotations
@@ -78,13 +80,14 @@ def build_parts() -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on part {part}:\n{log}")
         libs[part] = ctypes.CDLL(str(lib))
-        for sfx in ("f32", "bf16"):
+        for sfx in ("f32", "bf16", "split3"):
             fn = getattr(libs[part], f"gemnet_segment_outer_sum_{sfx}")
             fn.argtypes, fn.restype = _cuda._K1_ARGS, ctypes.c_int
     return libs
 
 
 def k1_call(lib, case, plan):
+    """K1 (or, for a split3 case, K4's forward) of `lib` on `plan`."""
     a, b = case["a"], case["b"]
     n, S = a.shape
     M = b.shape[1]
@@ -116,10 +119,11 @@ def main(device="cuda") -> None:
     cfg = ModelConfig()
     batch_np, _ = chip_smoke.padded_batch(cfg, chip_smoke.bench_molecules(seed=0))
     cases = [c for c in chip_smoke.kernel_cases(cfg, to_torch(batch_np, device), device)
-             if c["kernel"] == "K1" and c["dtype"] in ("f32", "bf16")]
+             if c["kernel"] == "K1" and (c["dtype"] != "split3" or c["tag"] == "triplet")]
     for case in cases:
         ids, n_seg = case["ids"], case["plan"].n_segments
-        rows = TRIPLET_ITEM_ROWS if case["tag"] == "triplet" else (None,)
+        tiled = case["tag"] == "triplet" and case["dtype"] != "split3"
+        rows = TRIPLET_ITEM_ROWS if tiled else (None,)
         for part, lib in libs.items():
             if part == "copies" and case["tag"] != "triplet":
                 continue
@@ -128,7 +132,8 @@ def main(device="cuda") -> None:
                                                                    device)
                 ms = _cuda.graph_ms(k1_call(lib, case, plan))
                 items = "" if r is None else f", {r}-row items"
-                print(f"K1 {case['tag']} {case['dtype']} {part}{items}: {ms[0]:.4f} ms "
+                name = "K4 forward" if case["dtype"] == "split3" else "K1"
+                print(f"{name} {case['tag']} {case['dtype']} {part}{items}: {ms[0]:.4f} ms "
                       f"({ms[1]:.4f}-{ms[2]:.4f}) [{power}]", flush=True)
     trip = [c for c in cases if c["tag"] == "triplet" and c["dtype"] == "f32"][0]
     a, b, ids, n_seg = trip["a"], trip["b"], trip["ids"], trip["plan"].n_segments

@@ -157,19 +157,41 @@ def test_split3_kernels_match_plain(device, S, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,M,R", [(29184, 32, 192512), (100, 8, 1000), (7, 64, 33)])
+@pytest.mark.parametrize("N,M,R", [
+    (29184, 32, 192512), (100, 8, 1000), (7, 64, 33),
+    # P2's routes: a partial group of feature rows, with and without 16-byte
+    # columns; one resident feature row per block; a table too wide for one
+    (29184, 3, 1000), (100, 3, 33), (80000, 3, 1000), (120000, 4, 1000)])
 def test_row_gather_kernels_match_plain(device, N, M, R):
-    """P1 and P2 bit-equal to table[idx] (the probe's shape among them)."""
+    """P1 (where M % 8 == 0; it refuses other widths) and P2 bit-equal to
+    table[idx] (the probe's shape among them), indices at 0 and N - 1; P2
+    writes a zero column for an index outside [0, N)."""
     from gemnet_pytorch_tpu_torch.ops import _cuda
     from gemnet_pytorch_tpu_torch.ops import row_gather as rg
 
     rng = np.random.default_rng(N + M + R)
     table = torch.from_numpy(rng.normal(size=(N, M)).astype(np.float32)).to(device).bfloat16()
-    idx = torch.from_numpy(rng.integers(0, N, R).astype(np.int32)).to(device)
+    idx_np = rng.integers(0, N, R).astype(np.int32)
+    idx_np[0], idx_np[-1] = 0, N - 1
+    idx = torch.from_numpy(idx_np).to(device)
+    tableT = table.t().contiguous()
     _cuda.reset_launches()
-    assert torch.equal(rg.gather_rows(table, idx), table[idx.long()])
-    assert torch.equal(rg.gather_rows_fm(table.t().contiguous(), idx), table[idx.long()].t())
-    assert _cuda.kernel_launches() == {"gemnet_row_gather": 1, "gemnet_row_gather_fm": 1}
+    if M % 8 == 0:
+        assert torch.equal(rg.gather_rows(table, idx), table[idx.long()])
+    else:
+        with pytest.raises(ValueError):
+            rg.gather_rows(table, idx)
+    assert torch.equal(rg.gather_rows_fm(tableT, idx), table[idx.long()].t())
+    bad = idx.clone()
+    bad[1], bad[R // 2] = -1, N
+    out = rg.gather_rows_fm(tableT, bad)
+    torch.cuda.synchronize()
+    assert not out[:, [1, R // 2]].float().abs().any()
+    keep = torch.ones(R, dtype=torch.bool, device=device)
+    keep[[1, R // 2]] = False
+    assert torch.equal(out[:, keep], table[idx.long()].t()[:, keep])
+    assert _cuda.kernel_launches() == {"gemnet_row_gather_fm": 2,
+                                       **({"gemnet_row_gather": 1} if M % 8 == 0 else {})}
     with pytest.raises(TypeError):
         rg.gather_rows(table.float(), idx)
 
@@ -334,6 +356,57 @@ def test_split3_quad_kernels(device, S):
         replays.append([t.clone() for t in captured])
     for o, r1, r2 in zip(outs, *replays):
         assert torch.equal(r1, r2) and torch.equal(r1, o)
+    assert int(plan.tree_arrivals.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_split3_triplet_forward(device):
+    """The K4 forward at the triplet shape (S = 7, M = 64: K1's warp kernel
+    with split3 products) on the triplet plan's 16-row items, segments of
+    0-129 rows and a padded one of 1600 (~100 items, a two-level merge
+    tree): against the plain split3 version and the exact fp32 K1, one
+    launch a call, bit-equal across two launches and across two replays of
+    one captured CUDA graph, the tree's counters back at zero."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(7)
+    n_seg, S, M = 700, 7, 64
+    ids = _k1_ids(rng, n_seg, 0)
+    item_rows = SEGMENT_PLANS["id3_reduce_ca_plan"][2]
+    plan = segment_plan(ids, n_seg, item_rows, device)
+    nodes = plan.tree_nodes.cpu().numpy()
+    assert item_rows == 16 and (nodes[:, 2] >= 0).any()  # the 1600-row segment: two levels
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+    a, b = rand(len(ids), S), rand(len(ids), M)
+    tid = torch.from_numpy(ids).to(device)
+    _cuda.reset_launches()
+    out, again = so.outer_sum(a, b, tid, plan, "split3"), so.outer_sum(a, b, tid, plan, "split3")
+    torch.cuda.synchronize()
+    assert _cuda.kernel_launches() == {"gemnet_segment_outer_sum_split3": 2}
+    plain = so._outer_sum_split3_plain(a, b, tid, n_seg)
+    exact = so._outer_sum_plain(a, b, tid, n_seg)
+    assert float((out - plain).abs().max()) <= SPLIT3_RTOL * float(plain.abs().max())
+    rel = float((out - exact).abs().max()) / float(exact.abs().max())
+    assert 0 < rel <= SPLIT3_EXACT_RTOL
+    assert torch.equal(out, again)
+    assert int(plan.tree_arrivals.abs().sum()) == 0
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = so.outer_sum(a, b, tid, plan, "split3")
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(captured.clone())
+    assert torch.equal(replays[0], out) and torch.equal(replays[1], out)
     assert int(plan.tree_arrivals.abs().sum()) == 0
 
 

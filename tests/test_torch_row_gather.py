@@ -41,6 +41,36 @@ def test_gather_rows_matches_jax_take(N, M, R):
     assert torch.equal(out_fm, table.t()[:, idx.long()])
 
 
+# P2's edge shapes: R % 8 != 0 (rows of out off 16-byte boundaries), an odd
+# M (a partial group of feature rows), N % 8 != 0, a table too wide for two
+# feature rows in shared memory, and one too wide for one
+FM_EDGE_SHAPES = [(100, 3, 33), (29184, 3, 1000), (7, 64, 33), (80000, 3, 1001),
+                  (120000, 4, 1000)]
+
+
+@pytest.mark.parametrize("N,M,R", FM_EDGE_SHAPES)
+def test_gather_rows_fm_matches_jax_take_along_lanes(N, M, R):
+    """The plain P2 bit for bit against the JAX probe's tal1 contract: the
+    feature-major table, the indices broadcast over its M rows and a
+    take_along_axis over lanes (scripts/gather_probe.py:99-103); with
+    indices at 0 and at N - 1."""
+    import jax
+    import jax.numpy as jnp
+
+    from gemnet_pytorch_tpu_torch.ops import row_gather as rg
+
+    table, idx = _inputs(N, M, R, seed=N + M + R)
+    idx[0], idx[-1], idx[R // 2] = 0, N - 1, N - 1
+    tableT = table.t().contiguous()
+    jT = jnp.asarray(tableT.float().numpy()).astype(jnp.bfloat16)
+    ji = jnp.asarray(idx.numpy())
+    ref = jnp.take_along_axis(jT, jax.lax.broadcast_in_dim(ji, (M, R), (1,)), axis=1)
+    out = rg.gather_rows_fm(tableT, idx)
+    assert out.shape == (M, R) and out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.view(torch.int16).numpy().view(np.uint16),
+                                  np.asarray(ref).view(np.uint16))
+
+
 @pytest.mark.parametrize("bad", ["fp32 table", "int64 idx", "1-D table", "2-D idx"])
 def test_row_gather_input_checks(bad):
     from gemnet_pytorch_tpu_torch.ops import row_gather as rg
