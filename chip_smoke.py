@@ -16,7 +16,9 @@ Phases:
      and K4, forward and backward at both shapes, bit-equal across two
      replays of one captured CUDA graph, their merge trees' counters back
      at zero, the triplet K4 forward's tree among them; K1, K2, K3 and K4
-     bit-equal across two launches);
+     bit-equal across two launches; the triplet K4 backward, a warp per
+     work item with split3 FFMAs, against its plain version and exact
+     fp32, across two launches and two graph replays, as every K4);
   4. time each kernel and, where one PyTorch call computes the same
      function, that call, both ways: device time per launch (`ms`,
      `library_ms`: 20 calls captured in a CUDA graph, replayed under CUDA
@@ -41,7 +43,8 @@ Phases:
      around it (pinned counts, every bf16 kernel launched); 5 bf16 steps with
      falling losses and fp32 master state; an eval on the EMA weights; then
      3 warm-up and 10 timed steps and one profiled step per dtype (its
-     device time, and that of K1-K4 summed by kernel name);
+     device time, and that of K1-K4 summed by kernel name, K4 also split
+     into its forward and backward);
   8. the training entry point in matmul_precision="high": one step on the
      card against the CPU, its launch census (24 / 24 split3 K1 / K2, 26 fp32
      K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.train.run` on a synthetic
@@ -563,13 +566,14 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
 # shows (K1 is outer_sum_ffma_ring (fp32) / outer_sum_mma_ring (bf16) at the
 # quadruplet shape, outer_sum_warp_kernel at the triplet shape and
 # outer_sum_kernel at other shapes; K4's backward is
-# gather_contract_split3_ring at the quadruplet shape and
-# gather_contract_split3_kernel at the triplet shape, its forward
-# outer_sum_split3_ring at the quadruplet shape, outer_sum_split3_warp (K1's
-# warp kernel with split3 products) at the triplet shape and
-# outer_sum_split3_kernel at other shapes. The merge kernel of K1's general
-# kernel also serves K4's wmma forward, at shapes the model does not give:
-# it counts under K1)
+# gather_contract_split3_ring at the quadruplet shape,
+# gather_contract_split3_warp (a warp per work item, split3 FFMAs) at the
+# triplet shape and gather_contract_split3_kernel at other shapes and on
+# unaligned tensors, its forward outer_sum_split3_ring at the quadruplet
+# shape, outer_sum_split3_warp (K1's warp kernel with split3 products) at
+# the triplet shape and outer_sum_split3_kernel at other shapes. The merge
+# kernel of K1's general kernel also serves K4's wmma forward, at shapes the
+# model does not give: it counts under K1)
 PROFILE_GROUPS = {
     "K1": ("outer_sum_kernel", "outer_sum_merge_kernel", "outer_sum_ffma_ring",
            "outer_sum_mma_ring", "outer_sum_warp_kernel"),
@@ -577,6 +581,8 @@ PROFILE_GROUPS = {
     "K3": ("sorted_segsum_",),
     "K4": ("outer_sum_split3_", "gather_contract_split3_"),
 }
+# K4's device functions by direction
+K4_DIRECTIONS = dict(zip(("forward", "backward"), PROFILE_GROUPS["K4"]))
 
 
 def profile_group(key: str) -> str | None:
@@ -622,9 +628,13 @@ def profile(fn, what: str, top: int = 12) -> dict | None:
         if g:
             groups[g][0] += e.self_device_time_total / 1e3
             groups[g][1] += e.count
+    k4 = {d: sum(e.self_device_time_total for e in kernels if prefix in e.key) / 1e3
+          for d, prefix in K4_DIRECTIONS.items()}
     log(f"  {what}, hand-written kernels' device ms (launches): "
-        + ", ".join(f"{g} {ms:.3f} ({n})" for g, (ms, n) in groups.items()))
-    return dict(device_ms=busy_us / 1e3, **{g: ms for g, (ms, _) in groups.items()})
+        + ", ".join(f"{g} {ms:.3f} ({n})" for g, (ms, n) in groups.items())
+        + f"; K4 forward {k4['forward']:.3f}, backward {k4['backward']:.3f}")
+    return dict(device_ms=busy_us / 1e3, **{g: ms for g, (ms, _) in groups.items()},
+                **{f"K4_{d}": ms for d, ms in k4.items()})
 
 
 def serve_high(cfg, mols, device, exact_E):
@@ -1102,7 +1112,8 @@ def main() -> int:
         p = t["profile"]
         if p:
             log(f"  profiled {dt} step: device {p['device_ms']:.3f} ms, of which K1 "
-                f"{p['K1']:.3f}, K2 {p['K2']:.3f}, K3 {p['K3']:.3f}, K4 {p['K4']:.3f} ms")
+                f"{p['K1']:.3f}, K2 {p['K2']:.3f}, K3 {p['K3']:.3f}, K4 {p['K4']:.3f} ms "
+                f"(forward {p['K4_forward']:.3f}, backward {p['K4_backward']:.3f})")
     log(f"== done in {time.perf_counter() - t_start:.1f} s; serving "
         f"{timing['ms_per_request']:.3f} ms/request, {timing['molecules_per_s']:.1f} molecules/s; "
         + "; ".join(f"train {dt} {t['ms_per_step']:.3f} ms/step, {t['agg_per_s']:.4e} "

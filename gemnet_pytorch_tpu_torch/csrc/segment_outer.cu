@@ -14,9 +14,10 @@
 // K4 gemnet_segment_outer_sum_split3, gemnet_segment_gather_contract_split3
 //   K1 and K2 in the fp32 "split3" mode: at the quadruplet shape the ring
 //   kernels of the section "K4 at the quadruplet shape" (tensor cores); at
-//   the triplet shape the forward is K1's warp-per-item kernel with split3
-//   products on the CUDA cores (last section) and the backward the wmma
-//   kernel of the section below, which also serves the other shapes.
+//   the triplet shape K1's warp-per-item kernel with split3 products on the
+//   CUDA cores (forward) and a warp-per-item kernel on its ring (backward),
+//   both in the last section; the wmma kernels of the section below serve
+//   the other shapes.
 //
 // Stream types follow the JAX package's contract (segment_outer.py:152-157,
 // 205-216, 586-590): with fp32 streams everything is fp32; with bf16 streams
@@ -193,9 +194,9 @@ int outer_sum_general(const T* a, const T* b, const int* items, int n_items,
 // bytes. The backward moves K2's fp32 bytes for twice the flops.
 //
 // Design of the kernels below, the simple first one, which serve the shapes
-// the faster kernels do not take: the backward at the triplet shape, and
-// both directions at shapes the model does not give (the forward at the
-// triplet shape is K1's warp kernel, last section; both at the quadruplet
+// the faster kernels do not take: shapes the model does not give, and
+// tensors that are not 16-byte aligned (at the triplet shape both
+// directions are warp-per-item kernels, last section; at the quadruplet
 // shape the ring kernels). K1/K2's work items, one thread block of 8 warps
 // per item. A chunk of kChunk rows of a (n x S) and b (n x M) is staged in
 // shared memory as
@@ -1844,29 +1845,6 @@ gather_contract_split3_ring(const float* __restrict__ cot, const float* __restri
   }
 }
 
-int gather_contract_split3(const float* cot, const float* a, const float* b, const int* items,
-                           int n_items, float* da, float* db, int n, int n_seg, int S, int M,
-                           cudaStream_t stream) {
-  if (ring_shape(S, M) && aligned16(cot) && aligned16(a) && aligned16(b) && aligned16(da) &&
-      aligned16(db)) {
-    if (n_items > 0) {
-      const size_t smem = ring_smem(S, M, kRingSplit3Bwd).total;
-      const int blocks =
-          persistent_blocks(gather_contract_split3_ring, kRingThreads, smem, n_items);
-      gather_contract_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
-          cot, a, b, reinterpret_cast<const int4*>(items), n_items, da, db, n, n_seg, S, M);
-    }
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = gather_contract_split3_smem(S, M);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  if (n_items > 0) {
-    gather_contract_split3_kernel<<<n_items, kThreads, smem, stream>>>(
-        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
-  }
-  return (int)cudaGetLastError();
-}
-
 // ------------------------------------------------------------ K1 on Hopper
 //
 // gemnet_segment_outer_sum_{f32,bf16} at the model's shapes; they replace
@@ -1939,6 +1917,9 @@ int gather_contract_split3(const float* cot, const float* a, const float* b, con
 //   0.0176 ms; the split in place as one word (hi's bits | lo's bf16 bits)
 //   that each read decodes with two integer instructions, 0.0161 ms. The
 //   split segment's partial tiles merge through the plan's tree, as K1's.
+//   K4's backward there (gather_contract_split3_warp) walks the same items
+//   through the same ring, its stages also holding the segment's cotangent
+//   tile, and needs no merge: each row's da and db are the warp's own.
 // Other shapes take the general kernel of the first section.
 
 constexpr int kWarpRows = 16;     // rows per stage of a warp's ring
@@ -2320,6 +2301,202 @@ outer_sum_split3_warp(const float* __restrict__ a, const float* __restrict__ b,
                                    partial, out, n_seg, S, M);
 }
 
+// K4's backward at the warp shape, gather_contract_split3_warp (its name
+// puts it under K4 in chip_smoke.PROFILE_GROUPS): the split3 branch of
+// segment_outer.py::_bwd_kernel (:499-513) at the triplet shape, in place
+// of the wmma kernel (gather_contract_split3_kernel, kept for the other
+// shapes and for unaligned tensors).
+//
+// What bounds it: bytes and latency. At the bench triplet shape (25 600
+// rows, S = 7, M = 64, 3072 segments) it moves 20.1 MB (the cotangent 5.5
+// MB, a and b read once, da and db written once), 6.0 us at 3.35 TB/s, for
+// 0.14 GFLOP of split3 products, 2.1 us even at the CUDA cores' 67 TFLOP/s:
+// at S = 7 the tensor cores buy nothing. The wmma kernel ran a 256-thread
+// block per item of ~8 rows, S padded to 16 in every tile, its loads
+// between block barriers with nothing in flight.
+//
+// Design: the forward's warp per 16-row item of the plan (WarpCursor), its
+// 3-stage cp.async ring per warp, whose stages also hold the segment's
+// (S, M) cotangent tile, copied with the item's first chunk, so the tile's
+// latency hides behind the chunks before it as the rows' does. Lane l owns
+// columns m = 2 l, 2 l + 1: it splits its part of the tile once per item
+// into (c_hi, c_lo) registers (32, zero past S) and its two b values once
+// per row (split_f); the warp's lanes then split the chunk's a values
+// together, once, into (a_hi + a_lo, a_hi) pairs, kWarpMaxS a row (zero
+// past S), in the stage's tile region. With x_hi + x_lo exact in fp32
+// (outer_sum_warp_body's note), per row
+//   db[t, m] = sum_s c_hi (a_hi + a_lo) + c_lo a_hi: two FFMAs per s, in s
+//              order, stored as one float2 per lane;
+//   da[t, s] = sum_m c_hi (b_hi + b_lo) + c_lo b_hi: the lane's two
+//              columns, a product and three FFMAs per s, then summed
+//              across the warp by reduce_scatter over kContractRows rows at
+//              once (32 values: each lane ends with one (row, s) total, and
+//              the group's da is one store of contiguous floats).
+// Every output element is written once, by the warp that owns its row: no
+// atomics, no merge, and two launches write the same bits. Empty items
+// write nothing. Why the row loop has no guard s < S (the values past S
+// are zero) and takes four rows to a reduce-scatter, and why the split a
+// values reuse the tile's place: with a branch per s, a row at a time, the
+// rows serialise on their latency (0.0215 ms against 0.0055 for the copies
+// alone); branch-free groups of four rows at two blocks an SM, 0.0139; the
+// 4 KB a block the tile's place frees lets three blocks of 76.8 KB (168
+// registers a thread) share an SM, 0.0121 (PERF.md §6, measured on the
+// H100).
+constexpr int kContractRows = 4;  // rows per reduce-scatter of da
+// a stage's third region: the cotangent tile, then the chunk's split a
+// values, [kWarpRows][kWarpMaxS] (hi + lo, hi) pairs
+__host__ __device__ constexpr int warp_stage_c(int S, int M) {
+  return round16(4 * S * M > 8 * kWarpRows * kWarpMaxS ? 4 * S * M : 8 * kWarpRows * kWarpMaxS);
+}
+
+size_t warp_contract_smem(int S, int M) {
+  return kWarpStages * (size_t)(warp_stage(S, M, sizeof(float)) + warp_stage_c(S, M)) *
+         (kWarpItemThreads / 32);
+}
+
+__global__ void __launch_bounds__(kWarpItemThreads, 3)
+gather_contract_split3_warp(const float* __restrict__ cot, const float* __restrict__ a,
+                            const float* __restrict__ b, const int4* __restrict__ items,
+                            int n_items, float* __restrict__ da, float* __restrict__ db,
+                            int n_seg, int S, int M) {
+  extern __shared__ __align__(128) unsigned char warp_smem_raw[];
+  constexpr int es = sizeof(float);
+  const int lane = threadIdx.x % 32;
+  const int W = gridDim.x * (kWarpItemThreads / 32);
+  // a stage: the chunk's a rows (sa bytes), its b rows, the cotangent tile
+  const int sa = warp_stage_a(S, es), sc = warp_stage(S, M, es);
+  const int sb = sc + warp_stage_c(S, M);
+  unsigned char* ring = warp_smem_raw + (threadIdx.x / 32) * kWarpStages * sb;
+  const int m = 2 * lane;  // this lane's columns m, m + 1
+  const int m4 = M / 4;
+
+  // chunk c of item it into stage q % kWarpStages: its a and b rows as they
+  // lie in memory and, with the first chunk, the segment's tile (rows of M
+  // floats, 16-byte aligned since M % 4 == 0)
+  auto stage = [&](const WarpCursor& c, int q) {
+    const int r = c.it.y + c.c * kWarpRows;
+    const int nr = min(kWarpRows, c.it.z - r);
+    if (nr > 0) {
+      unsigned char* st = ring + (q % kWarpStages) * sb;
+      warp_stage_raw(a + (size_t)r * S, (size_t)es * nr * S, st, lane);
+      warp_stage_raw(b + (size_t)r * M, (size_t)es * nr * M, st + sa, lane);
+      if (c.c == 0) {
+        float* ct = reinterpret_cast<float*>(st + sc);
+        for (int i = lane; i < S * m4; i += 32) {
+          const int s = i / m4;
+          cp_async16(ct + 4 * i, cot + ((size_t)s * n_seg + c.it.x) * M + 4 * (i - s * m4), 16);
+        }
+      }
+    }
+  };
+
+  float ch[kWarpMaxS][2], cl[kWarpMaxS][2];  // the lane's columns of the tile, split
+#pragma unroll
+  for (int s = 0; s < kWarpMaxS; ++s) ch[s][0] = ch[s][1] = cl[s][0] = cl[s][1] = 0.f;
+  const int w = blockIdx.x * (kWarpItemThreads / 32) + threadIdx.x / 32;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  WarpCursor cur{-1, 0, zero, zero};
+  if (!warp_next(items, n_items, w, W, lane, cur)) return;  // warp-uniform
+  static_assert(kWarpStages == 3, "the pipeline keeps kWarpStages - 1 chunks in flight");
+  stage(cur, 0);
+  cp_async_commit();
+  WarpCursor n1 = cur;
+  bool has1 = warp_next(items, n_items, w, W, lane, n1);
+  if (has1) stage(n1, 1);
+  cp_async_commit();
+  WarpCursor n2 = n1;
+  bool has2 = has1 && warp_next(items, n_items, w, W, lane, n2);
+  for (int q = 0;; ++q) {
+    if (has2) stage(n2, q + 2);
+    cp_async_commit();
+    cp_async_wait<kWarpStages - 1>();  // chunk q landed
+    __syncwarp();
+    const int r = cur.it.y + cur.c * kWarpRows;
+    const int nr = min(kWarpRows, cur.it.z - r);
+    if (nr > 0) {  // warp-uniform
+      unsigned char* st = ring + (q % kWarpStages) * sb;
+      const float* as = reinterpret_cast<const float*>(st) + head_floats(a + (size_t)r * S);
+      const float* bs = reinterpret_cast<const float*>(st + sa) + head_floats(b + (size_t)r * M);
+      // the chunk's split a values, in the tile's place once it is in registers
+      float2* ab = reinterpret_cast<float2*>(st + sc);
+      if (cur.c == 0) {
+        const float* ct = reinterpret_cast<const float*>(st + sc);
+#pragma unroll
+        for (int s = 0; s < kWarpMaxS; ++s) {
+          const float2 c =
+              s < S && m < M ? load2(ct + s * M + m) : make_float2(0.f, 0.f);
+          const float2 c0 = split_f(c.x), c1 = split_f(c.y);
+          ch[s][0] = c0.x;
+          cl[s][0] = c0.y;
+          ch[s][1] = c1.x;
+          cl[s][1] = c1.y;
+        }
+        __syncwarp();  // the tile is read before ab overwrites it
+      }
+      // rows of kWarpMaxS pairs, zero past S, so the row loop has no branch
+      for (int i = lane; i < nr * kWarpMaxS; i += 32) {
+        const int t = i / kWarpMaxS, s = i % kWarpMaxS;
+        const float2 h = split_f(s < S ? as[t * S + s] : 0.f);
+        ab[i] = make_float2(h.x + h.y, h.x);  // exact
+      }
+      __syncwarp();
+      // kContractRows rows at a time: their da parts reduce-scatter
+      // together, each lane ending with one (row, s) total
+      for (int t0 = 0; t0 < nr; t0 += kContractRows) {
+        float part[kContractRows * kWarpMaxS];
+        float d[kContractRows][2];
+#pragma unroll
+        for (int g = 0; g < kContractRows; ++g) {
+          const int t = t0 + g;  // rows past nr read zero b and stale a, and store nothing
+          const float2 bv = t < nr && m < M ? load2(bs + t * M + m) : make_float2(0.f, 0.f);
+          const float2 b0 = split_f(bv.x), b1 = split_f(bv.y);  // (hi, lo)
+          const float s0 = b0.x + b0.y, s1 = b1.x + b1.y;       // exact
+          // (hi + lo, hi) of s = 2j, 2j + 1: one address across the warp
+          const float4* av4 = reinterpret_cast<const float4*>(ab + t * kWarpMaxS);
+          float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < kWarpMaxS / 2; ++j) {
+            const float4 av = av4[j];
+            const float a_sum[2] = {av.x, av.z}, a_hi[2] = {av.y, av.w};
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int s = 2 * j + h;
+              d0 = fmaf(ch[s][0], a_sum[h], d0);
+              d0 = fmaf(cl[s][0], a_hi[h], d0);
+              d1 = fmaf(ch[s][1], a_sum[h], d1);
+              d1 = fmaf(cl[s][1], a_hi[h], d1);
+              float p = ch[s][0] * s0;
+              p = fmaf(cl[s][0], b0.x, p);
+              p = fmaf(ch[s][1], s1, p);
+              part[g * kWarpMaxS + s] = fmaf(cl[s][1], b1.x, p);
+            }
+          }
+          d[g][0] = d0;
+          d[g][1] = d1;
+        }
+        constexpr int kParts = kContractRows * kWarpMaxS;
+        const int v = (lane >> (5 - log2_of<kParts>())) & (kParts - 1);  // this lane's total
+        const float das = reduce_scatter<kParts>(part, lane);
+        const int gv = v / kWarpMaxS, sv = v % kWarpMaxS;
+        if (lane % (32 / kParts) == 0 && sv < S && t0 + gv < nr) {
+          da[(size_t)(r + t0 + gv) * S + sv] = das;  // the group's rows: contiguous
+        }
+#pragma unroll
+        for (int g = 0; g < kContractRows; ++g) {
+          if (t0 + g < nr && m < M) store2(db + (size_t)(r + t0 + g) * M + m, d[g][0], d[g][1]);
+        }
+      }
+    }
+    __syncwarp();  // the stage and the split buffer are read before they are refilled
+    if (!has1) break;
+    cur = n1;
+    n1 = n2;
+    has1 = has2;
+    if (has2) has2 = warp_next(items, n_items, w, W, lane, n2);
+  }
+  cp_async_wait<0>();
+}
+
 // Launches a warp-per-item kernel (K1's or K4's) over n_items > 0 items.
 template <typename T, typename Kernel>
 int launch_warp_outer(Kernel kernel, size_t smem, const T* a, const T* b, const int4* items,
@@ -2371,6 +2548,44 @@ int outer_sum_split3(const float* a, const float* b, const int* items, int n_ite
   if (n_merge > 0) {
     outer_sum_merge_kernel<float><<<n_merge, kThreads, 0, stream>>>(
         partial, merge_ptr, merge_seg, out, n_seg, S, M);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K4's backward: the warp kernel at the triplet shape, the ring at the
+// quadruplet shape (both on 16-byte aligned tensors), the wmma kernel at
+// other shapes and on unaligned tensors
+int gather_contract_split3(const float* cot, const float* a, const float* b, const int* items,
+                           int n_items, float* da, float* db, int n, int n_seg, int S, int M,
+                           cudaStream_t stream) {
+  const bool aligned = aligned16(cot) && aligned16(a) && aligned16(b) && aligned16(da) &&
+                       aligned16(db);
+  if (warp_outer_shape(S, M) && aligned) {
+    if (n_items > 0) {
+      const size_t smem = warp_contract_smem(S, M);
+      const int warps = kWarpItemThreads / 32;
+      const int blocks = persistent_blocks(gather_contract_split3_warp, kWarpItemThreads, smem,
+                                           (n_items + warps - 1) / warps);
+      gather_contract_split3_warp<<<blocks, kWarpItemThreads, smem, stream>>>(
+          cot, a, b, reinterpret_cast<const int4*>(items), n_items, da, db, n_seg, S, M);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (ring_shape(S, M) && aligned) {
+    if (n_items > 0) {
+      const size_t smem = ring_smem(S, M, kRingSplit3Bwd).total;
+      const int blocks =
+          persistent_blocks(gather_contract_split3_ring, kRingThreads, smem, n_items);
+      gather_contract_split3_ring<<<blocks, kRingThreads, smem, stream>>>(
+          cot, a, b, reinterpret_cast<const int4*>(items), n_items, da, db, n, n_seg, S, M);
+    }
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = gather_contract_split3_smem(S, M);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (n_items > 0) {
+    gather_contract_split3_kernel<<<n_items, kThreads, smem, stream>>>(
+        cot, a, b, reinterpret_cast<const int4*>(items), da, db, n_seg, S, M);
   }
   return (int)cudaGetLastError();
 }
@@ -2498,14 +2713,16 @@ int gemnet_segment_gather_contract_bf16(const __nv_bfloat16* cot, const __nv_bfl
 // Shared memory (bytes) of the kernel each entry runs at (S, M) with
 // 16-byte aligned tensors; 0 where no kernel takes the shape (more than 48
 // KB, or more than 32 forward output tiles, outside the warp kernel's and
-// the ring's shapes). Every shape the forward's warp kernel takes, its wmma
-// kernel takes too, for unaligned tensors.
+// the ring's shapes). Every shape a warp kernel takes (forward or
+// backward), the wmma kernel of its direction takes too, for unaligned
+// tensors.
 size_t gemnet_segment_outer_sum_split3_smem(int S, int M) {
   if (warp_outer_shape(S, M)) return warp_outer_smem(S, M, sizeof(float), true);
   return ring_shape(S, M) ? ring_smem(S, M, kRingSplit3Fwd).total : outer_sum_split3_smem(S, M);
 }
 
 size_t gemnet_segment_gather_contract_split3_smem(int S, int M) {
+  if (warp_outer_shape(S, M)) return warp_contract_smem(S, M);
   return ring_shape(S, M) ? ring_smem(S, M, kRingSplit3Bwd).total
                            : gather_contract_split3_smem(S, M);
 }
@@ -2524,7 +2741,9 @@ int gemnet_segment_outer_sum_split3(const float* a, const float* b, const int* i
                           tree_parent, tree_arrivals, partial, out, n, n_seg, S, M, stream);
 }
 
-// K4 backward over the n rows of a and b.
+// K4 backward over the n rows of a and b: the warp kernel (S <= 8, M <= 64,
+// M % 4 == 0) and the ring kernel (16 < S <= 64, M <= 32, M % 4 == 0) on
+// aligned tensors, the wmma kernel otherwise.
 int gemnet_segment_gather_contract_split3(const float* cot, const float* a, const float* b,
                                           const int* items, int n_items, float* da,
                                           float* db, int n, int n_seg, int S, int M,

@@ -15,8 +15,9 @@ plan's work items and merge a split segment's partial tiles through its
 merge tree (`tree_nodes`, `tree_parent`, `tree_arrivals`), K1's general
 kernel at narrow widths through `merge_ptr` / `merge_seg`; the K2 kernel
 reads each row's segment id from `seg_ids` (its warp kernel, at S <= 16)
-or the plan's work items (its quad-shape kernels); K4 as K1 and K2 (its
-forward at the triplet shape is K1's warp kernel with split3 products).
+or the plan's work items (its quad-shape kernels); K4 as K1 and K2 (at
+the triplet shape its forward is K1's warp kernel with split3 products and
+its backward a warp per work item too).
 
 Dtypes follow the JAX package (`_stream_dtype`, `_out_dtype`): the streams
 are bf16 when every row input is bf16 (compute_dtype="bfloat16"), and fp32
@@ -33,8 +34,8 @@ the low 16 masked off, exact in bf16) and a bf16 lo half (x - hi rounded to
 nearest even), and each contraction runs as hi*hi + hi*lo + lo*hi with fp32
 products and fp32 sums, about 16 mantissa bits. On a CUDA tensor it launches
 the kernels `gemnet_segment_*_split3` (tensor cores, or FFMAs on the CUDA
-cores for the forward at the triplet shape, each bf16 product exact in
-fp32); on a CPU tensor it runs the plain split3 versions below. As in `_use_split3`, it applies to fp32
+cores at the triplet shape, each bf16 product exact in fp32); on a CPU
+tensor it runs the plain split3 versions below. As in `_use_split3`, it applies to fp32
 streams only: bf16 streams ignore it.
 
 `plan` is the `data.batch.SegmentPlan` of the sorted ids (work items of the

@@ -3,7 +3,7 @@ fp32 and bf16 streams, K4, their split3 mode, and the row gather P2) beside
 the current ones, on the card, at the bench-small shapes and the gather
 probe's.
 
-    git archive df4c395 gemnet_pytorch_tpu_torch/csrc | tar -x -C <dir>
+    git archive cd71ed3 gemnet_pytorch_tpu_torch/csrc | tar -x -C <dir>
     python -m gemnet_pytorch_tpu_torch.scripts.kernel_ab <dir>/gemnet_pytorch_tpu_torch/csrc
 
 Run from the repository root (it takes its cases from `chip_smoke.py`). The
@@ -15,8 +15,9 @@ shape, per stream type; P2 at the probe's shape), it checks both versions
 against the plain version (chip_smoke's KERNEL_RTOL; P2 bit for bit), K4
 also against the exact fp32 one (chip_smoke's SPLIT3_EXACT_RTOL), and old
 against new bit for bit wherever the output must not change: every case
-but those in CHANGED (the K4 forward at the triplet shape, which sums in
-another order since df4c395); then times them by
+but those in CHANGED (K4 at the triplet shape, whose forward from cd71ed3
+on and backward after cd71ed3 sum in another order than df4c395's; their
+lines still print whether old and new are bit-equal); then times them by
 CUDA-graph replay (`_cuda.graph_ms`, device time per launch, the forward's
 merge included) in turns: old, new, new, old; beside the bound. Both run on
 the same plans. Prints one line per case and a JSON list. Runs on the card
@@ -38,9 +39,9 @@ from ..data import to_torch
 from ..ops import _cuda
 from ..ops import segment_outer as so
 
-# the (kernel, tag, dtype) cases whose output the current sources changed
-# (another order of summation)
-CHANGED = {("K1", "triplet", "split3")}
+# the (kernel, tag, dtype) cases whose output changed (another order of
+# summation) since df4c395, the oldest sources the C interface fits
+CHANGED = {("K1", "triplet", "split3"), ("K2", "triplet", "split3")}
 # earlier source -> the C entries bound from it
 OLD_ENTRIES = {
     "segment_outer.cu": [f"gemnet_segment_{op}_{sfx}"

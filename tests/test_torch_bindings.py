@@ -100,3 +100,11 @@ def test_profile_groups_name_every_kernel(name):
     # the profiler shows the demangled signature; the name is in it
     key = f"void (anonymous namespace)::{name}<float>(float const*, float*)"
     assert chip_smoke.profile_group(key) == _group(name)
+
+
+@pytest.mark.parametrize("name", [k for k in _kernels() if _group(k) == "K4"])
+def test_k4_kernels_have_one_direction(name):
+    # chip_smoke splits K4's device time into its forward and its backward
+    # by these prefixes
+    directions = [d for d, p in chip_smoke.K4_DIRECTIONS.items() if p in name]
+    assert directions == ["forward" if name.startswith("outer_sum") else "backward"]

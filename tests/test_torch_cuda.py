@@ -126,7 +126,7 @@ def test_segment_gather_contract_kernel_matches_plain(device, S, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,M", CASES_SO + [(49, 64)])
+@pytest.mark.parametrize("S,M", CASES_SO + [(49, 64), (5, 12)])
 def test_split3_kernels_match_plain(device, S, M):
     """K4 forward and backward against the plain split3 versions on the card:
     the same bf16 products, exact in fp32, summed in fp32 in another order;
@@ -408,6 +408,71 @@ def test_split3_triplet_forward(device):
         replays.append(captured.clone())
     assert torch.equal(replays[0], out) and torch.equal(replays[1], out)
     assert int(plan.tree_arrivals.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_split3_triplet_backward(device):
+    """The K4 backward at the triplet shape (S = 7, M = 64: a warp per work
+    item, split3 FFMAs) on the triplet plan's 16-row items over segments of
+    0-129 rows and a padded one of 1600: against the plain split3 version,
+    each of da and db against the exact fp32 K2, one launch a call, bit-equal
+    across two launches and across two replays of one captured CUDA graph;
+    and the wmma kernel, which takes rows that start off a 16-byte boundary
+    (a[1:]), against the plain version too."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    _cuda.set_matmul_precision()
+    rng = np.random.default_rng(8)
+    n_seg, S, M = 700, 7, 64
+    ids = _k1_ids(rng, n_seg, 0)
+    item_rows = SEGMENT_PLANS["id3_reduce_ca_plan"][2]
+    assert item_rows == 16
+    plan = segment_plan(ids, n_seg, item_rows, device)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+    a, b, cot = rand(len(ids), S), rand(len(ids), M), rand(S, n_seg, M)
+    tid = torch.from_numpy(ids).to(device)
+
+    def k4():
+        return so.gather_contract(cot, a, b, tid, plan, "split3")
+
+    _cuda.reset_launches()
+    outs, again = k4(), k4()
+    torch.cuda.synchronize()
+    assert _cuda.kernel_launches() == {"gemnet_segment_gather_contract_split3": 2}
+    plain = so._gather_contract_split3_plain(cot, a, b, tid)
+    exact = so._gather_contract_plain(cot, a, b, tid)
+    for o, o2, p, e in zip(outs, again, plain, exact):
+        assert torch.equal(o, o2)
+        assert float((o - p).abs().max()) <= SPLIT3_RTOL * float(p.abs().max())
+        rel = float((o - e).abs().max()) / float(e.abs().max())
+        assert 0 < rel <= SPLIT3_EXACT_RTOL
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k4()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in captured])
+    for o, r1, r2 in zip(outs, *replays):
+        assert torch.equal(r1, o) and torch.equal(r2, o)
+
+    # rows off the 16-byte boundary: the wmma kernel
+    ids1 = ids[1:]
+    plan1 = segment_plan(ids1, n_seg, item_rows, device)
+    a1, b1, tid1 = a[1:], b[1:], tid[1:]
+    assert a1.data_ptr() % 16 != 0
+    outs1 = so.gather_contract(cot, a1, b1, tid1, plan1, "split3")
+    for o, p in zip(outs1, so._gather_contract_split3_plain(cot, a1, b1, tid1)):
+        torch.cuda.synchronize()
+        assert float((o - p).abs().max()) <= SPLIT3_RTOL * float(p.abs().max())
 
 
 def _k1_ids(rng, n_seg, long_rows):

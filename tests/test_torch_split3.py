@@ -104,6 +104,80 @@ def test_split3_plain_matches_jax(jax_split3, shape):
         assert not np.array_equal(p.numpy(), x)  # split3 really ran
 
 
+def _fma(x, y, z):
+    """fp32 FFMA: the product exact in float64, one sum, rounded to fp32."""
+    return (x.astype(np.float64) * y.astype(np.float64) + z).astype(np.float32)
+
+
+def _split_f(x):
+    """split_f: (hi, lo) as fp32 values, through the port's bit-exact split."""
+    from gemnet_pytorch_tpu_torch.ops.segment_outer import _split_hi_lo
+
+    hi, lo = _split_hi_lo(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+    return hi.float().numpy(), lo.float().numpy()
+
+
+def _warp_backward_emulated(cot, a, b, ids):
+    """The arithmetic of the CUDA kernel gather_contract_split3_warp (the K4
+    backward at the triplet shape) in numpy, in its order: lane l owns
+    columns 2l, 2l + 1; db[t, m] = sum over s in order of
+    c_hi (a_hi + a_lo) + c_lo a_hi, two FFMAs per s; the lane's part of
+    da[t, s] = c_hi (b_hi + b_lo) + c_lo b_hi over its two columns (a
+    product, then three FFMAs), summed across the 32 lanes as the kernel's
+    reduce_scatter does for any number of values (the kernel takes four
+    rows' eight values of s together): lanes paired by lane bit 4, then 3,
+    2, 1, 0. Past S the kernel adds zero products, which change no value."""
+    n, S = a.shape
+    M = b.shape[1]
+    assert M == 64 and S <= 8
+    ch, cl = _split_f(cot[:, ids, :])  # (S, n, M)
+    ah, al = _split_f(a)
+    bh, bl = _split_f(b)
+    a_sum, b_sum = ah + al, bh + bl  # exact in fp32
+    db = np.zeros((n, M), np.float32)
+    for s in range(S):
+        db = _fma(ch[s], a_sum[:, s:s + 1], db)
+        db = _fma(cl[s], ah[:, s:s + 1], db)
+
+    def lanes(x):  # (n, M) -> (n, lane, its two columns)
+        return x.reshape(n, 32, 2)
+
+    part = np.zeros((n, 32, 8), np.float32)
+    for s in range(S):
+        c_hi, c_lo, b_s, b_hi = lanes(ch[s]), lanes(cl[s]), lanes(b_sum), lanes(bh)
+        p = c_hi[..., 0] * b_s[..., 0]
+        p = _fma(c_lo[..., 0], b_hi[..., 0], p)
+        p = _fma(c_hi[..., 1], b_s[..., 1], p)
+        part[:, :, s] = _fma(c_lo[..., 1], b_hi[..., 1], p)
+    tree = part.reshape(n, 2, 2, 2, 2, 2, 8)  # lane bits 4 .. 0
+    for _ in range(5):
+        tree = tree[:, 0] + tree[:, 1]
+    return tree[:, :S], db
+
+
+def test_split3_triplet_backward_order_matches_jax(jax_split3):
+    """The triplet K4 backward's order of summation (fused FFMAs, a lane's
+    two columns, the warp's reduce-scatter) at the real triplet width (S = 7,
+    M = 64), emulated in numpy: within 1e-5 of max |ref| of JAX's split3
+    interpret kernel and within EXACT_TOL of the exact XLA contract, per
+    output. Readings (seed 11): da 9.2e-8 / 1.55e-5, db 1.8e-7 / 2.14e-5."""
+    import jax.numpy as jnp
+
+    jso = jax_split3
+    rng = np.random.default_rng(11)
+    a, b, ids, splits, E = _make_case(rng, n_rows=1500, n_segments=256, S=7, M=64,
+                                      pad_to=2048)
+    cot = rng.normal(size=(7, E, 64)).astype(np.float32)
+    ja, jb, jids, jsp, jcot = map(jnp.asarray, (a, b, ids, splits, cot))
+    ref = jso._gather_contract_pallas(jcot, ja, jb, jids, jsp, interpret=True)
+    exact = jso._gather_contract_xla(jcot, ja, jb, jids)
+    for port, r, x in zip(_warp_backward_emulated(cot, a, b, ids), ref, exact):
+        assert port.dtype == np.float32 and port.shape == r.shape
+        _close(port, r, 1e-5)
+        _close(port, x, EXACT_TOL)
+        assert not np.array_equal(port, np.asarray(x))  # split3, not exact fp32
+
+
 def test_split3_ignored_on_bf16_streams():
     """bf16 streams ignore split3 (segment_outer.py:182-183); an unknown
     precision raises."""
