@@ -19,18 +19,25 @@ Phases:
      bit-equal across two launches; the triplet K4 backward, a warp per
      work item with split3 FFMAs, against its plain version and exact
      fp32, across two launches and two graph replays, as every K4);
+     Then the same at the bench-large batch's shapes, one case at a time:
+     K1, K2 and K4 at the quadruplet shape (2454528 rows x 49 (x) 32 into
+     3456 segments; fp32, bf16, split3) and K3 on the quad_abd row space
+     (2454528 x 32 into 106496; fp32, bf16);
   4. time each kernel and, where one PyTorch call computes the same
      function, that call, both ways: device time per launch (`ms`,
      `library_ms`: 20 calls captured in a CUDA graph, replayed under CUDA
      events) and the wrapper-inclusive call time (`call_ms`,
      `library_call_ms`: CUDA events around a host loop of 20 calls); and the
-     plain version's call time; beside the bound;
+     plain version's call time; beside the bound (perf/roofline.kernel_cost
+     over the published peaks); at both batches' shapes;
   5. serve GemNet-Q at the config.yaml widths (random weights from a seed):
      one predict of the 32-molecule bench-small batch with the launch
      counters read around it (8 / 8 / 14 launches of K1 / K2 / K3), E and F
      against the same model on the CPU (first 8 molecules), then 10 timed
      requests; then one predict in matmul_precision="high" (8 / 8 split3
      K1 / K2, 14 fp32 K3, no exact K1/K2), against the CPU, and profiled;
+     then the bench-large batch's first 32-atom system (~580k quadruplets)
+     served on the card against the CPU;
   6. the serving calculator on a benzonitrile molecule, 5 perturbed
      geometries, against the same calculator on the CPU;
   7. train GemNet-Q at the config.yaml widths (random weights from seed 0) on
@@ -40,7 +47,8 @@ Phases:
      config.yaml widths, for 5 weight seeds, beside the error of bf16-rounded
      weights alone, and bf16 on the card against bf16 on the CPU);
      one train step per dtype with the launch counters read
-     around it (pinned counts, every bf16 kernel launched); 5 bf16 steps with
+     around it (pinned counts, every bf16 kernel launched; the roofline's
+     kernel census of the step equal to its launches); 5 bf16 steps with
      falling losses and fp32 master state; an eval on the EMA weights; then
      3 warm-up and 10 timed steps and one profiled step per dtype (its
      device time, and that of K1-K4 summed by kernel name, K4 also split
@@ -51,11 +59,18 @@ Phases:
      dataset (20 steps, eval and checkpoint every 10), resumed from its
      checkpoint with the state equal bit for bit, its reference export loaded
      back, and 10 timed "high" steps;
-  9. the row-gather probe (`gemnet_pytorch_tpu_torch.scripts.gather_probe`).
+  9. the row-gather probe (`gemnet_pytorch_tpu_torch.scripts.gather_probe`);
+ 10. the bench, `gemnet_pytorch_tpu_torch.bench` in-process with --profile
+     and 3 windows (bf16 headline and fp32 A/B on bench-small and
+     bench-large): it prints its JSON line, which must hold every key, no
+     step below its floor, a kernel census of one step equal to the pinned
+     launches and K1-K3 in both workloads' read-back traces.
 
-The last lines are the `{"kernels": [...]}` record, the card's name and power
-limit, and `{"ok": true, "device": {...}}`. Any failed check exits non-zero
-before those lines. Without a CUDA device it fails at once.
+The last lines are the `{"kernels": [...]}` record (every kernel at both
+batches' shapes, its launches on each path: serving, training, probe and
+bench), the card's name and power limit, and `{"ok": true, "device": {...}}`.
+Any failed check exits non-zero before those lines. Without a CUDA device
+it fails at once.
 """
 
 from __future__ import annotations
@@ -69,12 +84,9 @@ import time
 
 import numpy as np
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s of the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-# (split3: fp32 rows in and out, bf16 products on the tensor cores)
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "split3": 989e12}
-BYTES = {"f32": 4, "bf16": 2, "split3": 4}
+from gemnet_pytorch_tpu_torch import bench
+from gemnet_pytorch_tpu_torch.perf import roofline, trace
+
 # kernel vs plain version: both sum in fp32, in another order (and the plain
 # K3 with atomics); the difference stays at a few ulps of the sums' terms,
 # far below this share of the output's magnitude
@@ -141,6 +153,20 @@ SERVE_LAUNCHES = {
     "high": {"gemnet_segment_outer_sum_split3": 8, "gemnet_segment_gather_contract_split3": 8,
              "gemnet_sorted_segsum_f32": 14},
 }
+# phases 3 and 4 at the bench-large batch: the shapes it gives the
+# quadruplet K1/K2/K4 (2454528 rows, 3456 segments) and K3's quad_abd row
+# space (2454528 rows into 106496), which no other path reaches
+LARGE_TAGS = ("quadruplet", "quad_abd")
+# phase 10: the bench's JSON keys that must hold a value (the ports of
+# bench.py's keys, and the port's own)
+BENCH_KEYS = (
+    "metric", "compute_dtype", "small_n_real", "large_n_real", "value", "unit", "best_agg_per_s",
+    "small_ms_median", "small_ms_spread", "fwd_ms_median", "rtt_ms", "peaks_source",
+    "sol_ms_lo", "sol_ms_hi", "sol_band", "sol_fraction", "mfu_bf16peak", "hbm_util",
+    "hbm_util_lo", "below_floor", "kernel_calls", "f32_small_agg", "f32_small_ms",
+    "f32_large_agg", "f32_large_ms", "large_agg_per_s", "large_ms_median", "large_ms_spread",
+    "large_sol_fraction", "large_below_floor", "profile_step_ms", "large_profile_step_ms",
+    "small_peak_mib", "large_peak_mib", "small_device_busy", "large_device_busy", "device")
 # phase 8's run of the training entry point: a synthetic dataset of 64
 # molecules of 4-12 atoms (seed 0), batches of 32, eval and checkpoint every
 # 10 steps; the lr at its full 1e-3 from step 0
@@ -183,43 +209,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi unavailable"
 
 
-# ---------------------------------------------------------------- batches
-
-def bench_molecules(seed: int = 0):
-    """bench.py's "small" recipe (bench.py:85-107): 32 molecules of 8-12 atoms."""
-    from gemnet_pytorch_tpu_torch.data.synthetic import random_molecule
-
-    rng = np.random.default_rng(seed)
-    return [random_molecule(rng, int(rng.integers(8, 13))) for _ in range(32)]
-
-
-def padded_batch(cfg, mols):
-    """Padded numpy batch of `mols` with bench.py's dims (5% headroom) and
-    its toy energy/force targets."""
-    from gemnet_pytorch_tpu_torch.data import PadDims, build_graph, pad_batch, scale_graph_dims
-    from gemnet_pytorch_tpu_torch.data.synthetic import toy_energy_forces
-
-    N = np.array([len(z) for z, _ in mols])
-    Z = np.concatenate([z for z, _ in mols])
-    R = np.concatenate([r for _, r in mols])
-    g = build_graph(R, N, cfg.cutoff, cfg.int_cutoff, triplets_only=cfg.triplets_only)
-    base = PadDims(n_mol=len(mols), n_atoms=16, n_edges=128, n_triplets=512,
-                   kmax3=4, n_int_edges=64, n_intm=512, n_quads=512, kmax4=4)
-    dims = base.grow_to(scale_graph_dims(g, 1.05), len(mols), len(Z))
-    EF = [toy_energy_forces(z, r) for z, r in mols]
-    E = np.array([e for e, _ in EF], np.float32)
-    F = np.concatenate([f for _, f in EF])
-    return pad_batch(g, Z, R, dims, E=E, F=F, triplets_only=cfg.triplets_only), g
-
-
 # ---------------------------------------------------------------- kernels
 
-def kernel_cases(cfg, batch, device, seed: int = 0):
+def kernel_cases(cfg, batch, device, seed: int = 0, tags=None):
     """One case per (kernel, shape, stream dtype) of the serving path and
     the train step: the batch's own id columns and sort metadata, random row
     data from a seed (rounded to bf16 for the bf16 cases; the geometry
     streams are fp32 in both modes; fp32 rows for split3, which runs K1 and
-    K2 only); and P1/P2 on the gather probe's inputs."""
+    K2 only); and P1/P2 on the gather probe's inputs. `tags`, where given,
+    keeps the cases of those shapes only ("probe" for P1/P2)."""
     import torch
 
     from gemnet_pytorch_tpu_torch.scripts import gather_probe
@@ -240,6 +238,8 @@ def kernel_cases(cfg, batch, device, seed: int = 0):
             ("triplet", "id3_reduce_ca", "id3_reduce_ca_plan", "trip_mask", S3, M3),
             ("quadruplet", "id4_reduce_ca", "id4_reduce_ca_plan", "quad_mask", S4, M4),
         ):
+            if tags is not None and tag not in tags:
+                continue
             n = batch[ids].shape[0]
             a, b = cast(rand(n, S)), cast(rand(n, M) * batch[mask][:, None])
             common = dict(tag=tag, dtype=dtype, a=a, b=b, ids=batch[ids], plan=batch[plan],
@@ -253,13 +253,16 @@ def kernel_cases(cfg, batch, device, seed: int = 0):
             ("geometry_abd", "quad_abd", "id4_expand_abd", 3, n_intm),
             ("geometry_cab", "quad_cab", "id4_reduce_cab", 4, n_intm),
         ):
-            if dtype == "split3" or (dtype == "bf16" and tag.startswith("geometry")):
+            if (dtype == "split3" or (dtype == "bf16" and tag.startswith("geometry"))
+                    or (tags is not None and tag not in tags)):
                 continue
             n = batch[idx].shape[0]
             cases.append(dict(kernel="K3", tag=tag, dtype=dtype, x=cast(rand(n, M)),
                               idx=batch[idx], perm=batch[f"{sort}_perm"],
                               sorted=batch[f"{sort}_sorted"], plan=batch[f"{sort}_plan"],
                               shape=(n, M, n_src)))
+    if tags is not None and "probe" not in tags:
+        return cases
     table, tableT, idx = gather_probe.inputs(device)
     shape = (idx.shape[0], table.shape[1], table.shape[0])  # (R, M, N)
     cases.append(dict(kernel="P1", tag="probe", dtype="bf16", table=table, idx=idx, shape=shape))
@@ -339,30 +342,6 @@ def case_functions(case):
             (lambda: (eg._segsum_plain(x[perm.long()], srt, n_seg),)),
             (lambda: (torch.zeros(n_seg, x.shape[1], device=x.device, dtype=x.dtype)
                       .index_add_(0, idx, x),)))
-
-
-def case_cost(case) -> tuple[float, float]:
-    """(bytes, flops) the function must move and do: each input read once,
-    each output written once (row data at the case's dtype; the segment
-    structure counted as nSeg+1 int32 offsets, K3's permutation as n int32;
-    split3 does three bf16 products per fp32 one; P1/P2 read the indices and
-    the N-row table once, since a row read twice comes from L2, write R rows,
-    and do no arithmetic)."""
-    k, w = case["kernel"], BYTES[case["dtype"]]
-    if k in ("P1", "P2"):
-        R, M, N = case["shape"]
-        return 4 * R + w * N * M + w * R * M, 0.0
-    if k in ("K1", "K2"):
-        n, S, M, n_seg = case["shape"]
-        rows = w * n * (S + M)
-        tile = w * S * n_seg * M
-        offsets = 4 * (n_seg + 1)
-        passes = 3 if case["dtype"] == "split3" else 1
-        if k == "K1":
-            return rows + offsets + tile, passes * 2.0 * n * S * M
-        return tile + rows + offsets + rows, passes * 4.0 * n * S * M
-    n, M, n_seg = case["shape"]
-    return w * n * M + 4 * n + 4 * (n_seg + 1) + w * n_seg * M, float(n * M)
 
 
 def case_label(case) -> str:
@@ -461,9 +440,9 @@ def time_kernels(cases, power: str):
     rows = {}
     for case in cases:
         kernel, plain, library = case_functions(case)
-        nbytes, flops = case_cost(case)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_flops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
+        nbytes, flops = roofline.kernel_cost(case["kernel"], case["dtype"], case["shape"])
+        t_bytes = nbytes / roofline.H100_DATASHEET["hbm"] * 1e3
+        t_flops = flops / roofline.peak_flops(case["dtype"]) * 1e3
         ms, ms_lo, ms_hi = graph_ms(kernel)
         row = dict(
             ms=ms, call_ms=cuda_ms(kernel)[0], plain_ms=cuda_ms(plain, iters=5)[0],
@@ -512,7 +491,7 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
     from gemnet_pytorch_tpu_torch.ops import _cuda
 
     model = make_model(cfg, device)
-    batch_np, g = padded_batch(cfg, mols)
+    batch_np, g, _ = bench.padded_batch(cfg, mols)
     batch = to_torch(batch_np, device)
     log(f"  bench-small batch: {len(mols)} molecules, {g.n_edges} edges, {g.n_triplets} "
         f"triplets, {g.n_quads} quadruplets (padded {batch_np['id_c'].shape[0]} / "
@@ -533,7 +512,7 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
     # the same model on the CPU, where the plain versions run, on the first
     # n_compare molecules (the plain K1/K2 at the full quad space would need
     # (192512, 1568) fp32 temporaries)
-    sub_np, _ = padded_batch(cfg, mols[:n_compare])
+    sub_np, _, _ = bench.padded_batch(cfg, mols[:n_compare])
     E_gpu, F_gpu = predict(model, to_torch(sub_np, device))
     cpu_model = copy.deepcopy(model).to("cpu")
     E_cpu, F_cpu = predict(cpu_model, to_torch(sub_np, "cpu"))
@@ -558,83 +537,8 @@ def serve(cfg, mols, device, n_compare: int = 8, n_timed: int = 10, warmup: int 
     log(f"  {n_timed} requests of {n_mol} molecules: {timing['ms_per_request']:.3f} ms/request, "
         f"{timing['molecules_per_s']:.1f} molecules/s, max_memory_allocated "
         f"{timing['max_memory_allocated'] / 2**20:.1f} MiB")
-    profile(lambda: predict(model, batch), "request")
+    trace.profile(lambda: predict(model, batch), "request", log)
     return census, per_kernel, timing, E.cpu().numpy()
-
-
-# the hand-written kernels' device functions, by the names the profiler
-# shows (K1 is outer_sum_ffma_ring (fp32) / outer_sum_mma_ring (bf16) at the
-# quadruplet shape, outer_sum_warp_kernel at the triplet shape and
-# outer_sum_kernel at other shapes; K4's backward is
-# gather_contract_split3_ring at the quadruplet shape,
-# gather_contract_split3_warp (a warp per work item, split3 FFMAs) at the
-# triplet shape and gather_contract_split3_kernel at other shapes and on
-# unaligned tensors, its forward outer_sum_split3_ring at the quadruplet
-# shape, outer_sum_split3_warp (K1's warp kernel with split3 products) at
-# the triplet shape and outer_sum_split3_kernel at other shapes. The merge
-# kernel of K1's general kernel also serves K4's wmma forward, at shapes the
-# model does not give: it counts under K1)
-PROFILE_GROUPS = {
-    "K1": ("outer_sum_kernel", "outer_sum_merge_kernel", "outer_sum_ffma_ring",
-           "outer_sum_mma_ring", "outer_sum_warp_kernel"),
-    "K2": ("gather_contract_",),
-    "K3": ("sorted_segsum_",),
-    "K4": ("outer_sum_split3_", "gather_contract_split3_"),
-}
-# K4's device functions by direction
-K4_DIRECTIONS = dict(zip(("forward", "backward"), PROFILE_GROUPS["K4"]))
-
-
-def profile_group(key: str) -> str | None:
-    """The PROFILE_GROUPS kernel a profiler key names, or None."""
-    if "split3" in key:
-        return "K4" if any(p in key for p in PROFILE_GROUPS["K4"]) else None
-    for group, prefixes in PROFILE_GROUPS.items():
-        if any(p in key for p in prefixes):
-            return group
-    return None
-
-
-def profile(fn, what: str, top: int = 12) -> dict | None:
-    """Where one call's time goes: torch.profiler over one `fn()`, the
-    device's busy share of the wall time, the kernels by device time, and
-    the device ms of K1-K4 summed by group (PROFILE_GROUPS), which it
-    returns. (The profiler slows the host, so its wall time exceeds the
-    timed one.)"""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    try:
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-    except (RuntimeError, AttributeError) as exc:  # the profiler is a measurement aid only
-        log(f"  profiler breakdown: not measured ({exc})")
-        return None
-    n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
-    log(f"  profiled {what}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-        f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)} kernel launches, "
-        f"{n_ops} aten op calls")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    groups = {g: [0.0, 0] for g in PROFILE_GROUPS}
-    for e in kernels:
-        g = profile_group(e.key)
-        if g:
-            groups[g][0] += e.self_device_time_total / 1e3
-            groups[g][1] += e.count
-    k4 = {d: sum(e.self_device_time_total for e in kernels if prefix in e.key) / 1e3
-          for d, prefix in K4_DIRECTIONS.items()}
-    log(f"  {what}, hand-written kernels' device ms (launches): "
-        + ", ".join(f"{g} {ms:.3f} ({n})" for g, (ms, n) in groups.items())
-        + f"; K4 forward {k4['forward']:.3f}, backward {k4['backward']:.3f}")
-    return dict(device_ms=busy_us / 1e3, **{g: ms for g, (ms, _) in groups.items()},
-                **{f"K4_{d}": ms for d, ms in k4.items()})
 
 
 def serve_high(cfg, mols, device, exact_E):
@@ -652,7 +556,7 @@ def serve_high(cfg, mols, device, exact_E):
 
     cfg = dataclasses.replace(cfg, matmul_precision="high")
     model = make_model(cfg, device)
-    batch_np, _ = padded_batch(cfg, mols)
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
     batch = to_torch(batch_np, device)
     torch.cuda.synchronize()
     _cuda.reset_launches()
@@ -668,7 +572,7 @@ def serve_high(cfg, mols, device, exact_E):
     log(f"  'high' vs exact on the card: max |dE| {errE:.3e} of max |E| "
         f"{float(np.abs(exact_E[:n_mol]).max()):.3e}")
 
-    sub_np, _ = padded_batch(cfg, mols[:8])
+    sub_np, _, _ = bench.padded_batch(cfg, mols[:8])
     E_gpu, F_gpu = predict(model, to_torch(sub_np, device))
     E_cpu, F_cpu = predict(copy.deepcopy(model).to("cpu"), to_torch(sub_np, "cpu"))
     n_sub = sum(len(z) for z, _ in mols[:8])
@@ -677,7 +581,7 @@ def serve_high(cfg, mols, device, exact_E):
     log(f"  'high' card vs CPU on the first 8 molecules: max |dE| {errE:.3e}, max |dF| "
         f"{errF:.3e} (rtol {SERVE_RTOL})")
     check(okE and okF, "'high' E/F on the card disagree with the CPU run")
-    profile(lambda: predict(model, batch), "'high' request")
+    trace.profile(lambda: predict(model, batch), "'high' request", log)
     return census
 
 
@@ -702,6 +606,31 @@ def calculator(cfg, device, n_geoms: int = 5, seed: int = 0):
         okF, errF = close(f_dev, f_cpu, SERVE_RTOL)
         log(f"  geometry {i}: E {e_dev:.6f} eV (CPU {e_cpu:.6f}), max |dF| {errF:.3e}")
         check(okE and okF, f"geometry {i}: calculator on the card disagrees with the CPU")
+
+
+def serve_large_system(cfg, device):
+    """Phase 5, large: the bench-large batch's first 32-atom system (~580k
+    quadruplets) served on the card against the same model on the CPU."""
+    from gemnet_pytorch_tpu_torch.data import to_torch
+
+    model = make_model(cfg, device)
+    mols = bench.molecules("large")[:1]
+    sub_np, g, _ = bench.padded_batch(cfg, mols)
+    t0 = time.perf_counter()
+    E_gpu, F_gpu = predict(model, to_torch(sub_np, device))
+    E_cpu, F_cpu = predict(copy.deepcopy(model).to("cpu"), to_torch(sub_np, "cpu"))
+    n = len(mols[0][0])
+    E_cpu, F_cpu = E_cpu.numpy()[:1], F_cpu.numpy()[:n]
+    okE, errE = close(E_gpu.cpu().numpy()[:1], E_cpu, SERVE_RTOL)
+    okF, errF = close(F_gpu.cpu().numpy()[:n], F_cpu, SERVE_RTOL)
+    log(f"  the large batch's first system ({n} atoms, {g.n_edges} edges, {g.n_triplets} "
+        f"triplets, {g.n_quads} quadruplets), card vs CPU: max |dE| {errE:.3e} of |E| "
+        f"{float(np.abs(E_cpu).max()):.3e}, max |dF| {errF:.3e} of max |F| "
+        f"{float(np.abs(F_cpu).max()):.3e} (rtol {SERVE_RTOL} of max(that, 1); "
+        f"{time.perf_counter() - t0:.1f} s)")
+    check(bool(np.isfinite(E_gpu.cpu().numpy()).all() and np.isfinite(F_gpu.cpu().numpy()).all()),
+          "non-finite E or F on the large system")
+    check(okE and okF, "served E/F of the large system on the card disagree with the CPU run")
 
 
 # ---------------------------------------------------------------- training
@@ -733,7 +662,7 @@ def step_card_vs_cpu(cfg, mols, device, label: str):
     """One fp32 train step (weights from seed 0) on the card and on the CPU
     on `mols`: the loss within TRAIN_LOSS_RTOL, the whole update within a
     relative L2 error of TRAIN_UPDATE_REL_L2."""
-    sub_np, _ = padded_batch(cfg, mols)
+    sub_np, _, _ = bench.padded_batch(cfg, mols)
     steps = {}
     for dev in (device, "cpu"):
         trainer, state = make_trainer(cfg, "float32", dev)
@@ -762,18 +691,28 @@ def params_view(model, flat) -> bool:
 
 
 def one_step_census(trainer, state, batch, label: str):
-    """One train step with the launch counters read around it: (state, loss,
+    """One train step with the launch counters read around it, inside the
+    roofline's kernel census, which must record every launch: (state, loss,
     census by kernel and shape, launches by kernel)."""
+    import collections
+
     import torch
 
     from gemnet_pytorch_tpu_torch.ops import _cuda
 
     torch.cuda.synchronize()
     _cuda.reset_launches()
-    state, loss = trainer.train_on_batch(state, batch, 1.0)
+    result = []
+    census = roofline.kernel_census(
+        lambda: result.append(trainer.train_on_batch(state, batch, 1.0)))
+    state, loss = result[0]
     torch.cuda.synchronize()
     per_kernel = _cuda.kernel_launches()
-    log(f"  one {label} train step launched {per_kernel}")
+    log(f"  one {label} train step launched {per_kernel}; kernel census {len(census)} calls")
+    recorded = collections.Counter((c["fn"], c["shape"]) for c in census)
+    check(recorded == _cuda.LAUNCHES,
+          f"{label} step: the kernel census {dict(recorded)} differs from the launches "
+          f"{dict(_cuda.LAUNCHES)}")
     return state, loss, dict(_cuda.LAUNCHES), per_kernel
 
 
@@ -797,8 +736,8 @@ def timed_steps(trainer, state, batch, n_agg: int, label: str, n_timed: int = 10
     log(f"  {label}: {n_timed} timed steps, {timing['ms_per_step']:.3f} ms/step, "
         f"{timing['agg_per_s']:.4e} triplets+quads/s ({n_agg} real rows), "
         f"max_memory_allocated {timing['max_memory_allocated'] / 2**20:.1f} MiB")
-    timing["profile"] = profile(lambda: trainer.train_on_batch(state, batch, 1.0),
-                                f"{label} train step")
+    timing["profile"] = trace.profile(lambda: trainer.train_on_batch(state, batch, 1.0),
+                                      f"{label} train step", log)
     return timing
 
 
@@ -814,9 +753,9 @@ def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5):
 
     # fp32 on the card vs the CPU, one step on the first n_compare molecules
     step_card_vs_cpu(cfg, mols[:n_compare], device, "fp32")
-    sub_np, _ = padded_batch(cfg, mols[:n_compare])
+    sub_np, _, _ = bench.padded_batch(cfg, mols[:n_compare])
 
-    batch_np, g = padded_batch(cfg, mols)
+    batch_np, g, _ = bench.padded_batch(cfg, mols)
     batch = to_torch(batch_np, device)
     n_mol, n_atoms = len(mols), sum(len(z) for z, _ in mols)
     n_agg = g.n_triplets + g.n_quads
@@ -920,7 +859,7 @@ def train_high(cfg, mols, device, workdir: str):
     hcfg = dataclasses.replace(cfg, matmul_precision="high")
     step_card_vs_cpu(hcfg, mols[:8], device, "'high'")
 
-    batch_np, g = padded_batch(hcfg, mols)
+    batch_np, g, _ = bench.padded_batch(hcfg, mols)
     batch = to_torch(batch_np, device)
     trainer, state = make_trainer(hcfg, "float32", device)
     state, _, census, per_kernel = one_step_census(trainer, state, batch, "'high'")
@@ -991,7 +930,7 @@ def train_high(cfg, mols, device, workdir: str):
     best_model = restore_params(os.path.join(run_dir, "best/model"),
                                 GemNet(hcfg, generator=torch.Generator().manual_seed(3),
                                        device=device))
-    one = to_torch(padded_batch(hcfg, mols[:8])[0], device)
+    one = to_torch(bench.padded_batch(hcfg, mols[:8])[0], device)
     preds = [predict(m.requires_grad_(False), one)[0].cpu().numpy()[:8]
              for m in (exported, final_ema, best_model)]
     ok, err = close(preds[0], preds[1], SERVE_RTOL)
@@ -1005,6 +944,45 @@ def train_high(cfg, mols, device, workdir: str):
     return census, per_kernel, timing
 
 
+# ---------------------------------------------------------------- bench
+
+def run_bench(workdir: str, windows: int = 3):
+    """Phase 10: `gemnet_pytorch_tpu_torch.bench` in-process with --profile,
+    both workloads and both dtypes, `windows` timed windows each. It prints
+    its JSON line; the line must hold every BENCH_KEYS value, no step below
+    its floor, a kernel census of one step equal to the pinned launches, and
+    K1-K3 in both workloads' traces. Returns (launches by kernel and shape, the JSON)."""
+    import os
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = bench.run(bench.parse_args(["--profile", os.path.join(workdir, "trace")]),
+                    windows=windows)
+    torch.cuda.synchronize()
+    census = dict(_cuda.LAUNCHES)
+    log(f"  bench: {time.perf_counter() - t0:.1f} s, {sum(census.values())} launches")
+    missing = [k for k in BENCH_KEYS if out.get(k) is None]
+    check(not missing, f"the bench's JSON has no value for {missing}")
+    check(out["below_floor"] is False and out["large_below_floor"] is False,
+          "a bench step measured below its speed-of-light floor")
+    calls = sum(TRAIN_LAUNCHES["bfloat16"].values())
+    check(out["kernel_calls"] == calls and out["large_kernel_calls"] == calls,
+          f"the bench's kernel census ({out['kernel_calls']}, {out['large_kernel_calls']} calls) "
+          f"is not the {calls} launches of a bf16 step")
+    for prefix in ("", "large_"):
+        step_ms, groups = out[f"{prefix}profile_step_ms"], out[f"{prefix}profile_groups_ms"]
+        check((step_ms or 0) > 0 and all(groups[k] > 0 for k in ("K1", "K2", "K3")),
+              f"the bench's trace readback: {step_ms} ms a {prefix}step, groups {groups}")
+    check(all(set(out[f"{k}_peak_mib"]) == {"bfloat16", "float32"} for k in bench.KINDS),
+          "the bench reports no peak memory of a workload and dtype")
+    return census, out
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1013,14 +991,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
-    try:
-        from gemnet_pytorch_tpu_torch.config import ModelConfig
-        from gemnet_pytorch_tpu_torch.data import to_torch
-        from gemnet_pytorch_tpu_torch.ops import _cuda
-        from gemnet_pytorch_tpu_torch.scripts import gather_probe
-    except ImportError as exc:
-        print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
-        return 1
+    from gemnet_pytorch_tpu_torch.config import ModelConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.scripts import gather_probe
+
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     power = card_line()
@@ -1042,22 +1017,38 @@ def main() -> int:
                 log(f"  [{source}] {line.strip()}")
 
     cfg = ModelConfig()
-    mols = bench_molecules(seed=0)
-    batch_np, _ = padded_batch(cfg, mols)
+    mols = bench.molecules("small")
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
     cases = kernel_cases(cfg, to_torch(batch_np, device), device)
 
     log("== 3. kernels vs plain versions (bench-small shapes: fp32, bf16 and split3 streams; "
         "the gather probe's shape)")
     errors = compare_kernels(cases)
+    # the bench-large batch's quadruplet and quad_abd shapes, one case at a
+    # time (a plain K1/K2 there makes a (2454528, 1568) fp32 temporary)
+    t0 = time.perf_counter()
+    large_np, _, _ = bench.padded_batch(cfg, bench.molecules("large"))
+    large = kernel_cases(cfg, to_torch(large_np, device), device, tags=LARGE_TAGS)
+    for case in large:
+        case["tag"] += "@large"
+    log("== 3. kernels vs plain versions at the bench-large shapes (quadruplet K1/K2/K4, "
+        "K3 quad_abd)")
+    errors.update(compare_kernels(large))
+    log(f"  large shapes checked in {time.perf_counter() - t0:.1f} s")
 
     log(f"== 4. kernel timing [{power}]")
-    timings = time_kernels(cases, power)
+    timings = time_kernels(cases + large, power)
+    for case in large:  # keep what the kernels line needs, free the rest
+        for key in [k for k in case if k not in ("kernel", "tag", "dtype", "shape")]:
+            del case[key]
+    torch.cuda.empty_cache()
 
     log("== 5. serving GemNet-Q (config.yaml widths, random weights, seed 0)")
     serve_census, per_kernel, timing, exact_E = serve(cfg, mols, device)
     check(per_kernel == SERVE_LAUNCHES["default"],
           f"one predict launched {per_kernel}, expected {SERVE_LAUNCHES['default']}")
     serve_high_census = serve_high(cfg, mols, device, exact_E)
+    serve_large_system(cfg, device)
 
     log("== 6. calculator (benzonitrile, 5 perturbed geometries)")
     calculator(cfg, device)
@@ -1079,12 +1070,21 @@ def main() -> int:
     torch.cuda.synchronize()
     probe_census = dict(_cuda.LAUNCHES)
 
+    log(f"== 10. the bench (gemnet_pytorch_tpu_torch.bench --profile: bf16 headline, fp32 A/B, "
+        f"bench-small and bench-large) [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_bench_") as workdir:
+        bench_census, bench_out = run_bench(workdir)
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
-             "train_high": high_census, "probe": probe_census}
-    # each row's own paths, where it must have launched
+             "train_high": high_census, "probe": probe_census, "bench": bench_census}
+    # each row's own paths, where it must have launched (at the large
+    # shapes only the bench's steps run, in fp32 and bf16: no path runs
+    # split3 there)
     own = {"f32": ("serve", "train_fp32"), "bf16": ("train_bf16",),
            "split3": ("serve_high", "train_high")}
+    own_large = {"f32": ("bench",), "bf16": ("bench",), "split3": ()}
+    cases += large
     kernels = []
     for case in cases:
         key = (case["kernel"], case["tag"], case["dtype"])
@@ -1095,13 +1095,17 @@ def main() -> int:
             source=info["source"], replaces=info["replaces"], dtype=case["dtype"],
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=errors[key], **timings[key]))
-    log(f"== kernels on the serving, training and probe paths [{power}]")
+    log(f"== kernels on the serving, training, probe and bench paths [{power}]")
     log(f"  {'kernel':50s} " + " ".join(f"{p:>10s}" for p in paths)
         + f" {'ms':>8s} {'call ms':>8s} {'bound ms':>9s} {'plain ms':>9s} {'library ms':>10s}"
         + f" {'lib call':>9s}")
     for case, row in zip(cases, kernels):
         by_path = row["launches_by_path"]
-        for p in ("probe",) if case["kernel"] in ("P1", "P2") else own[row["dtype"]]:
+        if case["kernel"] in ("P1", "P2"):
+            must = ("probe",)
+        else:
+            must = (own_large if case["tag"].endswith("@large") else own)[row["dtype"]]
+        for p in must:
             check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
         lib = [f"{row[k]:.4f}" if row[k] is not None else "null"
                for k in ("library_ms", "library_call_ms")]
@@ -1117,7 +1121,9 @@ def main() -> int:
     log(f"== done in {time.perf_counter() - t_start:.1f} s; serving "
         f"{timing['ms_per_request']:.3f} ms/request, {timing['molecules_per_s']:.1f} molecules/s; "
         + "; ".join(f"train {dt} {t['ms_per_step']:.3f} ms/step, {t['agg_per_s']:.4e} "
-                    f"triplets+quads/s" for dt, t in train_timing.items()))
+                    f"triplets+quads/s" for dt, t in train_timing.items())
+        + f"; bench {bench_out['value']:.4e} agg/s (bf16 small), large "
+        f"{bench_out['large_agg_per_s']:.4e}")
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 # kernel launches by (C function, shape); see `kernel_launches`
 LAUNCHES: collections.Counter = collections.Counter()
+# the open kernel censuses (`perf.roofline.kernel_census`): lists that
+# `note_kernel` appends to
+CENSUSES: list[list] = []
 
 
 def set_matmul_precision() -> None:
@@ -170,6 +173,17 @@ def kernel_launches() -> dict[str, int]:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def note_kernel(kernel: str, direction: str, dtype: str, name: str, shape: tuple) -> None:
+    """Record one call of a hand-written kernel's wrapper in every open
+    census: kernel K1-K4, its direction, stream dtype ("f32", "bf16") or
+    "split3", C entry `name` and shape. The wrappers note the call on
+    either device, where they choose between the kernel and its plain
+    version, so a census is the same on the CPU as on the card."""
+    for census in CENSUSES:
+        census.append(dict(kernel=kernel, direction=direction, dtype=dtype, fn=name,
+                           shape=tuple(shape)))
 
 
 def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> tuple[float, float, float]:

@@ -59,6 +59,9 @@ def sorted_segsum_values(x, perm, sorted_ids, plan):
     version on CPU."""
     if x.dtype not in _cuda.DTYPE_SUFFIX:
         raise TypeError(f"x is {x.dtype}: only float32 and bfloat16 are supported")
+    suffix = _cuda.DTYPE_SUFFIX[x.dtype]
+    _cuda.note_kernel("K3", "backward", suffix, f"gemnet_sorted_segsum_{suffix}",
+                      (x.shape[0], x.shape[1], plan.n_segments))
     if x.device.type == "cuda":
         return _segsum_cuda(x, perm, plan)
     if x.device.type == "cpu":

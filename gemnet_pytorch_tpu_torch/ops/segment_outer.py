@@ -195,11 +195,22 @@ def _gather_contract_cuda(cot, a, b, seg_ids, plan, split3=False):
     return da, db
 
 
+def _note(op, a, b, plan, split3, sdt):
+    """Note a call of kernel `op` ("outer_sum" or "gather_contract") in the
+    open kernel censuses, under the C entry it launches on a CUDA tensor."""
+    mode = "split3" if split3 else _cuda.DTYPE_SUFFIX[sdt]
+    kernel = "K4" if split3 else {"outer_sum": "K1", "gather_contract": "K2"}[op]
+    _cuda.note_kernel(kernel, "forward" if op == "outer_sum" else "backward", mode,
+                      f"gemnet_segment_{op}_{mode}",
+                      (a.shape[0], a.shape[1], b.shape[1], plan.n_segments))
+
+
 def outer_sum(a, b, seg_ids, plan, precision="exact"):
     """K1 without autograd: the kernel on a CUDA tensor, the plain version
     on a CPU tensor. Returns (S, nSegments, M) in the streams' dtype."""
     sdt = _stream_dtype(a, b)
     split3 = _use_split3(precision, sdt)
+    _note("outer_sum", a, b, plan, split3, sdt)
     if a.device.type == "cuda":
         # mixed dtypes: the fp32 streams are staged explicitly, as the JAX
         # wrapper's astype does
@@ -217,6 +228,7 @@ def gather_contract(cot, a, b, seg_ids, plan, precision="exact"):
     sdt = _stream_dtype(a, b)  # a and b alone pick the streams
     _stream_dtype(cot)  # raises on a cotangent neither fp32 nor bf16
     split3 = _use_split3(precision, sdt)
+    _note("gather_contract", a, b, plan, split3, sdt)
     if a.device.type == "cuda":
         # bf16 streams read the cotangent as bf16 (segment_outer.py:586-590);
         # fp32 streams stage every operand as fp32

@@ -33,9 +33,9 @@ import torch
 
 from ..ops import row_gather
 from ..ops._cuda import cuda_ms, graph_ms
+from ..perf import roofline
 
 N_TAB, M, R = 29184, 32, 192512
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
 def inputs(device, seed: int = 0):
@@ -49,9 +49,9 @@ def inputs(device, seed: int = 0):
 
 def bound_ms(r: int = R, m: int = M, n: int = N_TAB) -> float:
     """The r indices and the (n, m) bf16 table read once, the (r, m) result
-    written once: a table row that r indices name twice comes from L2, not
-    HBM, the second time."""
-    return (4 * r + 2 * n * m + 2 * r * m) / PEAK_BYTES_PER_S * 1e3
+    written once (roofline.kernel_cost of P1/P2) over the HBM rate."""
+    nbytes, _ = roofline.kernel_cost("P1", "bf16", (r, m, n))
+    return nbytes / roofline.H100_DATASHEET["hbm"] * 1e3
 
 
 def main(device="cuda") -> dict:

@@ -35,6 +35,7 @@ import subprocess
 
 import torch
 
+from .. import bench
 from ..config import ModelConfig
 from ..data import segment_plan, to_torch
 from ..ops import _cuda
@@ -158,7 +159,7 @@ def main(device="cuda") -> None:
     libs = build_parts()
     power = chip_smoke.card_line()
     cfg = ModelConfig()
-    batch_np, _ = chip_smoke.padded_batch(cfg, chip_smoke.bench_molecules(seed=0))
+    batch_np, _, _ = bench.padded_batch(cfg, bench.molecules("small"))
     cases = [c for c in chip_smoke.kernel_cases(cfg, to_torch(batch_np, device), device)
              if c["kernel"] == "K1" and (c["dtype"] != "split3" or c["tag"] == "triplet")]
     for case in cases:

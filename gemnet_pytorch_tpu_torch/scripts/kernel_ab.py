@@ -34,10 +34,12 @@ from pathlib import Path
 
 import torch
 
+from .. import bench
 from ..config import ModelConfig
 from ..data import to_torch
 from ..ops import _cuda
 from ..ops import segment_outer as so
+from ..perf import roofline
 
 # the (kernel, tag, dtype) cases whose output changed (another order of
 # summation) since df4c395, the oldest sources the C interface fits
@@ -154,7 +156,7 @@ def main(csrc: str, device="cuda") -> list[dict]:
     libs = build_old(Path(csrc))
     power = chip_smoke.card_line()
     cfg = ModelConfig()
-    batch_np, _ = chip_smoke.padded_batch(cfg, chip_smoke.bench_molecules(seed=0))
+    batch_np, _, _ = bench.padded_batch(cfg, bench.molecules("small"))
     cases = [c for c in chip_smoke.kernel_cases(cfg, to_torch(batch_np, device), device)
              if c["kernel"] in ("K1", "K2", "P2")]
     rows = []
@@ -189,11 +191,11 @@ def main(csrc: str, device="cuda") -> list[dict]:
         if key not in CHANGED:
             chip_smoke.check(equal, f"{label}: the unchanged kernel is not bit-equal to the old")
         times = [_cuda.graph_ms(fn)[0] for fn in (old, new, new, old)]
-        nbytes, flops = chip_smoke.case_cost(case)
+        nbytes, flops = roofline.kernel_cost(case["kernel"], case["dtype"], case["shape"])
         row = dict(kernel=case["kernel"], tag=case["tag"], dtype=case["dtype"],
                    old_ms=times[0], new_ms=times[1], new_ms_2=times[2], old_ms_2=times[3],
-                   bound_ms=max(nbytes / chip_smoke.PEAK_BYTES_PER_S,
-                                flops / chip_smoke.PEAK_FLOPS[case["dtype"]]) * 1e3,
+                   bound_ms=max(nbytes / roofline.H100_DATASHEET["hbm"],
+                                flops / roofline.peak_flops(case["dtype"])) * 1e3,
                    old_err=errs["old"], new_err=errs["new"], bit_equal=equal, card=power)
         print(f"{label}: old {times[0]:.4f} / {times[3]:.4f} ms, new {times[1]:.4f} / "
               f"{times[2]:.4f} ms, bound {row['bound_ms']:.4f} ms; max abs err vs plain old "

@@ -4,22 +4,18 @@ same entries, and for each the same number of arguments, each a pointer
 (`c_void_p`: a pointer or the stream) or an int (`c_int`) as the C
 signature says, and the same return type. A mismatch would pass a pointer
 as a 32-bit int or shift every argument after it; nothing else catches it
-before the card. And `chip_smoke.PROFILE_GROUPS`, which sums the device
+before the card. And `perf.trace.PROFILE_GROUPS`, which sums the device
 time of each kernel group by the device functions' names, against the
 `__global__` functions of the sources. Runs on the CPU (no nvcc needed).
 """
 
 import ctypes
-import os
 import re
-import sys
 
 import pytest
 
 from gemnet_pytorch_tpu_torch.ops import _cuda
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import chip_smoke  # noqa: E402
+from gemnet_pytorch_tpu_torch.perf import trace
 
 _ENTRY = re.compile(r"^([A-Za-z_][\w ]*?[\s*]+)(gemnet_\w+)\s*\(([^)]*)\)\s*\{", re.M)
 _RESTYPES = {"int": ctypes.c_int, "size_t": ctypes.c_size_t, "const char*": ctypes.c_char_p}
@@ -99,12 +95,12 @@ def test_sources_have_the_kernels_of_every_group():
 def test_profile_groups_name_every_kernel(name):
     # the profiler shows the demangled signature; the name is in it
     key = f"void (anonymous namespace)::{name}<float>(float const*, float*)"
-    assert chip_smoke.profile_group(key) == _group(name)
+    assert trace.profile_group(key) == _group(name)
 
 
 @pytest.mark.parametrize("name", [k for k in _kernels() if _group(k) == "K4"])
 def test_k4_kernels_have_one_direction(name):
-    # chip_smoke splits K4's device time into its forward and its backward
+    # the profiles split K4's device time into its forward and its backward
     # by these prefixes
-    directions = [d for d, p in chip_smoke.K4_DIRECTIONS.items() if p in name]
+    directions = [d for d, p in trace.K4_DIRECTIONS.items() if p in name]
     assert directions == ["forward" if name.startswith("outer_sum") else "backward"]

@@ -66,6 +66,15 @@ def test_driver_and_probe_modules_are_checked():
     assert {src for src, _, _ in _cuda._FUNCTIONS.values()} == set(_cuda.SOURCES)
 
 
+def test_bench_and_perf_modules_are_checked():
+    """The bench and its timing, roofline and trace modules are among the
+    files checked above."""
+    rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
+    for name in ("bench.py", "perf/__init__.py", "perf/timing.py", "perf/roofline.py",
+                 "perf/trace.py"):
+        assert name in rel, name
+
+
 def test_serving_path_imports_no_yaml_or_ase():
     """PyYAML is imported only inside the config loader, ase nowhere."""
     for path in _port_files():

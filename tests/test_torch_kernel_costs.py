@@ -1,15 +1,16 @@
-"""chip_smoke's bound of each K1/K2/K3/K4 case (`case_cost`: the bytes each input
-is read once and each output written once, the operations) at the bench-small
-shapes, against the byte counts and bounds PERF.md states for them. Runs on
-the CPU: the cost is computed from shapes alone."""
-
-import os
-import sys
+"""The bound of each K1/K2/K3/K4 case that chip_smoke reports
+(`perf.roofline.kernel_cost`: the bytes each input is read once and each
+output written once, the operations) at the bench-small shapes, against the
+byte counts and bounds PERF.md states for them. Runs on the CPU: the cost is
+computed from shapes alone."""
 
 import pytest
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import chip_smoke  # noqa: E402
+from gemnet_pytorch_tpu_torch.perf import roofline
+
+
+def case_cost(case):
+    return roofline.kernel_cost(case["kernel"], case["dtype"], case["shape"])
 
 # (kernel, dtype, shape) -> (MB, bound ms) as PERF.md's kernel table gives them
 BENCH = [
@@ -39,10 +40,10 @@ BENCH = [
 
 @pytest.mark.parametrize("kernel,dtype,shape,mb,bound_ms", BENCH)
 def test_case_cost_matches_perf_md(kernel, dtype, shape, mb, bound_ms):
-    nbytes, flops = chip_smoke.case_cost(dict(kernel=kernel, dtype=dtype, shape=shape))
+    nbytes, flops = case_cost(dict(kernel=kernel, dtype=dtype, shape=shape))
     assert round(nbytes / 1e6, 1) == mb
-    t_bytes = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
-    t_flops = flops / chip_smoke.PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / roofline.H100_DATASHEET["hbm"] * 1e3
+    t_flops = flops / roofline.peak_flops(dtype) * 1e3
     assert t_bytes > t_flops  # bytes bound every K1/K2/K3/K4 row
     assert round(t_bytes, 4) == bound_ms
 
@@ -51,7 +52,7 @@ def test_k2_quad_counts_every_operand_once():
     """K2 at the quad shape: cot read once, a and b read once, da and db
     written once, the segment offsets; 4 flops per (row, s, m)."""
     n, S, M, n_seg = 192512, 49, 32, 3072
-    nbytes, flops = chip_smoke.case_cost(dict(kernel="K2", dtype="f32", shape=(n, S, M, n_seg)))
+    nbytes, flops = case_cost(dict(kernel="K2", dtype="f32", shape=(n, S, M, n_seg)))
     assert nbytes == 4 * (S * n_seg * M + 2 * n * (S + M) + n_seg + 1)
     assert flops == 4.0 * n * S * M
 
@@ -61,8 +62,8 @@ def test_k2_quad_counts_every_operand_once():
 def test_split3_moves_fp32_bytes_for_three_times_the_flops(kernel, shape):
     """K4 reads and writes the fp32 rows and tiles of K1/K2 and does their
     products three times (hi*hi + hi*lo + lo*hi), on the tensor cores."""
-    f32 = chip_smoke.case_cost(dict(kernel=kernel, dtype="f32", shape=shape))
-    split3 = chip_smoke.case_cost(dict(kernel=kernel, dtype="split3", shape=shape))
+    f32 = case_cost(dict(kernel=kernel, dtype="f32", shape=shape))
+    split3 = case_cost(dict(kernel=kernel, dtype="split3", shape=shape))
     assert split3[0] == f32[0]
     assert split3[1] == 3 * f32[1]
-    assert chip_smoke.PEAK_FLOPS["split3"] == chip_smoke.PEAK_FLOPS["bf16"]
+    assert roofline.peak_flops("split3") == roofline.peak_flops("bf16")
