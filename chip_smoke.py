@@ -39,44 +39,63 @@ Phases:
      then the bench-large batch's first 32-atom system (~580k quadruplets)
      served on the card against the CPU;
   6. the serving calculator on a benzonitrile molecule, 5 perturbed
-     geometries, against the same calculator on the CPU;
+     geometries (its predict captured once into a CUDA graph and replayed),
+     against the eager predict on the card and the calculator on the CPU;
   7. train GemNet-Q at the config.yaml widths (random weights from seed 0) on
-     the bench-small batch with toy targets: one fp32 step on the card
-     against the same step on the CPU (first 8 molecules); bf16 E/F against
+     the bench-small batch with toy targets: one fp32 step on the card (the
+     captured step of `train_on_batch`) against the same step on the CPU
+     (first 8 molecules); bf16 E/F against
      fp32 on the card (tests/test_bf16.py's contract at its widths; at the
      config.yaml widths, for 5 weight seeds, beside the error of bf16-rounded
      weights alone, and bf16 on the card against bf16 on the CPU);
-     one train step per dtype with the launch counters read
+     one eager train step per dtype with the launch counters read
      around it (pinned counts, every bf16 kernel launched; the roofline's
-     kernel census of the step equal to its launches); 5 bf16 steps with
+     kernel census of the step equal to its launches); 5 eager steps with
      falling losses and fp32 master state; an eval on the EMA weights; then
-     3 warm-up and 10 timed steps and one profiled step per dtype (its
+     3 warm-up and 10 timed eager steps and one profiled step per dtype (its
      device time, and that of K1-K4 summed by kernel name, K4 also split
      into its forward and backward);
   8. the training entry point in matmul_precision="high": one step on the
-     card against the CPU, its launch census (24 / 24 split3 K1 / K2, 26 fp32
-     K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.train.run` on a synthetic
-     dataset (20 steps, eval and checkpoint every 10), resumed from its
-     checkpoint with the state equal bit for bit, its reference export loaded
-     back, and 10 timed "high" steps;
+     card (captured) against the CPU, the eager step's launch census (24 / 24
+     split3 K1 / K2, 26 fp32 K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.
+     train.run` with 4 steps per call on a synthetic dataset (20 steps, eval
+     and checkpoint every 10), resumed from its checkpoint with the state
+     equal bit for bit, its reference export loaded back, and 10 timed eager
+     "high" steps;
   9. the row-gather probe (`gemnet_pytorch_tpu_torch.scripts.gather_probe`);
- 10. the bench, `gemnet_pytorch_tpu_torch.bench` in-process with --profile
-     and 3 windows (bf16 headline and fp32 A/B on bench-small and
-     bench-large): it prints its JSON line, which must hold every key, no
-     step below its floor, a kernel census of one step equal to the pinned
-     launches and K1-K3 in both workloads' read-back traces.
+ 10. the bench, `gemnet_pytorch_tpu_torch.bench` in-process with --profile,
+     --steps-per-call 2, --large-scan 4 and 3 windows (bf16 headline and fp32
+     A/B on bench-small and bench-large, the captured step): it prints its
+     JSON line, which must hold every key (the K-step windows' among them),
+     no step below its floor, a kernel census of one step equal to the
+     pinned launches and K1-K3 in both workloads' read-back traces;
+ 11. CUDA graphs: K1-K4 and K3 on capacity plans bit-equal to the exact
+     plans at both batches' shapes; per mode (fp32, bf16, "high") 5 eager
+     steps twice and 5 captured steps from one state (losses, update and
+     accumulators within their gates; bit-equality printed, and where two
+     eager runs differ, the ops whose float atomics differ named), the
+     capture's launches equal to the eager step's and the graph's
+     hand-written kernel nodes (debug dump) equal to the census, 4 steps in
+     one call against 4 single replays, the accumulators drained; eager
+     against captured ms per step (fp32, bf16) and peak MiB with the graph
+     pools; the captured predict against the eager one and the CPU, and ms
+     per request both ways; 100 captured Verlet MD steps on a bench
+     molecule with the energy drift held to tests/test_md.py's bound.
 
 The last lines are the `{"kernels": [...]}` record (every kernel at both
-batches' shapes, its launches on each path: serving, training, probe and
-bench), the card's name and power limit, and `{"ok": true, "device": {...}}`.
+batches' shapes, its launches on each path: serving, training, probe,
+bench and graph, the launches the captured graphs of phase 11 hold), the
+card's name and power limit, and `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero before those lines. Without a CUDA device
 it fails at once.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -166,13 +185,34 @@ BENCH_KEYS = (
     "hbm_util_lo", "below_floor", "kernel_calls", "f32_small_agg", "f32_small_ms",
     "f32_large_agg", "f32_large_ms", "large_agg_per_s", "large_ms_median", "large_ms_spread",
     "large_sol_fraction", "large_below_floor", "profile_step_ms", "large_profile_step_ms",
-    "small_peak_mib", "large_peak_mib", "small_device_busy", "large_device_busy", "device")
+    "small_peak_mib", "large_peak_mib", "small_device_busy", "large_device_busy", "device",
+    # K steps per call (--steps-per-call 2, --large-scan 4)
+    "scan_agg_per_s", "scan_ms", "large_scan_ms", "large_dispatch_overhead_ms",
+    "large_scan_agg_per_s")
+# phase 10's K steps per call
+BENCH_ARGS = ("--steps-per-call", "2", "--large-scan", "4")
 # phase 8's run of the training entry point: a synthetic dataset of 64
 # molecules of 4-12 atoms (seed 0), batches of 32, eval and checkpoint every
 # 10 steps; the lr at its full 1e-3 from step 0
 TRAIN_RUN = dict(batch_size=32, num_steps=20, evaluation_interval=10, save_interval=10,
                  data_seed=0, warmup_steps=1, matmul_precision="high")
 TRAIN_RUN_MOLECULES = 64
+# phase 8's runs and phase 11's K-step call: train.py --steps-per-call 4
+STEPS_PER_CALL = 4
+# phase 11: the captured step against the eager one, from one state, per
+# mode: (compute_dtype, matmul_precision)
+GRAPH_MODES = {"float32": ("float32", "default"), "bfloat16": ("bfloat16", "default"),
+               "high": ("float32", "high")}
+CAPTURED_STEPS = 5
+# captured vs eager, fp32 and "high": the same kernels in the same order;
+# what differs is the order of the float atomics of index_add (and of any
+# other op that sums with atomics), run to run
+CAPTURED_LOSS_RTOL = 1e-5
+CAPTURED_UPDATE_REL_L2 = 1e-4
+# phase 11's MD run: tests/test_md.py's Verlet settings on a bench molecule
+MD_STEPS = 100
+MD_SETTINGS = dict(dynamics="verlet", time=0.2, temperature=50, interval=1, traj_path=None,
+                   seed=1, logfile=None)
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -586,8 +626,10 @@ def serve_high(cfg, mols, device, exact_E):
 
 
 def calculator(cfg, device, n_geoms: int = 5, seed: int = 0):
-    """Phase 6: the serving calculator on the card against the CPU."""
-    from gemnet_pytorch_tpu_torch.data import Molecule
+    """Phase 6: the serving calculator on the card (its captured predict)
+    against the eager predict on the card and the calculator on the CPU;
+    one capture for all the geometries."""
+    from gemnet_pytorch_tpu_torch.data import Molecule, to_torch
     from gemnet_pytorch_tpu_torch.md import GemNetCalculator
 
     model = make_model(cfg, device)
@@ -601,11 +643,20 @@ def calculator(cfg, device, n_geoms: int = 5, seed: int = 0):
         R = BENZONITRILE_R + rng.normal(scale=0.05, size=BENZONITRILE_R.shape).astype(np.float32)
         e_dev, f_dev = calc_dev.calculate(R)
         e_cpu, f_cpu = calc_cpu.calculate(R)
+        E_eager, F_eager = predict(calc_dev.model, to_torch(mol_dev.get(), device))
+        e_eager = float(E_eager[0, 0])
+        f_eager = F_eager[:len(BENZONITRILE_Z), 0, :].cpu().numpy()
         check(np.isfinite(e_dev) and np.isfinite(f_dev).all(), f"geometry {i}: non-finite")
         okE, errE = close(np.array([e_dev]), np.array([e_cpu]), SERVE_RTOL)
         okF, errF = close(f_dev, f_cpu, SERVE_RTOL)
-        log(f"  geometry {i}: E {e_dev:.6f} eV (CPU {e_cpu:.6f}), max |dF| {errF:.3e}")
+        okEe, errEe = close(np.array([e_dev]), np.array([e_eager]), SERVE_RTOL)
+        okFe, errFe = close(f_dev, f_eager, SERVE_RTOL)
+        log(f"  geometry {i}: E {e_dev:.6f} eV (CPU {e_cpu:.6f}, eager on the card "
+            f"{e_eager:.6f}), max |dF| {errF:.3e} vs the CPU, {errFe:.3e} vs eager")
         check(okE and okF, f"geometry {i}: calculator on the card disagrees with the CPU")
+        check(okEe and okFe, f"geometry {i}: the captured predict disagrees with the eager one")
+    log(f"  the calculator captured its predict {calc_dev.captured.captures} time(s)")
+    check(calc_dev.captured.captures == 1, "the calculator captured more than once")
 
 
 def serve_large_system(cfg, device):
@@ -658,10 +709,18 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+def eager_step(trainer, state, batch):
+    """One eager train step (`Trainer.train_step`) on a batch of tensors:
+    (state, loss on the device)."""
+    state, metrics, _ = trainer.train_step(state, batch, 1.0)
+    return state, metrics["loss"].detach()
+
+
 def step_card_vs_cpu(cfg, mols, device, label: str):
-    """One fp32 train step (weights from seed 0) on the card and on the CPU
-    on `mols`: the loss within TRAIN_LOSS_RTOL, the whole update within a
-    relative L2 error of TRAIN_UPDATE_REL_L2."""
+    """One fp32 train step (weights from seed 0) on the card, the captured
+    step of `train_on_batch`, and on the CPU on `mols`: the loss within
+    TRAIN_LOSS_RTOL, the whole update within a relative L2 error of
+    TRAIN_UPDATE_REL_L2."""
     sub_np, _, _ = bench.padded_batch(cfg, mols)
     steps = {}
     for dev in (device, "cpu"):
@@ -691,9 +750,9 @@ def params_view(model, flat) -> bool:
 
 
 def one_step_census(trainer, state, batch, label: str):
-    """One train step with the launch counters read around it, inside the
-    roofline's kernel census, which must record every launch: (state, loss,
-    census by kernel and shape, launches by kernel)."""
+    """One eager train step with the launch counters read around it, inside
+    the roofline's kernel census, which must record every launch: (state,
+    loss, census by kernel and shape, launches by kernel)."""
     import collections
 
     import torch
@@ -704,7 +763,7 @@ def one_step_census(trainer, state, batch, label: str):
     _cuda.reset_launches()
     result = []
     census = roofline.kernel_census(
-        lambda: result.append(trainer.train_on_batch(state, batch, 1.0)))
+        lambda: result.append(eager_step(trainer, state, batch)))
     state, loss = result[0]
     torch.cuda.synchronize()
     per_kernel = _cuda.kernel_launches()
@@ -718,17 +777,17 @@ def one_step_census(trainer, state, batch, label: str):
 
 def timed_steps(trainer, state, batch, n_agg: int, label: str, n_timed: int = 10,
                 warmup: int = 3) -> dict:
-    """`warmup` then `n_timed` steps on the host clock, ending in a
+    """`warmup` then `n_timed` eager steps on the host clock, ending in a
     synchronize; then one profiled step."""
     import torch
 
     for _ in range(warmup):
-        trainer.train_on_batch(state, batch, 1.0)
+        eager_step(trainer, state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(n_timed):
-        trainer.train_on_batch(state, batch, 1.0)
+        eager_step(trainer, state, batch)
     torch.cuda.synchronize()
     sec = (time.perf_counter() - t0) / n_timed
     timing = dict(ms_per_step=sec * 1e3, agg_per_s=n_agg / sec,
@@ -736,7 +795,7 @@ def timed_steps(trainer, state, batch, n_agg: int, label: str, n_timed: int = 10
     log(f"  {label}: {n_timed} timed steps, {timing['ms_per_step']:.3f} ms/step, "
         f"{timing['agg_per_s']:.4e} triplets+quads/s ({n_agg} real rows), "
         f"max_memory_allocated {timing['max_memory_allocated'] / 2**20:.1f} MiB")
-    timing["profile"] = trace.profile(lambda: trainer.train_on_batch(state, batch, 1.0),
+    timing["profile"] = trace.profile(lambda: eager_step(trainer, state, batch),
                                       f"{label} train step", log)
     return timing
 
@@ -815,7 +874,7 @@ def train(cfg, mols, device, n_compare: int = 8, n_steps: int = 5):
         state, loss, census[dt], per_kernel[dt] = one_step_census(trainer, state, batch, dt)
         losses = [float(loss)]
         for _ in range(n_steps - 1):
-            state, loss = trainer.train_on_batch(state, batch, 1.0)
+            state, loss = eager_step(trainer, state, batch)
             losses.append(float(loss))
         log(f"  {dt}: {n_steps} steps, losses {', '.join(f'{x:.6f}' for x in losses)}")
         check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
@@ -872,9 +931,10 @@ def train_high(cfg, mols, device, workdir: str):
     config = dict(dataclasses.asdict(hcfg), **TRAIN_RUN, restart=run_dir, logdir=workdir)
     t0 = time.perf_counter()
     best = train_driver.run(config, device=device, synthetic_molecules=TRAIN_RUN_MOLECULES,
-                            export_torch=export)
-    log(f"  train.run, {TRAIN_RUN['num_steps']} steps on {TRAIN_RUN_MOLECULES} synthetic "
-        f"molecules in {time.perf_counter() - t0:.1f} s: best {best}")
+                            export_torch=export, steps_per_call=STEPS_PER_CALL)
+    log(f"  train.run, {TRAIN_RUN['num_steps']} steps ({STEPS_PER_CALL} per call, captured) on "
+        f"{TRAIN_RUN_MOLECULES} synthetic molecules in {time.perf_counter() - t0:.1f} s: best "
+        f"{best}")
     check(all(np.isfinite(v) for v in best.values()), "train.run: non-finite metrics")
     for rel in ("logs/checkpoint", "logs/checkpoint.plateau.npz", "best/model",
                 "best/best_metrics.npz"):
@@ -898,7 +958,7 @@ def train_high(cfg, mols, device, workdir: str):
     root.setLevel(logging.INFO)
     try:
         train_driver.run(dict(config, num_steps=30), device=device,
-                         synthetic_molecules=TRAIN_RUN_MOLECULES)
+                         synthetic_molecules=TRAIN_RUN_MOLECULES, steps_per_call=STEPS_PER_CALL)
     finally:
         root.removeHandler(records)
         root.setLevel(level)
@@ -944,14 +1004,394 @@ def train_high(cfg, mols, device, workdir: str):
     return census, per_kernel, timing
 
 
+# ---------------------------------------------------------------- graphs
+
+def capacity_plans(cfg, device):
+    """Phase 11: every kernel case of phase 3 (but the probe's) at the
+    bench-small shapes, and the quadruplet and quad_abd cases at the
+    bench-large shapes, on the batch's capacity plans and on its exact
+    plans: the same bits, the counters back at zero."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+
+    small_tags = ("triplet", "quadruplet", "trip_ba", "intm_db", "quad_abd", "geometry_abd",
+                  "geometry_cab")
+    n_cases = 0
+    for kind, tags in (("small", small_tags), ("large", LARGE_TAGS)):
+        batch_np, _, _ = bench.padded_batch(cfg, bench.molecules(kind))
+        exact = kernel_cases(cfg, to_torch(batch_np, device, capacity=False), device, tags=tags)
+        cap = kernel_cases(cfg, to_torch(batch_np, device), device, tags=tags)
+        for ce, cc in zip(exact, cap):
+            out_e, out_c = case_functions(ce)[0](), case_functions(cc)[0]()
+            torch.cuda.synchronize()
+            pe, pc = ce["plan"], cc["plan"]
+            equal = all(torch.equal(a, b) for a, b in zip(out_e, out_c))
+            log(f"  {case_label(cc)} @{kind}: items {pe.items.shape[0]} exact, "
+                f"{pc.items.shape[0]} at capacity; bit-equal {equal}")
+            check(equal, f"{case_label(cc)} @{kind}: the capacity plan's output differs from "
+                  "the exact plan's")
+            check(int(pc.arrivals.abs().sum()) + int(pc.tree_arrivals.abs().sum()) == 0,
+                  f"{case_label(cc)} @{kind} left a counter of its capacity plan non-zero")
+            n_cases += 1
+        del exact, cap
+        torch.cuda.empty_cache()
+    return n_cases
+
+
+def nondeterministic_ops(batch, device) -> list[str]:
+    """The ops of the step that sum with float atomics, each run twice on
+    the same inputs at the batch's shapes: the names of those whose two
+    results differ in their bits."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.ops.segment import masked_segment_sum
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    n_atoms = batch["Z"].shape[0]
+    x = torch.randn(batch["id_a"].shape[0], 128, generator=gen, device=device)
+    idx = batch["id4_expand_abd"]
+    rows = torch.randn(idx.shape[0], 32, generator=gen, device=device)
+    n_src = batch["id4_reduce_intm_ca"].shape[0]
+    probes = {
+        "index_add (ops/segment.py masked_segment_sum, edges -> atoms)":
+            lambda: masked_segment_sum(x, batch["id_a"], n_atoms),
+        "index_put_ accumulate (the backward of the plain gathers h[idx])":
+            lambda: torch.zeros(n_src, 32, device=device).index_put_((idx,), rows,
+                                                                     accumulate=True),
+    }
+    out = []
+    for name, fn in probes.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            out.append(name)
+    return out
+
+
+def op_order(trainer, state, batch, start, runs: int = 2):
+    """The aten ops of `runs` eager steps from `start`, in the order they
+    ran: (whether every run ran them in one order, the first place where
+    two differ as "i: op | op")."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[-1].append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    for _ in range(runs):
+        state_restore(state, start)
+        seen.append([])
+        with Record():
+            trainer.train_step(state, batch, 1.0)
+    first = next(((i, x, y) for i, (x, y) in enumerate(zip(seen[0], seen[-1])) if x != y),
+                 None)
+    return first is None, (f"{first[0]}: {first[1]} | {first[2]}" if first else "")
+
+
+def state_copy(state):
+    from gemnet_pytorch_tpu_torch.training.trainer import _state_tensors
+
+    return [t.clone() for t in _state_tensors(state)]
+
+
+def state_restore(state, saved):
+    from gemnet_pytorch_tpu_torch.training.trainer import _state_tensors
+
+    for t, v in zip(_state_tensors(state), saved):
+        t.copy_(v)
+
+
+def five_steps(trainer, state, start, p0, step):
+    """CAPTURED_STEPS calls of `step()` from the state `start`: (losses,
+    parameters, accumulators) after them."""
+    import torch
+
+    state_restore(state, start)
+    losses = []
+    for _ in range(CAPTURED_STEPS):
+        losses.append(step()["loss"].detach().clone())
+    torch.cuda.synchronize()
+    return (torch.stack(losses).cpu().numpy(), state.params.clone(), state.metric_acc.clone())
+
+
+def run_diffs(run, ref, p0):
+    """(max loss rel, update rel L2, max accumulator rel) of `run` against
+    `ref`, both from five_steps, and whether they are bit-equal."""
+    import torch
+
+    (l1, p1, m1), (l0, pr, m0) = run, ref
+    diffs = (float(np.max(np.abs(l1 - l0) / np.abs(l0))),
+             rel_l2((p1 - p0).cpu().numpy(), (pr - p0).cpu().numpy()),
+             float(((m1 - m0).abs() / m0.abs().clamp_min(1e-30)).max()))
+    return diffs, bool(np.array_equal(l1, l0) and torch.equal(p1, pr) and torch.equal(m1, m0))
+
+
+def captured_steps(cfg, mols, device, mode: str, workdir: str):
+    """Phase 11, one mode. With torch.use_deterministic_algorithms (index_add
+    then sums without float atomics): CAPTURED_STEPS eager steps twice and
+    captured steps once from one state, held to the gates; 4 steps in one
+    call against 4 single replays; the accumulators drained after the
+    replays against the eager ones. Without it (as every other phase runs):
+    a fresh trainer's captured step against its eager one, printed with
+    the ops whose float atomics make two eager runs differ; the capture's
+    launches and the graph's hand-written kernel nodes against the eager
+    step's; eager and captured ms per step. Returns (the capture's launches,
+    the timing dict)."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch import graphs
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.training import Metrics
+
+    dtype, precision = GRAPH_MODES[mode]
+    mcfg = dataclasses.replace(cfg, matmul_precision=precision)
+    batch_np, g, _ = bench.padded_batch(mcfg, mols)
+    if dtype == "bfloat16":
+        loss_tol = update_tol = acc_tol = BF16_CARD_VS_CPU
+    else:
+        loss_tol, update_tol, acc_tol = CAPTURED_LOSS_RTOL, CAPTURED_UPDATE_REL_L2, 1e-5
+
+    def setup(debug=False):
+        trainer, state = make_trainer(mcfg, dtype, device)
+        trainer.graph_debug = debug
+        batch = to_torch(batch_np, device)
+        words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
+        return (trainer, state, batch, words, trainer.train_step_fn(), state_copy(state),
+                state.params.clone())
+
+    # warn_only: an op without a deterministic implementation warns (and two
+    # eager runs then differ, which the log shows) instead of raising
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        trainer, state, batch, words, step_fn, start, p0 = setup()
+        eager = lambda: trainer.train_step(state, batch, 1.0)[1]  # noqa: E731
+        captured = lambda: step_fn(state, words, 1.0)[1]  # noqa: E731
+        a, b, c = (five_steps(trainer, state, start, p0, fn) for fn in (eager, eager, captured))
+        (ab, ab_equal), (ca, ca_equal) = run_diffs(b, a, p0), run_diffs(c, a, p0)
+        log(f"  {mode}, deterministic algorithms: {CAPTURED_STEPS} steps, losses eager "
+            f"{', '.join(f'{x:.6f}' for x in a[0])}; two eager runs bit-equal {ab_equal} "
+            f"({', '.join(f'{x:.3e}' for x in ab)}); captured vs eager bit-equal {ca_equal}: "
+            f"max loss rel {ca[0]:.3e}, update rel L2 {ca[1]:.3e}, accumulators rel "
+            f"{ca[2]:.3e}")
+        if ab_equal:
+            check(ca_equal, f"{mode}: two eager runs are bit-equal and the captured run is not")
+        else:
+            # the autograd engine orders the second backward by sequence
+            # numbers that the forward's thread and the first backward's
+            # device thread count apart, so where they interleave can move
+            # from step to step, and with it the order gradients are summed
+            same, where = op_order(trainer, state, batch, start)
+            log(f"    two eager steps ran their ops in one order: {same}"
+                + ("" if same else f"; they part at op {where} (the autograd engine's order "
+                   "of the backward, and so of its gradient sums)"))
+        check(ca[0] <= loss_tol and ca[1] <= update_tol and ca[2] <= acc_tol,
+              f"{mode}: the captured step disagrees with the eager one")
+
+        # K steps per call against K single replays, from the same start
+        rows = words.reshape(1, -1).expand(STEPS_PER_CALL, -1).contiguous()
+        outs = []
+        for call in ("single", "multi"):
+            state_restore(state, start)
+            if call == "single":
+                for _ in range(STEPS_PER_CALL):
+                    metrics = step_fn(state, words, 1.0)[1]
+            else:
+                metrics = trainer.multi_step_fn()(state, rows, 1.0)[1]
+            outs.append((np.array([float(metrics["loss"])]), state.params.clone(),
+                         state.metric_acc.clone()))
+        kd, k_equal = run_diffs(outs[1], outs[0], p0)
+        log(f"  {mode}: {STEPS_PER_CALL} steps in one call vs {STEPS_PER_CALL} single replays: "
+            f"bit-equal {k_equal}, last loss rel {kd[0]:.3e}, update rel L2 {kd[1]:.3e}")
+        check(kd[0] <= loss_tol and kd[1] <= update_tol and kd[2] <= acc_tol,
+              f"{mode}: the K-step call disagrees with K single replays")
+
+        # the accumulators drained after replays, as the eager ones
+        expected = Metrics("eager", trainer.tracked_metrics)
+        for key, (wsum, w) in zip(trainer.tracked_metrics, a[2].cpu().numpy()):
+            expected.update_state(float(w), **{key: wsum / w})
+        five_steps(trainer, state, start, p0, captured)
+        drained = Metrics("train", trainer.tracked_metrics)
+        trainer.drain_metrics(state, drained)
+        got, want = drained.result(append_tag=False), expected.result(append_tag=False)
+        rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+        log(f"  {mode}: drained after {CAPTURED_STEPS} replays, vs the eager accumulators rel "
+            f"{rel:.3e}")
+        check(rel <= acc_tol and float(state.metric_acc.abs().sum()) == 0.0,
+              f"{mode}: drained metrics disagree with the eager accumulators")
+        del trainer, state, batch, words, step_fn, rows
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+
+    # as every other phase runs: index_add with its float atomics
+    trainer, state, batch, words, step_fn, start, p0 = setup(debug=True)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    trainer.train_step(state, batch, 1.0)
+    torch.cuda.synchronize()
+    eager_launches = collections.Counter(_cuda.LAUNCHES)
+    eager = lambda: trainer.train_step(state, batch, 1.0)[1]  # noqa: E731
+    captured = lambda: step_fn(state, words, 1.0)[1]  # noqa: E731
+    a, b, c = (five_steps(trainer, state, start, p0, fn) for fn in (eager, eager, captured))
+    (ab, ab_equal), (ca, ca_equal) = run_diffs(b, a, p0), run_diffs(c, a, p0)
+    ops = [] if ab_equal else nondeterministic_ops(batch, device)
+    log(f"  {mode}, default algorithms: two eager runs bit-equal {ab_equal} (max loss rel, "
+        f"update rel L2, accumulators rel: {', '.join(f'{x:.3e}' for x in ab)}); captured vs "
+        f"eager bit-equal {ca_equal} ({', '.join(f'{x:.3e}' for x in ca)}); ops whose two "
+        f"runs differ in their bits: {ops}")
+    cap = trainer._captured[1]
+    n_calls = sum(TRAIN_LAUNCHES[mode].values())
+    nodes, handwritten = graphs.kernel_nodes(cap.graph, os.path.join(workdir, f"{mode}.dot"))
+    log(f"  {mode}: captured in {cap.seconds:.2f} s (warm-up included); the capture recorded "
+        f"{sum(cap.launches.values())} hand-written kernel launches (eager step: "
+        f"{sum(eager_launches.values())}, pinned {n_calls}); the graph holds {nodes} kernel "
+        f"nodes, {handwritten} of them hand-written")
+    check(cap.launches == eager_launches and sum(cap.launches.values()) == n_calls,
+          f"{mode}: the capture's launches {dict(cap.launches)} are not the eager step's")
+    check(handwritten == n_calls, f"{mode}: the graph holds {handwritten} hand-written kernel "
+          f"nodes, the step launches {n_calls}")
+    timing = {}
+    if mode != "high":
+        timing = time_eager_and_captured(lambda: eager()["loss"], lambda: captured()["loss"],
+                                         cap.graph, f"{mode} step")
+        timing["agg_per_s"] = (g.n_triplets + g.n_quads) / timing["captured_ms"] * 1e3
+    del trainer, state, batch, words, step_fn, cap
+    torch.cuda.empty_cache()
+    return eager_launches, timing
+
+
+def time_eager_and_captured(eager, captured, graph, what: str, n: int = 20,
+                            warmup: int = 3) -> dict:
+    """ms per call of `eager()` and of `captured()` (a replay of `graph`):
+    host clock around `n` calls ending in torch.cuda.synchronize(), after
+    `warmup`; the peak device memory over each's calls, the captured one's
+    with the graph's private pool (`graphs.pool_mib`) added."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch import graphs
+
+    out = {}
+    for name, fn in (("eager", eager), ("captured", captured)):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) / n * 1e3
+        out[f"{name}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out["pool_mib"] = graphs.pool_mib(graph)
+    out["captured_peak_mib"] += out["pool_mib"]
+    log(f"  {what}: eager {out['eager_ms']:.3f} ms, captured {out['captured_ms']:.3f} ms "
+        f"({n} calls each); peak {out['eager_peak_mib']:.1f} / {out['captured_peak_mib']:.1f} "
+        f"MiB, the graph pool {out['pool_mib']:.1f} MiB of it")
+    return out
+
+
+def captured_predict(cfg, mols, device):
+    """Phase 11: the captured predict (md.CapturedPredict) of the first 8
+    bench-small molecules against the eager predict on the card and the
+    CPU (rtol SERVE_RTOL on E and F); ms per request of the bench-small
+    batch, eager and captured. Returns (the capture's launches, timing)."""
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.md import CapturedPredict
+
+    model = make_model(cfg, device)
+    sub_np, _, _ = bench.padded_batch(cfg, mols[:8])
+    cap = CapturedPredict(model, device)
+    E, F = (t.cpu().numpy() for t in cap(sub_np))
+    E_eager, F_eager = (t.cpu().numpy() for t in predict(model, to_torch(sub_np, device)))
+    E_cpu, F_cpu = (t.numpy() for t in predict(copy.deepcopy(model).to("cpu"),
+                                                to_torch(sub_np, "cpu")))
+    n_sub = sum(len(z) for z, _ in mols[:8])
+    errs = [close(a[:k], b[:k], SERVE_RTOL) for a, b, k in
+            ((E, E_eager, 8), (F, F_eager, n_sub), (E, E_cpu, 8), (F, F_cpu, n_sub))]
+    log(f"  captured predict, first 8 molecules: max |dE| {errs[0][1]:.3e}, |dF| "
+        f"{errs[1][1]:.3e} vs eager on the card; |dE| {errs[2][1]:.3e}, |dF| {errs[3][1]:.3e} "
+        f"vs the CPU (rtol {SERVE_RTOL})")
+    check(all(ok for ok, _ in errs), "the captured predict disagrees with the eager one or "
+          "the CPU")
+    launches = cap._captured[1].launches
+    # a request of the bench-small batch, its tensors (eager) or its packed
+    # words (captured) already on the card, as phase 5 times it
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    batch = to_torch(batch_np, device)
+    full = CapturedPredict(model, device)
+    t0 = time.perf_counter()
+    row = full.packer.pack(batch_np)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    words = full.packer.to_device(row, device)
+    full(words)  # the capture
+    timing = time_eager_and_captured(lambda: predict(model, batch), lambda: full(words),
+                                     full._captured[1].graph, "request (bench-small batch)")
+    timing["molecules_per_s"] = len(mols) / timing["captured_ms"] * 1e3
+    timing["pack_ms"] = pack_ms
+    log(f"  packing the bench-small batch on the host: {pack_ms:.1f} ms ({row.nbytes / 2**20:.1f} "
+        "MiB)")
+    return launches, timing
+
+
+def md_run(cfg, mols, device):
+    """Phase 11: MD_STEPS captured Velocity Verlet steps on the first
+    bench-small molecule: the energy drift against tests/test_md.py's bound
+    (5 x max(1e-3, std of E)); the predict captured once."""
+    from gemnet_pytorch_tpu_torch.data import Molecule
+    from gemnet_pytorch_tpu_torch.md import MDSimulator
+
+    Z, R = mols[0]
+    mol = Molecule(R, Z, cfg.cutoff, cfg.int_cutoff, triplets_only=cfg.triplets_only)
+    sim = MDSimulator(mol, make_model(cfg, device), max_steps=MD_STEPS, device=device,
+                      **MD_SETTINGS)
+    t0 = time.perf_counter()
+    traj = sim.run()
+    sec = time.perf_counter() - t0
+    etot = [traj.frames_E[i] + 0.5 * float((sim.masses * traj.frames_v[i] ** 2).sum())
+            for i in range(len(traj))]
+    drift = abs(etot[-1] - etot[0])
+    bound = 5 * max(1e-3, float(np.std(traj.frames_E)))
+    log(f"  MD: {MD_STEPS} Verlet steps of {MD_SETTINGS['time']} fs on a {len(Z)}-atom bench "
+        f"molecule in {sec:.2f} s ({sec / MD_STEPS * 1e3:.2f} ms a step, graph build included), "
+        f"{sim.calc.captured.captures} capture(s); E_tot {etot[0]:.6f} -> {etot[-1]:.6f} eV, "
+        f"drift {drift:.3e} eV (bound {bound:.3e})")
+    check(len(traj) == MD_STEPS and np.isfinite(etot).all(), "MD: non-finite trajectory")
+    check(drift < bound, "MD: the total energy drifts past the bound")
+    return dict(md_ms_per_step=sec / MD_STEPS * 1e3, md_drift=drift)
+
+
+def graphs_phase(cfg, mols, device, workdir: str):
+    """Phase 11. Returns (the launches its graphs hold, by kernel and shape;
+    the timings)."""
+    n = capacity_plans(cfg, device)
+    log(f"  {n} kernel cases bit-equal on capacity and exact plans")
+    census, timing = collections.Counter(), {}
+    for mode in GRAPH_MODES:
+        launches, timing[mode] = captured_steps(cfg, mols, device, mode, workdir)
+        census.update(launches)
+    launches, timing["request"] = captured_predict(cfg, mols, device)
+    census.update(launches)
+    timing["md"] = md_run(cfg, mols, device)
+    return census, timing
+
+
 # ---------------------------------------------------------------- bench
 
 def run_bench(workdir: str, windows: int = 3):
-    """Phase 10: `gemnet_pytorch_tpu_torch.bench` in-process with --profile,
-    both workloads and both dtypes, `windows` timed windows each. It prints
-    its JSON line; the line must hold every BENCH_KEYS value, no step below
-    its floor, a kernel census of one step equal to the pinned launches, and
-    K1-K3 in both workloads' traces. Returns (launches by kernel and shape, the JSON)."""
+    """Phase 10: `gemnet_pytorch_tpu_torch.bench` in-process with --profile
+    and K steps per call (BENCH_ARGS), both workloads and both dtypes,
+    `windows` timed windows each (the captured step). It prints its JSON
+    line; the line must hold every BENCH_KEYS value, no step below its
+    floor, a kernel census of one step equal to the pinned launches, and
+    K1-K3 in both workloads' traces of the captured step. Returns (launches
+    by kernel and shape, the JSON)."""
     import os
 
     import torch
@@ -961,7 +1401,7 @@ def run_bench(workdir: str, windows: int = 3):
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    out = bench.run(bench.parse_args(["--profile", os.path.join(workdir, "trace")]),
+    out = bench.run(bench.parse_args(["--profile", os.path.join(workdir, "trace"), *BENCH_ARGS]),
                     windows=windows)
     torch.cuda.synchronize()
     census = dict(_cuda.LAUNCHES)
@@ -980,12 +1420,22 @@ def run_bench(workdir: str, windows: int = 3):
               f"the bench's trace readback: {step_ms} ms a {prefix}step, groups {groups}")
     check(all(set(out[f"{k}_peak_mib"]) == {"bfloat16", "float32"} for k in bench.KINDS),
           "the bench reports no peak memory of a workload and dtype")
+    check(out["steps_per_call"] == 2 and out["large_scan"] == 4,
+          f"the bench ran {out['steps_per_call']} steps per call, large scan {out['large_scan']}")
+    log(f"  K steps per call: small scan2 {out['scan_ms']:.3f} ms/step vs single "
+        f"{out['small_ms_median']:.3f}; large scan4 {out['large_scan_ms']:.3f} vs single "
+        f"{out['large_ms_median']:.3f} (dispatch overhead {out['large_dispatch_overhead_ms']:.3f} "
+        "ms/step)")
     return census, out
 
 
 # ---------------------------------------------------------------- main
 
 def main() -> int:
+    # cuBLAS sums in a fixed order only with a fixed workspace configuration,
+    # which torch.use_deterministic_algorithms asks for (phase 11); it is
+    # read at the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1075,14 +1525,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="gemnet_bench_") as workdir:
         bench_census, bench_out = run_bench(workdir)
 
+    log(f"== 11. CUDA graphs: capacity plans, the captured train steps (fp32, bf16, 'high'), "
+        f"{STEPS_PER_CALL} steps per call, the captured predict, MD [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_graphs_") as workdir:
+        _cuda.reset_launches()
+        graph_census, graph_timing = graphs_phase(cfg, mols, device, workdir)
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
-             "train_high": high_census, "probe": probe_census, "bench": bench_census}
+             "train_high": high_census, "probe": probe_census, "bench": bench_census,
+             "graph": graph_census}
     # each row's own paths, where it must have launched (at the large
     # shapes only the bench's steps run, in fp32 and bf16: no path runs
-    # split3 there)
-    own = {"f32": ("serve", "train_fp32"), "bf16": ("train_bf16",),
-           "split3": ("serve_high", "train_high")}
+    # split3 there); "graph": the launches the captured graphs hold
+    own = {"f32": ("serve", "train_fp32", "graph"), "bf16": ("train_bf16", "graph"),
+           "split3": ("serve_high", "train_high", "graph")}
     own_large = {"f32": ("bench",), "bf16": ("bench",), "split3": ()}
     cases += large
     kernels = []
@@ -1123,7 +1580,12 @@ def main() -> int:
         + "; ".join(f"train {dt} {t['ms_per_step']:.3f} ms/step, {t['agg_per_s']:.4e} "
                     f"triplets+quads/s" for dt, t in train_timing.items())
         + f"; bench {bench_out['value']:.4e} agg/s (bf16 small), large "
-        f"{bench_out['large_agg_per_s']:.4e}")
+        f"{bench_out['large_agg_per_s']:.4e}; captured "
+        + "; ".join(f"{dt} step {graph_timing[dt]['captured_ms']:.3f} ms (eager "
+                    f"{graph_timing[dt]['eager_ms']:.3f})" for dt in ("bfloat16", "float32"))
+        + f"; request {graph_timing['request']['captured_ms']:.3f} ms (eager "
+        f"{graph_timing['request']['eager_ms']:.3f}); MD {graph_timing['md']['md_ms_per_step']:.2f}"
+        " ms/step")
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

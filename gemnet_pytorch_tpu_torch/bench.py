@@ -3,7 +3,8 @@ the GemNet-Q train step on one card, with a roofline against the H100's
 published peaks (the counterpart of the repository's `bench.py`).
 
     python -m gemnet_pytorch_tpu_torch.bench [--profile DIR] [--compute-dtype float32|bfloat16]
-        [--skip-large] [--skip-f32] [--skip-roofline] [--device cuda|cpu]
+        [--skip-large] [--skip-f32] [--skip-roofline] [--steps-per-call K]
+        [--large-scan K] [--device cuda|cpu]
 
 GemNet-Q at the config.yaml widths (`ModelConfig()` and `TrainConfig()`
 defaults, which equal config.yaml), -dE/dR forces, random weights from seed
@@ -16,24 +17,32 @@ two workloads made from `default_rng(0)`:
 Timing (perf/timing.py): chained steps (the step threads its state; the
 forward threads a zero scalar) in windows that end in a value fetch of the
 last output; the median, best and spread (max - min) of the windows. The
-headline dtype is bf16 streams; `--compute-dtype float32` makes fp32 the
-headline, and the fp32 A/B runs in its own block on both workloads. Peak
-memory is `torch.cuda.max_memory_allocated` over the timed windows.
+step timed is the Trainer's `train_step_fn()`, the counterpart of the jitted
+step `bench.py` times: on the card a CUDA graph replay, its packed batch
+resident on the device as the JAX bench's batch is. The headline dtype is
+bf16 streams; `--compute-dtype float32` makes fp32 the headline, and the
+fp32 A/B runs in its own block on both workloads. Peak memory is
+`torch.cuda.max_memory_allocated` over the timed windows plus the step
+graph's private pool (`graphs.pool_mib`), which a replay uses and the
+allocator no longer counts as allocated. `--steps-per-call K` (> 1) adds a window of K steps per call
+(`Trainer.multi_step_fn`) on each workload, and `--large-scan K` (default
+4, 0 or 1 off) one on the large workload (bench.py:321-366): their ms per
+step, agg/s, and the large workload's single-step ms less its scan ms per
+step (`large_dispatch_overhead_ms`).
 
-Roofline (perf/roofline.py): the headline step's kernel census and aten
-counts priced against the published peaks; the card's peaks are calibrated
+Roofline (perf/roofline.py): the headline eager step's kernel census and
+aten counts (the same kernels the graph holds) priced against the published
+peaks; the card's peaks are calibrated
 and checked first, and a failed calibration fails the run. `--profile DIR`
 traces 10 steps of each workload after its timed windows, each inside
-record_function("step"), into DIR/<workload>/trace.json, and reads the
-trace back (perf/trace.py): the device ms of a step and by kernel group,
-and its share of the median step (`*_device_busy`); a failed readback fails
-the run.
+record_function("step") (graph replays, as timed), into
+DIR/<workload>/trace.json, and reads the trace back (perf/trace.py): the
+device ms of a step and by kernel group, and its share of the median step
+(`*_device_busy`); a failed readback fails the run.
 
 The last line of stdout is one JSON object. It runs on the card unless
 `--device cpu` is given, and fails at once without one. A CPU run prints
-"device": "cpu" and null for every share of a device peak. Not ported:
-`--steps-per-call` and `--large-scan` take 1 only (their default here):
-K steps per call waits for CUDA graphs over the step. There is no
+"device": "cpu" and null for every share of a device peak. There is no
 `vs_baseline`: the repository's anchors are TPU numbers.
 """
 
@@ -49,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from . import graphs
 from .config import ModelConfig, TrainConfig
 from .data import PadDims, build_graph, pad_batch, scale_graph_dims, to_torch
 from .data.synthetic import random_molecule, toy_energy_forces
@@ -125,22 +135,29 @@ def make_trainer(cfg, tcfg, device):
     return trainer, trainer.init_state()
 
 
-def measure_train_step(trainer, state, batch, rtt, tag, device, **windows):
-    """Seconds per train step from chained value-fetch windows (the step
-    threads its state), and the peak device memory over them. Returns
-    (timing dict of timed_windows + "peak_mib")."""
+def measure_train_step(trainer, state, words, rtt, tag, device, **windows):
+    """Seconds per train step (`train_step_fn()` on the packed batch `words`)
+    from chained value-fetch windows (the step threads its state), and the
+    peak device memory over them. Returns (timing dict of timed_windows +
+    "peak_mib")."""
     on_card = device.type == "cuda"
+    step = trainer.train_step_fn()
     t0 = time.perf_counter()
-    fetch_scalar(trainer.train_step(state, batch, 1.0)[1]["loss"])
-    log(f"[{tag}] first step: {time.perf_counter() - t0:.1f} s")
+    fetch_scalar(step(state, words, 1.0)[1]["loss"])
+    log(f"[{tag}] first step{' (its capture)' if on_card else ''}: "
+        f"{time.perf_counter() - t0:.1f} s")
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
 
     def train_once():
-        return trainer.train_step(state, batch, 1.0)[1]["loss"]
+        return step(state, words, 1.0)[1]["loss"]
 
     res = timed_windows(train_once, rtt_s=rtt, **windows)
-    res["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20 if on_card else None
+    res["peak_mib"] = None
+    if on_card:
+        pool = graphs.pool_mib(trainer._captured[1].graph)
+        res["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20 + pool
+        log(f"[{tag}] the step's graph pool: {pool:.1f} MiB")
     log(f"[{tag}] train steady: median {res['median_s'] * 1e3:.3f} ms, best "
         f"{res['best_s'] * 1e3:.3f} ms, spread {res['spread_s'] * 1e3:.3f} ms ({res['iters']} "
         f"chained steps/window, rtt {res['rtt_s'] * 1e3:.3f} ms), peak {res['peak_mib']} MiB")
@@ -162,6 +179,22 @@ def measure_forward(trainer, batch, rtt, tag, **windows):
     log(f"[{tag}] fwd steady: median {res['median_s'] * 1e3:.3f} ms, best "
         f"{res['best_s'] * 1e3:.3f} ms ({res['iters']} chained/window)")
     return res
+
+
+def measure_scan(trainer, state, words, k, n_real, rtt, tag, windows):
+    """ms per step of K steps per call (`multi_step_fn` over K copies of the
+    packed batch, resident on the device) and the agg/s they give."""
+    stack = words.reshape(1, -1).expand(k, -1).contiguous()
+    multi = trainer.multi_step_fn()
+    t0 = time.perf_counter()
+    fetch_scalar(multi(state, stack, 1.0)[1]["loss"])
+    log(f"[{tag}] scan{k} first call: {time.perf_counter() - t0:.1f} s")
+    res = timed_windows(lambda: multi(state, stack, 1.0)[1]["loss"], rtt_s=rtt,
+                        **dict(windows, windows=min(3, windows["windows"])))
+    ms = res["median_s"] / k * 1e3
+    log(f"[{tag}] train scan{k} steady: {ms:.3f} ms/step -> {n_real / (ms / 1e3):.4e} "
+        "trip+quad/s")
+    return ms, n_real / (ms / 1e3)
 
 
 def step_roofline(trainer, state, batch, g, dims, peaks, median_s, on_card):
@@ -193,10 +226,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--skip-roofline", action="store_true",
                     help="skip the peak calibration and the cost model")
     ap.add_argument("--steps-per-call", type=int, default=1,
-                    help="K train steps per call: only 1 (K > 1 waits for CUDA graphs)")
-    ap.add_argument("--large-scan", type=int, default=1,
-                    help="K steps per call on the large workload: only 1 (waits for CUDA "
-                    "graphs)")
+                    help="K > 1 adds a window of K train steps per call (multi_step_fn) on "
+                    "each workload")
+    ap.add_argument("--large-scan", type=int, default=4,
+                    help="K for the large workload's window of K steps per call (0 or 1: "
+                    "none); its ms per step against the single step's")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -207,10 +241,8 @@ def run(args: argparse.Namespace, model_overrides: dict | None = None, windows: 
     `model_overrides` applied; print the JSON line last on stdout and
     return it. `windows`, `min_window_s` and `max_iters` go to every
     timed_windows."""
-    if args.steps_per_call > 1 or args.large_scan > 1:
-        raise NotImplementedError(
-            "--steps-per-call / --large-scan > 1 (K train steps per call) wait for CUDA graphs "
-            "over the train step; the port's bench times one step per call")
+    if args.steps_per_call < 1 or args.large_scan < 0:
+        raise ValueError("--steps-per-call takes K >= 1, --large-scan K >= 0")
     device = torch.device(args.device)
     on_card = device.type == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -250,12 +282,17 @@ def run(args: argparse.Namespace, model_overrides: dict | None = None, windows: 
         log(f"[{kind}] batch: {desc}")
         batch = to_torch(batch_np, device)
         trainer, state = make_trainer(cfg, tcfg, device)
+        words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
         res[f"{kind}_n_real"] = n_real
         if kind == "small":
             res["fwd"] = measure_forward(trainer, batch, rtt, kind, **win)
-        t = measure_train_step(trainer, state, batch, rtt, kind, device, **win)
+        t = measure_train_step(trainer, state, words, rtt, kind, device, **win)
         res[kind] = t
         log(f"[{kind}] -> {n_real / t['median_s']:.4e} trip+quad/s (median)")
+        k = max(args.steps_per_call, args.large_scan if kind == "large" else 1)
+        if k > 1:
+            res[f"{kind}_scan"] = (k, *measure_scan(trainer, state, words, k, n_real, rtt, kind,
+                                                   win))
         if not args.skip_roofline:
             rep, census = step_roofline(trainer, state, batch, g, dims, peaks, t["median_s"],
                                         on_card)
@@ -269,7 +306,8 @@ def run(args: argparse.Namespace, model_overrides: dict | None = None, windows: 
                 log(f"[{kind}] ERROR: the measured step is below the floor "
                     f"{rep['sol_ms_lo']:.3f} ms: a measurement artifact")
         if args.profile:
-            path = trace.record_trace(lambda: trainer.train_step(state, batch, 1.0)[1]["loss"],
+            step = trainer.train_step_fn()
+            path = trace.record_trace(lambda: step(state, words, 1.0)[1]["loss"],
                                       PROFILE_STEPS, os.path.join(args.profile, kind), "step",
                                       device)
             log(f"[{kind}] profiler trace written to {path}\n"
@@ -280,7 +318,7 @@ def run(args: argparse.Namespace, model_overrides: dict | None = None, windows: 
                                    f"of {path}")
             res[f"{kind}_profile"] = (mt.mean_ms if mt else None,
                                       trace.op_category_summary(path, n_execs=PROFILE_STEPS))
-        del trainer, state, batch
+        del trainer, state, batch, words
         if on_card:
             torch.cuda.empty_cache()
 
@@ -289,21 +327,23 @@ def run(args: argparse.Namespace, model_overrides: dict | None = None, windows: 
         f32_cfg = ModelConfig(**dict(base, compute_dtype="float32"))
         for kind in kinds:
             batch_np, n_real, _, _, _ = make_batch(f32_cfg, kind)
-            batch = to_torch(batch_np, device)
             trainer, state = make_trainer(f32_cfg, tcfg, device)
-            f32[kind] = measure_train_step(trainer, state, batch, rtt, f"{kind}/f32", device,
+            words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
+            f32[kind] = measure_train_step(trainer, state, words, rtt, f"{kind}/f32", device,
                                            **win)
             log(f"[{kind}/f32] -> {n_real / f32[kind]['median_s']:.4e} trip+quad/s")
-            del trainer, state, batch
+            del trainer, state, words
             if on_card:
                 torch.cuda.empty_cache()
 
-    out = report(res, roof, f32, dtype, rtt, peaks_source, peaks, calibrated, where, on_card)
+    out = report(res, roof, f32, dtype, rtt, peaks_source, peaks, calibrated, where, on_card,
+                 args.steps_per_call)
     print(json.dumps(out), flush=True)
     return out
 
 
-def report(res, roof, f32, dtype, rtt, peaks_source, peaks, calibrated, where, on_card) -> dict:
+def report(res, roof, f32, dtype, rtt, peaks_source, peaks, calibrated, where, on_card,
+           steps_per_call=1) -> dict:
     """The JSON object: bench.py's keys where they mean the same thing, and
     the spreads, peak memory per dtype, the device busy share and the card."""
     small = res["small"]
@@ -320,11 +360,14 @@ def report(res, roof, f32, dtype, rtt, peaks_source, peaks, calibrated, where, o
         "fwd_ms_median": res["fwd"]["median_s"] * 1e3,
         "rtt_ms": rtt * 1e3,
         "windows": len(small["windows_s"]),
-        "steps_per_call": 1,
-        "large_scan": None,
+        "steps_per_call": steps_per_call,
+        "large_scan": res["large_scan"][0] if "large_scan" in res else None,
         "peaks_source": peaks_source,
         "device": where,
     }
+    if "small_scan" in res:
+        out["scan_agg_per_s"] = res["small_scan"][2]
+        out["scan_ms"] = res["small_scan"][1]
     if "small" in roof:
         r = roof["small"]
         out.update({k: r[k] for k in ("sol_ms_lo", "sol_ms_hi", "sol_band", "sol_fraction",
@@ -351,6 +394,11 @@ def report(res, roof, f32, dtype, rtt, peaks_source, peaks, calibrated, where, o
         out["large_agg_per_s"] = res["large_n_real"] / large["median_s"]
         out["large_ms_median"] = large["median_s"] * 1e3
         out["large_ms_spread"] = large["spread_s"] * 1e3
+        if "large_scan" in res:
+            _, scan_ms, scan_agg = res["large_scan"]
+            out["large_scan_ms"] = scan_ms
+            out["large_dispatch_overhead_ms"] = out["large_ms_median"] - scan_ms
+            out["large_scan_agg_per_s"] = scan_agg
         if "large" in roof:
             r = roof["large"]
             out.update(large_sol_fraction=r["sol_fraction"], large_below_floor=r["below_floor"],

@@ -18,7 +18,8 @@
 //
 // Design: one launch, one warp per work item. The host cuts each segment's
 // sorted rows into items of at most 64 rows (data/batch.py::segment_plan):
-// items[i] = {segment, first row, end row, partial slot}. A warp loads the
+// items[i] = {segment, first row, end row, partial slot}; a padding item
+// of a capacity plan (segment -1) returns at once. A warp loads the
 // perm entries of 64 rows with two coalesced loads, ahead of the row loads,
 // and hands them out by shuffle. Rows are read whole and vectorised: the
 // warp's lanes split into R row groups of L lanes, each lane loading V
@@ -201,6 +202,7 @@ sorted_segsum_kernel(const T* __restrict__ x, const int* __restrict__ perm,
   if (i >= n_items) return;  // warp-uniform; the kernel has no block barrier
   float* red = red_all[warp];
   const int4 item = items[i];  // segment, row0, row1, slot
+  if (item.x < 0) return;      // a padding item of a capacity plan (warp-uniform)
   const int nv = M / V;        // vectors per row
 
   for (int c0 = 0; c0 < nv; c0 += 32) {

@@ -30,7 +30,11 @@
 // Rows are sorted by segment. The host cuts each segment's rows into work
 // items of at most 128 rows (data/batch.py::segment_plan): items[i] =
 // {segment, first row, end row, partial slot}. Every row lies in exactly one
-// item (the wrapper's precondition).
+// item (the wrapper's precondition). A plan at capacity (fixed by the padded
+// shapes, so a CUDA graph replays on any batch of them) ends in padding
+// items {-1, 0, 0, -1}, padding merges (segment -1) and tree nodes no slot
+// feeds: every kernel skips a padding item before it reads a row, and the
+// real items keep their order, so the results are those of the exact plan.
 //
 // What bounds them on an H100: bytes. K1 reads a (n*S) and b (n*M) once and
 // writes out (S*nSeg*M) once: 2*S*M flops per row over 4*(S+M) bytes is ~8
@@ -88,6 +92,7 @@ __global__ void outer_sum_kernel(const T* __restrict__ a,
   float* a_s = smem;               // [kChunk][S]
   float* b_s = smem + kChunk * S;  // [kChunk][M]
   const int4 item = items[blockIdx.x];  // segment, row0, row1, slot
+  if (item.x < 0) return;  // a padding item of a capacity plan (block-uniform)
   const int tid = threadIdx.x;
   const int m = tid % M;  // blockDim.x == G * M
   const int g = tid / M;  // this thread owns s = g, g + G, ...
@@ -133,6 +138,7 @@ __global__ void outer_sum_merge_kernel(const float* __restrict__ partial,
                                        int n_seg, int S, int M) {
   const int j = blockIdx.x;
   const int e = merge_seg[j];
+  if (e < 0) return;  // a padding merge of a capacity plan
   const int k0 = merge_ptr[j], k1 = merge_ptr[j + 1];
   for (int i = threadIdx.x; i < S * M; i += blockDim.x) {
     float acc = 0.f;
@@ -254,6 +260,7 @@ outer_sum_split3_kernel(const float* __restrict__ a, const float* __restrict__ b
   bf16* b_lo = b_hi + kChunk * Mp;
   float* c_s = reinterpret_cast<float*>(b_lo + kChunk * Mp);  // [Sp][Mp]
   const int4 item = items[blockIdx.x];  // segment, row0, row1, slot
+  if (item.x < 0) return;  // a padding item of a capacity plan (block-uniform)
   const int warp = threadIdx.x / 32;
   const int tiles_m = Mp / 16;
   const int n_tiles = (Sp / 16) * tiles_m;
@@ -325,7 +332,7 @@ gather_contract_split3_kernel(const float* __restrict__ cot, const float* __rest
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* scratch = reinterpret_cast<float*>(b_lo + kChunk * Mp) + warp * 256;  // 16x16
   const int4 item = items[blockIdx.x];  // segment, row0, row1, slot
-  if (item.y == item.z) return;  // uniform across the block
+  if (item.y == item.z) return;  // uniform across the block; padding items too
 
   for (int i = threadIdx.x; i < Sp * Mp; i += blockDim.x) {
     const int s = i / Mp, m = i - s * Mp;
@@ -573,7 +580,7 @@ gather_contract_warp_kernel(const T* __restrict__ cot, const T* __restrict__ a,
 // The chunks of kTileChunk rows that one block of the tiled and mma
 // kernels computes: those of work items b, b + G, b + 2G, ... (b the block,
 // G the grid), in that order, so the padded segment's items spread over the
-// grid; empty items have none. `cbuf` picks the cotangent buffer of the
+// grid; empty items (padding items among them) have none. `cbuf` picks the cotangent buffer of the
 // chunk's item, the next of kStages for each item. The block's next item is
 // loaded when it enters an item, so moving on does not wait for memory.
 struct ChunkCursor {
@@ -1306,8 +1313,8 @@ __device__ __forceinline__ void mma_split3(float (&d)[4], const unsigned (&ah)[4
 
 // The producer warp: the block's chunks in the consumers' order, each into
 // the next free stage with its descriptor; then a descriptor kEndOfWork.
-// Forward: every item (an empty one writes zeros); backward: the items with
-// rows. kRowB: each b row its own bulk copy, R.L.ldb words from the last;
+// Forward: every item (an empty one writes zeros) but the padding items
+// of a capacity plan (segment -1); backward: the items with rows. kRowB: each b row its own bulk copy, R.L.ldb words from the last;
 // else the chunk's b rows as they lie in memory, one bulk copy. T: the
 // rows' type (fp32, or bf16 for K1's bf16 streams), copied as it is.
 template <typename T, bool kBackward, bool kRowB>
@@ -1333,6 +1340,7 @@ __device__ void ring_produce(const Ring& R, const T* __restrict__ a, const T* __
     const int4 it = next;  // segment, row0, row1, slot
     next = item(k + gridDim.x);
     const int len = it.z - it.y;
+    if (it.x < 0) continue;  // a padding item of a capacity plan
     if (kBackward && len == 0) continue;  // no rows, nothing to write
     for (int c = 0; c == 0 || c * kRingRows < len; ++c, ++q) {
       const int st = acquire();
@@ -2128,17 +2136,21 @@ __device__ __forceinline__ bool warp_next(const int4* __restrict__ items, int n_
     ++cur.c;
     return true;
   }
-  ++cur.j;
   cur.c = 0;
-  if (w + cur.j * W >= n_items) return false;  // warp-uniform
-  if (cur.j % 32 == 0) {
-    const int k = w + (cur.j + lane) * W;
-    cur.mine = k < n_items ? items[k] : make_int4(0, 0, 0, 0);
+  for (;;) {  // the warp's next item, past the padding items of a capacity plan
+    ++cur.j;
+    if (w + cur.j * W >= n_items) return false;  // warp-uniform
+    if (cur.j % 32 == 0) {
+      const int k = w + (cur.j + lane) * W;
+      cur.mine = k < n_items ? items[k] : make_int4(0, 0, 0, 0);
+    }
+    const int l = cur.j % 32;
+    cur.it = make_int4(__shfl_sync(kFullMask, cur.mine.x, l),
+                       __shfl_sync(kFullMask, cur.mine.y, l),
+                       __shfl_sync(kFullMask, cur.mine.z, l),
+                       __shfl_sync(kFullMask, cur.mine.w, l));
+    if (cur.it.x >= 0) return true;  // warp-uniform
   }
-  const int l = cur.j % 32;
-  cur.it = make_int4(__shfl_sync(kFullMask, cur.mine.x, l), __shfl_sync(kFullMask, cur.mine.y, l),
-                     __shfl_sync(kFullMask, cur.mine.z, l), __shfl_sync(kFullMask, cur.mine.w, l));
-  return true;
 }
 
 // fp32 x -> its split3 halves as fp32 values, bit for bit split_hi_lo's:

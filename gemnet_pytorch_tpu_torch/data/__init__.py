@@ -4,6 +4,6 @@ from .padding import (  # noqa: F401
     strip_sort_metadata,
 )
 from .containers import DataContainer, Molecule  # noqa: F401
-from .batch import SegmentPlan, segment_plan, to_torch  # noqa: F401
+from .batch import PlanCapacity, SegmentPlan, plan_capacity, segment_plan, to_torch  # noqa: F401
 from .provider import DataProvider  # noqa: F401
 from .synthetic import make_dataset  # noqa: F401

@@ -21,6 +21,17 @@ the K4 forward at the model's shapes); or, at the shapes those kernels do
 not take, by a second kernel over `merge_ptr` / `merge_seg` (K1's general
 kernel, the K4 forward's wmma kernel).
 Every output is written once and the order of summation is fixed.
+
+A plan has a fixed capacity (`plan_capacity`): its items, merges, tree
+nodes and slots are padded to bounds set by the row count, the segment
+count and `item_rows` alone, so two batches of one `PadDims` give plans of
+the same shapes and the same Python ints, and a CUDA graph captured on one
+replays on the other. A padding item is [-1, 0, 0, -1] (segment -1: no
+kernel mistakes it for an empty real segment, whose item writes zeros), a
+padding merge has segment -1 and an empty slot range, a padding tree node
+[0, 0, -1, -1] is never reached (no real slot feeds it). The kernels skip
+them; the real items keep their order, so a capacity plan gives the same
+bits as the exact one (`capacity=False`).
 """
 
 from __future__ import annotations
@@ -32,6 +43,16 @@ import torch
 
 from .graph import ragged_range
 from .padding import SORT_META_KEYS
+
+
+class PlanCapacity(NamedTuple):
+    """Sizes of a plan at capacity (see `plan_capacity`)."""
+
+    items: int
+    partials: int
+    merges: int
+    nodes: int
+    tree_slots: int
 
 
 class SegmentPlan(NamedTuple):
@@ -97,6 +118,38 @@ def merge_tree(merge_ptr: np.ndarray, merge_seg: np.ndarray,
     return np.asarray(nodes, np.int64).reshape(-1, 4), parent
 
 
+def plan_capacity(n_rows: int, n_segments: int, item_rows: int) -> PlanCapacity:
+    """Bounds on a plan's sizes over any ids of `n_rows` rows in `n_segments`
+    segments cut into items of `item_rows` (tests/test_torch_plans.py holds
+    them against every plan it draws):
+    - items: a segment of l rows takes max(1, ceil(l / r)) <= 1 + floor(l / r)
+      items, so items <= n_segments + floor(n_rows / r) <= n_segments +
+      ceil(n_rows / r);
+    - partials: the items of split segments (l > r), ceil(l / r) <=
+      2 floor(l / r) each, so partials <= 2 floor(n_rows / r), and <= items;
+    - merges: a split segment has at least 2 items, so merges <= partials // 2;
+    - the merge tree (`merge_tree`) of a split segment of k items has levels
+      of c_0 = ceil(k / 16), c_1 = ceil(c_0 / 16), ... nodes down to one
+      root; a level of c >= 2 nodes feeds one of at most c / 2, so the
+      non-root nodes number at most 2 c_0 <= (k + 15) / 8, which is 0 for
+      k <= 16 and <= k / 4 beyond: inner nodes <= partials // 4 in all. A
+      node's output takes a slot unless it is a root, and every split
+      segment has one root: tree slots <= partials + partials // 4, nodes <=
+      merges + partials // 4."""
+    items = n_segments + -(-n_rows // item_rows)
+    partials = min(items, 2 * (n_rows // item_rows))
+    inner = partials // 4
+    return PlanCapacity(items, partials, partials // 2, partials // 2 + inner, partials + inner)
+
+
+def _pad_rows(x: np.ndarray, n: int, fill) -> np.ndarray:
+    """x with rows of `fill` appended up to n rows (raises past n)."""
+    if len(x) > n:
+        raise ValueError(f"{len(x)} rows exceed the plan's capacity {n}")
+    pad = np.broadcast_to(np.asarray(fill, x.dtype), (n - len(x),) + x.shape[1:])
+    return np.concatenate([x, pad])
+
+
 # plan key -> (sorted id column, column whose length is the number of
 # segments, rows per work item). K1/K2 items at the quadruplet shape hold
 # whole (S, M) tiles, so they are long enough that real quadruplet segments
@@ -121,12 +174,15 @@ SEGMENT_PLANS = {
 }
 
 
-def segment_plan(sorted_ids: np.ndarray, n_segments: int, item_rows: int,
-                 device) -> SegmentPlan:
-    """Work items of ascending `sorted_ids` over `n_segments` segments.
+# the plan's int32 arrays, in the order SegmentPlan holds them; the arrival
+# counters are not among them (they start at zero, see SegmentPlan)
+PLAN_ARRAYS = ("items", "merge_ptr", "merge_seg", "tree_nodes", "tree_parent")
 
-    Raises when an id lies outside [0, n_segments): the kernels own every row
-    through exactly one segment, and would leave such a row unwritten."""
+
+def plan_arrays(sorted_ids: np.ndarray, n_segments: int, item_rows: int,
+                capacity: bool = True) -> tuple[dict[str, np.ndarray], int, int]:
+    """(the PLAN_ARRAYS as int32 numpy arrays, n_partials, n_tree_slots) of
+    `segment_plan`."""
     sorted_ids = np.asarray(sorted_ids)
     ptr = np.searchsorted(sorted_ids, np.arange(n_segments + 1), side="left")
     if len(sorted_ids) and (ptr[-1] != len(sorted_ids) or sorted_ids[0] < 0):
@@ -140,20 +196,49 @@ def segment_plan(sorted_ids: np.ndarray, n_segments: int, item_rows: int,
     slot = np.where(split, np.cumsum(split) - 1, -1)
     merge_seg = np.nonzero(per_seg > 1)[0]
     merge_ptr = np.concatenate([[0], np.cumsum(per_seg[merge_seg])])
-    items = np.stack([seg, row0, row1, slot], axis=1).astype(np.int32)
-
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
-
+    items = np.stack([seg, row0, row1, slot], axis=1)
     n_partials = int(split.sum())
     nodes, parent = merge_tree(merge_ptr, merge_seg, n_partials)
-    return SegmentPlan(t(items), t(merge_ptr), t(merge_seg), int(n_segments), n_partials,
-                       t(np.zeros(len(merge_seg))), t(nodes), t(parent), t(np.zeros(len(nodes))),
-                       len(parent))
+    n_tree_slots = len(parent)
+    if capacity:
+        cap = plan_capacity(len(sorted_ids), n_segments, item_rows)
+        items = _pad_rows(items, cap.items, [-1, 0, 0, -1])
+        merge_ptr = _pad_rows(merge_ptr, cap.merges + 1, merge_ptr[-1])
+        merge_seg = _pad_rows(merge_seg, cap.merges, -1)
+        nodes = _pad_rows(nodes, cap.nodes, [0, 0, -1, -1])
+        parent = _pad_rows(parent, cap.tree_slots, -1)
+        n_partials, n_tree_slots = cap.partials, cap.tree_slots
+    arrays = dict(zip(PLAN_ARRAYS, (items, merge_ptr, merge_seg, nodes, parent)))
+    return ({k: np.ascontiguousarray(v, dtype=np.int32) for k, v in arrays.items()},
+            n_partials, n_tree_slots)
 
 
-def to_torch(batch: dict[str, np.ndarray], device) -> dict:
-    """Padded numpy batch -> tensors on `device`, plus the segment plans."""
+def segment_plan(sorted_ids: np.ndarray, n_segments: int, item_rows: int, device,
+                 capacity: bool = True) -> SegmentPlan:
+    """Work items of ascending `sorted_ids` over `n_segments` segments, padded
+    to `plan_capacity` (or exactly as many as the ids need, `capacity=False`).
+
+    Raises when an id lies outside [0, n_segments): the kernels own every row
+    through exactly one segment, and would leave such a row unwritten."""
+    arrays, n_partials, n_tree_slots = plan_arrays(sorted_ids, n_segments, item_rows, capacity)
+    t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    return make_plan(t, int(n_segments), n_partials, n_tree_slots,
+                     torch.zeros(len(arrays["merge_seg"]), dtype=torch.int32, device=device),
+                     torch.zeros(len(arrays["tree_nodes"]), dtype=torch.int32, device=device))
+
+
+def make_plan(arrays: dict, n_segments: int, n_partials: int, n_tree_slots: int,
+              arrivals: torch.Tensor, tree_arrivals: torch.Tensor) -> SegmentPlan:
+    """A SegmentPlan of the PLAN_ARRAYS tensors `arrays` (items as given, or
+    flat and made (n, 4)) and zeroed arrival counters."""
+    return SegmentPlan(arrays["items"].reshape(-1, 4), arrays["merge_ptr"], arrays["merge_seg"],
+                       n_segments, n_partials, arrivals, arrays["tree_nodes"].reshape(-1, 4),
+                       arrays["tree_parent"], tree_arrivals, n_tree_slots)
+
+
+def to_torch(batch: dict[str, np.ndarray], device, capacity: bool = True) -> dict:
+    """Padded numpy batch -> tensors on `device`, plus the segment plans (at
+    capacity, or exact with `capacity=False`)."""
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
@@ -166,5 +251,6 @@ def to_torch(batch: dict[str, np.ndarray], device) -> dict:
         out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
     for key, (ids_key, size_key, item_rows) in SEGMENT_PLANS.items():
         if ids_key in batch:
-            out[key] = segment_plan(batch[ids_key], len(batch[size_key]), item_rows, device)
+            out[key] = segment_plan(batch[ids_key], len(batch[size_key]), item_rows, device,
+                                    capacity)
     return out

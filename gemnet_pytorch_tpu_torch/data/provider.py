@@ -6,7 +6,9 @@ random or manual splits, save_split, shuffled infinite generators. Batching
 happens in the container (whole index list at once), and every batch is padded
 to one static `PadDims`, so every step sees the same shapes. The batches are
 numpy dicts; `data.to_torch` (the Trainer does it) puts them on the trainer's
-device with their segment plans.
+device with their segment plans, or a `transform` (the trainer's
+`BatchPacker.pack`) turns each into one packed buffer in the prefetch
+threads.
 """
 
 from __future__ import annotations
@@ -131,22 +133,30 @@ class DataProvider:
                     yield sel
 
     def get_dataset(
-        self, split: str, batch_size: Optional[int] = None, prefetch_workers: int = 2
+        self, split: str, batch_size: Optional[int] = None, prefetch_workers: int = 2,
+        transform=None,
     ) -> Iterator[dict[str, np.ndarray]]:
         """Infinite padded-batch iterator. With prefetch_workers > 0, batches
         are built by background threads ahead of consumption (numpy padding
         releases the GIL in part), overlapping host-side graph construction
         with device steps — the reference's DataLoader-worker role
-        (data_provider.py:164), absent there by default (num_workers=0)."""
+        (data_provider.py:164), absent there by default (num_workers=0).
+        `transform`, where given, maps each padded batch in the same threads
+        (the JAX provider's, provider.py:125-133): the trainer's
+        `packer.pack` yields packed int32 rows."""
         if split not in self.idx:
             raise KeyError(f"no split {split!r}")
         batch_size = batch_size or self.batch_size
         sels = self._selections(split, batch_size)
 
+        def build(sel):
+            batch = self._build_padded(sel)
+            return transform(batch) if transform is not None else batch
+
         if prefetch_workers <= 0:
             def generator():
                 for sel in sels:
-                    yield self._build_padded(sel)
+                    yield build(sel)
 
             return generator()
 
@@ -155,12 +165,10 @@ class DataProvider:
         def generator():
             pool = ThreadPoolExecutor(max_workers=prefetch_workers)
             try:
-                pending = [
-                    pool.submit(self._build_padded, next(sels)) for _ in range(PREFETCH_DEPTH)
-                ]
+                pending = [pool.submit(build, next(sels)) for _ in range(PREFETCH_DEPTH)]
                 while True:
                     fut = pending.pop(0)
-                    pending.append(pool.submit(self._build_padded, next(sels)))
+                    pending.append(pool.submit(build, next(sels)))
                     yield fut.result()
             finally:
                 # non-blocking, errors swallowed: the generator may be

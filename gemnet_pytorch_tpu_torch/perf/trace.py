@@ -10,7 +10,10 @@ The readers parse that file back:
   matched to its launch (the runtime call with the same correlation id),
   and counts under every range whose host interval holds the launch,
   whatever thread launched it (the autograd engine launches the backward
-  from its own thread while the step's thread waits in it);
+  from its own thread while the step's thread waits in it). The kernels of
+  a CUDA graph replay carry the correlation id of the `cudaGraphLaunch`
+  that launched the graph (a runtime or driver call like any launch), so a
+  captured step's kernels count under the range that holds its replay;
 - `op_times`, `categorize_op`, `op_category_summary`, `summarize`: device
   time by kernel name and by group (the hand-written kernels K1-K4, K4 by
   direction; elementwise; gathers and their backwards; GEMM; other).

@@ -4,7 +4,8 @@ repository's `train.py` (reference train_seml.py:42-387).
     python -m gemnet_pytorch_tpu_torch.train [--config config.yaml] [--num-steps N]
         [--dataset PATH] [--batch-size B] [--evaluation-interval N]
         [--save-interval N] [--logdir DIR] [--restart RUN_DIR]
-        [--synthetic-molecules N] [--export-torch OUT.pth] [--device cuda|cpu]
+        [--synthetic-molecules N] [--export-torch OUT.pth] [--steps-per-call K]
+        [--device cuda|cpu]
 
 It builds the model, data and Trainer from the flat config schema
 (config.yaml), and runs the step loop with periodic checkpoints, validation
@@ -13,14 +14,21 @@ stopping. It runs on the card unless `--device cpu` is given, and raises if
 CUDA is asked for and absent. When the configured dataset is missing, a
 synthetic COLL-like dataset is generated in the run directory.
 
+The batches are packed into one buffer each in the provider's prefetch
+threads (`Trainer.packer`), and each step is the Trainer's
+`train_step_fn()`: a CUDA graph replay on the card. `--steps-per-call K`
+runs up to K steps per host call (`Trainer.train_on_batches`), in chunks
+cut as the repository's train.py cuts them (`chunk_steps`). Validation on
+the EMA weights runs the eager step.
+
 `main(argv)` parses the flags into a config dict; `run(config, ...)` trains
 from such a dict, so a caller without PyYAML (the card's machine) passes
 the dict itself. `--config` is read only when given and present.
 
 Not ported, and refused: the parallel modes (`--dp`, `--ep`, `--halo`,
-`--dp-halo`, `--pp`, `--tp`, `--coordinator`), `--steps-per-call` (waits for
-CUDA graphs) and the `GEMNET_SWEEP_OVERRIDES` environment variable (a
-caller passes its overrides in `run`'s config dict instead).
+`--dp-halo`, `--pp`, `--tp`, `--coordinator`) and the
+`GEMNET_SWEEP_OVERRIDES` environment variable (a caller passes its
+overrides in `run`'s config dict instead).
 """
 
 from __future__ import annotations
@@ -49,8 +57,9 @@ from .training import (
 
 # flags of the repository's train.py this driver refuses, with their "unset" value
 UNPORTED_FLAGS = {"dp": 0, "ep": 0, "halo": 0, "dp_halo": None, "pp": 0, "pp_micro": 0,
-                  "tp": 0, "coordinator": None, "num_processes": None, "process_id": None,
-                  "steps_per_call": 1}
+                  "tp": 0, "coordinator": None, "num_processes": None, "process_id": None}
+# the loop's 10-step logging boundary (train.py:397)
+LOG_INTERVAL = 10
 OVERRIDES = ("num_steps", "dataset", "batch_size", "logdir", "restart",
              "evaluation_interval", "save_interval")
 
@@ -69,6 +78,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--export-torch", default=None,
                    help="after training, export the EMA weights as a reference-loadable "
                    ".pth state dict (compat.save_reference_checkpoint)")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="up to K train steps per host call (Trainer.multi_step_fn)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, unset in UNPORTED_FLAGS.items():
         p.add_argument("--" + flag.replace("_", "-"), default=unset,
@@ -84,8 +95,8 @@ def main(argv=None) -> dict:
              if getattr(args, k) != unset]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: the parallel modes and --steps-per-call are not ported to the "
-            "PyTorch driver; it trains on one device, one step per call")
+            f"{', '.join(asked)}: the parallel modes are not ported to the PyTorch driver; it "
+            "trains on one device")
     if os.environ.get("GEMNET_SWEEP_OVERRIDES"):
         raise NotImplementedError(
             "GEMNET_SWEEP_OVERRIDES is not read by the PyTorch driver: pass the overrides in "
@@ -102,7 +113,18 @@ def main(argv=None) -> dict:
         if val is not None:
             config[key] = val
     return run(config, device=args.device, synthetic_molecules=args.synthetic_molecules,
-               export_torch=args.export_torch)
+               export_torch=args.export_torch, steps_per_call=args.steps_per_call)
+
+
+def chunk_steps(step: int, num_steps: int, steps_per_call: int, intervals, lr_changed: bool) -> int:
+    """Steps of the next call (train.py:394-405): up to `steps_per_call` and
+    the steps left, cut so that no chunk crosses a multiple of any of
+    `intervals` (logging, checkpoints, evaluation), and 1 where the
+    plateau's delayed lr (`lr_changed`) applies to one step alone."""
+    k = min(steps_per_call, num_steps - step)
+    for interval in intervals:
+        k = min(k, interval - step % interval)
+    return 1 if lr_changed else k
 
 
 def run_directory(tcfg) -> str:
@@ -119,10 +141,13 @@ def run_directory(tcfg) -> str:
 
 
 def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
-        export_torch: Optional[str] = None) -> dict:
+        export_torch: Optional[str] = None, steps_per_call: int = 1) -> dict:
     """Train from a flat config dict (config.yaml's keys; missing keys take
-    the ModelConfig/TrainConfig defaults). Returns the best validation
-    metrics as {f"{key}_best": value}, as the repository's train.py does."""
+    the ModelConfig/TrainConfig defaults), up to `steps_per_call` steps per
+    host call. Returns the best validation metrics as {f"{key}_best":
+    value}, as the repository's train.py does."""
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call {steps_per_call} < 1")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA was asked for and no CUDA device is available; "
@@ -180,9 +205,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     else:
         best_metrics.initialize()
 
-    # ---- loop (train.py:384-608, one device, one step per call) ----
-    train_iter = provider.get_dataset("train")
-    val_iter = provider.get_dataset("val")
+    # ---- loop (train.py:384-608, one device) ----
+    train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
+    val_iter = provider.get_dataset("val", transform=trainer.packer.pack)
     try:
         steps_per_epoch = int(np.ceil(num_train / tcfg.batch_size))
         n_val_batches = int(np.ceil(num_val / tcfg.batch_size))
@@ -195,15 +220,22 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         # to reproduce that (train.py:388-393).
         lr_eff = plateau.lr_scale
         while step < tcfg.num_steps:
-            step += 1
+            k = chunk_steps(step, tcfg.num_steps, steps_per_call,
+                            (LOG_INTERVAL, tcfg.save_interval, tcfg.evaluation_interval),
+                            lr_eff != plateau.lr_scale)
+            step += k
             # metrics accumulate on the device, drained at eval intervals
-            state, _ = trainer.train_on_batch(state, next(train_iter), lr_eff)
+            if k > 1:
+                state, _ = trainer.train_on_batches(state, [next(train_iter) for _ in range(k)],
+                                                    lr_eff)
+            else:
+                state, _ = trainer.train_on_batch(state, next(train_iter), lr_eff)
             # snapshot before any plateau.step below (train.py:472-474)
             lr_eff = plateau.lr_scale
             if t_start is None and step >= step_init + 2:
                 t_start, t_steps = time.perf_counter(), step  # skip the first steps
 
-            if step % 10 == 0:
+            if step % LOG_INTERVAL == 0:
                 writer.add_scalar("lr_scale", plateau.lr_scale, step)
             if step % tcfg.save_interval == 0:
                 save_checkpoint(ckpt_path, state, plateau)

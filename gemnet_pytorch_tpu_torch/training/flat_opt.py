@@ -130,7 +130,10 @@ def apply_update(
     The JAX package's optax.chain(scale_shared_grads, clip_by_global_norm,
     multi_transform({adamw, adam})) + apply_updates + EMA: the schedule is
     evaluated at the PRE-increment count, the amsgrad bias correction at the
-    post-increment count, and EMA follows the update."""
+    post-increment count, and EMA follows the update. `lr_scale` (the
+    plateau's multiplier) is a float or a 0-d fp32 tensor on p's device: the
+    Trainer passes a device scalar it fills before each step, so a captured
+    step reads the value of each replay, not the one of its capture."""
     g = g * st.shared_scale
     gnorm = torch.sqrt(torch.sum(g * g))
     g = torch.where(gnorm < grad_clip_max, g, g * (grad_clip_max / gnorm))

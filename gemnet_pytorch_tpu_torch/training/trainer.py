@@ -19,10 +19,22 @@ CUDA model every segment reduction of both backwards runs the kernels K1, K2
 and K3, in fp32 or on bf16 streams as the model's compute_dtype says; the
 parameters, gradients, optimizer state and EMA are fp32 in both modes.
 
+The compiled step (trainer.py:615-701): `train_step_fn()` is the
+counterpart of the jitted step and `multi_step_fn()` of the scan of K steps.
+On a CUDA trainer the first call captures the whole step (forward, the force
+graph, the grad-of-grad, the update, EMA and the metric accumulation) into a
+CUDA graph (`graphs.capture`) over a static packed input buffer
+(`data.packer.BatchPacker`, one host->device copy per call) and every call
+replays it; it captures again when the packer's layout version or the
+state's buffers change. The state is updated in place (its addresses are
+what the graph reads), and the plateau's `lr_scale` reaches the step as a
+device scalar filled before each call. A failed capture raises: a CUDA
+trainer never falls back to the eager step. On a CPU trainer both run the
+eager step on the unpacked batch. `train_step` is the eager step: the CPU
+path, and the reference the captured step is held against on the card.
+
 Not ported yet (the Trainer raises): MVE (`mve=True`, which needs
-num_targets=2), AGC and the optax tree-mode optimizer; the TPU's one-buffer
-batch transfer (`BatchPacker`) has no counterpart, `data.to_torch` takes its
-role; a scan of K steps (`multi_step_fn`) waits for CUDA graphs.
+num_targets=2), AGC and the optax tree-mode optimizer.
 """
 
 from __future__ import annotations
@@ -33,8 +45,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import TrainConfig
 from ..data.batch import to_torch
+from ..data.packer import BatchPacker
 from ..models.gemnet import GemNet, energy_and_forces
 from . import flat_opt
 from .schedules import linear_warmup_exponential_decay
@@ -88,6 +102,13 @@ def masked_rmse(pred, target, mask):
     return _ratio(_rmse_parts(pred, target, mask))
 
 
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a train step updates in place."""
+    st = state.opt_state
+    return [state.step, state.params, state.ema_params, state.metric_acc, st.count, st.mu,
+            st.nu, st.nu_max]
+
+
 # ------------------------------------------------------------------- trainer
 
 
@@ -115,6 +136,14 @@ class Trainer:
             [k in MOL_METRICS for k in self.tracked_metrics], device=self.device)
         self._sched_base = linear_warmup_exponential_decay(
             cfg.warmup_steps, cfg.decay_steps, cfg.decay_rate, cfg.staircase)
+        self.packer = BatchPacker()
+        # the step's lr_scale: a device scalar filled before each step
+        self._lr_scale = torch.ones((), device=self.device)
+        # the captured single step: (key, graphs.Captured, static input
+        # buffer); key = (packer version, the state's buffer addresses)
+        self._captured = None
+        # keep the captured graph for graphs.kernel_nodes (chip_smoke.py)
+        self.graph_debug = False
 
     # -- state management --
     def init_state(self) -> TrainState:
@@ -147,8 +176,14 @@ class Trainer:
             flat_opt.bind_parameters(self.model, state.params)
 
     def _device_batch(self, batch):
-        """A padded numpy batch (data.pad_batch) goes through data.to_torch
-        onto the trainer's device; a batch from to_torch passes as it is."""
+        """The eager step's input: a padded numpy batch (data.pad_batch) goes
+        through data.to_torch onto the trainer's device, a packed row is
+        moved there and unpacked, packed words already there are unpacked,
+        and a batch of tensors passes as it is."""
+        if isinstance(batch, np.ndarray):
+            batch = self.packer.to_device(batch, self.device)
+        if isinstance(batch, torch.Tensor):
+            return self.packer.unpack(batch)
         return to_torch(batch, self.device) if isinstance(batch["Z"], np.ndarray) else batch
 
     # -- prediction/loss --
@@ -201,19 +236,124 @@ class Trainer:
             ema_decay=self.cfg.ema_decay,
         )
         state.step += 1
-        state.metric_acc = self.accumulate_metrics(state.metric_acc, metrics, counts)
+        # in place: a captured step reads and writes the accumulators' address
+        state.metric_acc.copy_(self.accumulate_metrics(state.metric_acc, metrics, counts))
         return state
 
     # -- steps --
     def train_step(self, state: TrainState, batch, lr_scale):
-        """One step: loss, its gradient through the force graph, update.
-        Returns (state, metrics, counts) with the metrics still on the device."""
+        """The eager step on a batch of tensors (`data.to_torch`, or unpacked):
+        loss, its gradient through the force graph, update. `lr_scale` is a
+        float or a device scalar. Returns (state, metrics, counts) with the
+        metrics still on the device."""
+        if not isinstance(lr_scale, torch.Tensor):
+            self._lr_scale.fill_(lr_scale)
+            lr_scale = self._lr_scale
         params = list(self.model.parameters())
         outputs = self._predict(batch, create_graph=True)
         loss, (metrics, counts) = self.loss_metrics_from_outputs(*outputs, batch)
         grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
         flat_grad = torch.cat([g.reshape(-1) for g in grads])
+        # detached: a caller holding the metrics holds no autograd graph
+        metrics = {k: v.detach() for k, v in metrics.items()}
         return self.apply_update(state, flat_grad, metrics, counts, lr_scale), metrics, counts
+
+    def _host_row(self, batch) -> np.ndarray:
+        """A host batch (numpy dict) packed, or a packed row as it is."""
+        return batch if isinstance(batch, np.ndarray) else self.packer.pack(batch)
+
+    def _state_key(self, state: TrainState):
+        return (self.packer.version,) + tuple(t.data_ptr() for t in _state_tensors(state))
+
+    def _step_graph(self, state: TrainState, fill):
+        """The captured step for `state`, capturing it where there is none
+        for the packer's version and the state's buffers. `fill(buf)` puts
+        the call's first input row into the static buffer first."""
+        key = self._state_key(state)
+        if self._captured is not None and self._captured[0] == key:
+            fill(self._captured[2])
+            return self._captured[1]
+        self._captured = None  # frees the old graph and its pool
+        buf = torch.empty(self.packer.total, dtype=torch.int32, device=self.device)
+        fill(buf)
+        batch = self.packer.unpack(buf)
+        snapshot = _state_tensors(state)
+        saved = [t.clone() for t in snapshot]
+
+        def restore():  # the warm-up's steps leave no trace in the state
+            for t, v in zip(snapshot, saved):
+                t.copy_(v)
+
+        cap = graphs.capture(lambda: self.train_step(state, batch, self._lr_scale)[1:],
+                             self.device, before_capture=restore, debug=self.graph_debug)
+        self._captured = (key, cap, buf)
+        return cap
+
+    def train_step_fn(self):
+        """The counterpart of the jitted step (trainer.py:615-636): a callable
+        (state, batch, lr_scale) -> (state, metrics, counts), `batch` a host
+        batch (numpy dict), its packed row, or packed words already on the
+        trainer's device. On a CUDA trainer it copies the row into the static
+        buffer and replays the captured step (the metrics are the graph's
+        outputs, overwritten by the next call); on a CPU trainer it runs the
+        eager step on the unpacked batch."""
+        if self.device.type != "cuda":
+            return lambda state, batch, lr_scale: self.train_step(
+                state, self._device_batch(batch), lr_scale)
+
+        def step(state, batch, lr_scale):
+            if isinstance(batch, torch.Tensor):
+                cap = self._step_graph(state, lambda buf: buf.copy_(batch))
+            else:
+                row = self._host_row(batch)
+                cap = self._step_graph(
+                    state, lambda buf: self.packer.to_device(row, self.device, out=buf))
+            self._lr_scale.fill_(lr_scale)
+            cap.graph.replay()
+            return (state, *cap.outputs)
+
+        return step
+
+    def multi_step_fn(self):
+        """K steps per host call, the counterpart of the scan of
+        trainer.py:638-683: a callable (state, packed, lr_scale) -> (state,
+        metrics of the last step, counts of the last step), `packed` a (K,
+        total) int32 stack of packed rows, numpy or on the trainer's device.
+        On a CUDA trainer a numpy stack goes over in one host->device copy,
+        and each step copies its row into the static buffer on the device
+        and replays the single step's graph: K steps per call run what K
+        single calls run (bit for bit where the step's ops are
+        deterministic), and no K needs a capture of its own. On a CPU
+        trainer: K eager steps."""
+        if self.device.type != "cuda":
+            def multi_cpu(state, packed, lr_scale):
+                for row in packed:
+                    state, metrics, counts = self.train_step(
+                        state, self._device_batch(torch.as_tensor(row)), lr_scale)
+                return state, metrics, counts
+
+            return multi_cpu
+
+        def multi(state, packed, lr_scale):
+            rows = (packed if isinstance(packed, torch.Tensor)
+                    else self.packer.to_device(packed, self.device))
+            if rows.ndim != 2 or rows.shape[0] < 1:
+                raise ValueError(f"packed rows {tuple(rows.shape)}: expected (K, total)")
+            self._lr_scale.fill_(lr_scale)
+            for k in range(rows.shape[0]):
+                cap = self._step_graph(state, lambda buf: buf.copy_(rows[k]))
+                cap.graph.replay()
+            return (state, *cap.outputs)
+
+        return multi
+
+    def train_on_batches(self, state: TrainState, batches, lr_scale):
+        """K train steps in one host call (multi_step_fn): `batches` is a list
+        of host batches or packed rows of one layout. Returns (state, the
+        last step's loss on the device)."""
+        packed = np.stack([self._host_row(b) for b in batches])
+        state, metrics, _ = self.multi_step_fn()(state, packed, lr_scale)
+        return state, metrics["loss"].clone()
 
     def eval_step(self, state: TrainState, batch, use_ema: bool = False):
         """(metrics, counts) of the current or the EMA weights; no update."""
@@ -230,14 +370,21 @@ class Trainer:
 
     # -- host-side convenience mirroring the reference API --
     def train_on_batch(self, state: TrainState, batch, lr_scale, metrics=None):
-        """One train step; metrics accumulate on the device. Pass a Metrics
-        instance to also drain this step's metrics at once (a host sync).
-        Returns (state, loss): a device scalar, or a float with `metrics`."""
-        state, step_metrics, counts = self.train_step(state, self._device_batch(batch), lr_scale)
+        """One train step through `train_step_fn()` (the captured step on a
+        CUDA trainer); metrics accumulate on the device. `batch` is a host
+        batch or its packed row; on a CPU trainer a batch of tensors runs the
+        eager step as it is. Pass a Metrics instance to also drain this
+        step's metrics at once (a host sync). Returns (state, loss): a device
+        scalar, or a float with `metrics`."""
+        if (self.device.type == "cuda" and isinstance(batch, dict)
+                and isinstance(batch["Z"], torch.Tensor)):
+            raise TypeError("train_on_batch on a CUDA trainer takes the host batch (or its "
+                            "packed row); the eager step on tensors is train_step")
+        state, step_metrics, counts = self.train_step_fn()(state, batch, lr_scale)
         if metrics is not None:
             self._update_metrics(metrics, step_metrics, counts)
             return state, float(step_metrics["loss"])
-        return state, step_metrics["loss"].detach()
+        return state, step_metrics["loss"].clone()
 
     def drain_metrics(self, state: TrainState, metrics) -> TrainState:
         """Move the device-side accumulators into a host Metrics object and
@@ -247,7 +394,7 @@ class Trainer:
         for key, (wsum, w) in zip(self.tracked_metrics, acc):
             if w > 0:
                 metrics.update_state(float(w), **{key: wsum / w})
-        state.metric_acc = torch.zeros_like(state.metric_acc)
+        state.metric_acc.zero_()  # in place, as the captured step reads it
         return state
 
     def test_on_batch(self, state: TrainState, batch, metrics, use_ema: bool = False) -> float:

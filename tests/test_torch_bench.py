@@ -1,8 +1,8 @@
 """The port's bench (`gemnet_pytorch_tpu_torch.bench`) on the CPU: its two
 workloads equal the repository's `bench.make_batch` array for array, a CPU
 run at a small ModelConfig prints one JSON line with the bench's keys and a
-null for every share of a device peak, and the flags that wait for CUDA
-graphs raise."""
+null for every share of a device peak, and K steps per call
+(`--steps-per-call`, `--large-scan`) add their windows and keys."""
 
 import json
 
@@ -76,7 +76,10 @@ def test_cpu_run_prints_the_json_line(capsys):
     assert out["compute_dtype"] == "bfloat16" and out["device"] == "cpu"
     assert out["small_n_real"] == N_REAL["small"] and out["large_n_real"] is None
     assert out["value"] == pytest.approx(N_REAL["small"] / out["small_ms_median"] * 1e3)
+    # the defaults: one step per call on small; --large-scan 4, here skipped with large
+    assert (bench.parse_args([]).steps_per_call, bench.parse_args([]).large_scan) == (1, 4)
     assert out["large_scan"] is None and out["steps_per_call"] == 1 and out["windows"] == 1
+    assert "scan_agg_per_s" not in out
     assert out["kernel_calls"] == 20
     assert 0 < out["sol_ms_lo"] <= out["sol_ms_hi"]
     for key in SHARES:
@@ -101,10 +104,33 @@ def test_cpu_run_fp32_headline_without_roofline_with_profile(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--steps-per-call", "--large-scan"])
-def test_k_steps_per_call_waits_for_cuda_graphs(flag):
-    assert getattr(bench.parse_args([]), flag[2:].replace("-", "_")) == 1
-    with pytest.raises(NotImplementedError, match="CUDA graphs"):
-        bench.run(bench.parse_args(["--device", "cpu", flag, "2"]))
+def test_k_steps_per_call_waits_for_cuda_graphs(capsys, monkeypatch, flag):
+    """K steps per call (Trainer.multi_step_fn) on the CPU at a 1-block
+    model: `--steps-per-call 2` adds the small workload's scan window and
+    its keys; `--large-scan 2` the large workload's (its molecules cut to
+    two of 10 atoms here, to keep the CPU run short) with the single step's
+    ms less the scan's. A K below 1 raises."""
+    if flag == "--steps-per-call":
+        out = _run(capsys, ["--skip-roofline", "--skip-f32", flag, "2"])
+        assert out["steps_per_call"] == 2 and out["large_scan"] is None
+        assert out["scan_ms"] > 0
+        assert out["scan_agg_per_s"] == pytest.approx(N_REAL["small"] / out["scan_ms"] * 1e3)
+    else:
+        real = bench.molecules
+        monkeypatch.setattr(bench, "molecules", lambda kind, seed=0: (
+            real(kind, seed) if kind == "small" else
+            [bench.random_molecule(np.random.default_rng(i), 10) for i in range(2)]))
+        out = bench.run(bench.parse_args(["--device", "cpu", "--skip-roofline", "--skip-f32",
+                                          flag, "2"]), SMALL, windows=1, min_window_s=0.0,
+                        max_iters=1)
+        assert out["steps_per_call"] == 1 and out["large_scan"] == 2
+        assert "scan_agg_per_s" not in out and out["large_scan_ms"] > 0
+        assert out["large_dispatch_overhead_ms"] == pytest.approx(
+            out["large_ms_median"] - out["large_scan_ms"])
+        assert out["large_scan_agg_per_s"] == pytest.approx(
+            out["large_n_real"] / out["large_scan_ms"] * 1e3)
+    with pytest.raises(ValueError):
+        bench.run(bench.parse_args(["--device", "cpu", flag, "0" if flag[2] == "s" else "-1"]))
 
 
 def test_without_a_card_the_bench_fails_at_once():

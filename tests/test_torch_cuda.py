@@ -1,7 +1,9 @@
 """The CUDA kernels K1, K2, K3 (fp32 and bf16 streams), K4 (the split3 mode
 of K1/K2) and the row gathers P1/P2 against their plain PyTorch versions on
 the card, and the port end to end on the card against the CPU: serving,
-grad-of-grad, and a train step in fp32, bf16 and matmul_precision="high".
+grad-of-grad, and a train step in fp32, bf16 and matmul_precision="high";
+the kernels on capacity plans bit-equal to the exact plans, and the
+captured (CUDA graph) train step against the eager one.
 
 Marked `cuda`; each test asks for a card through the `device` fixture and
 skips without one. This file imports no JAX, so on a machine with a card it
@@ -643,13 +645,12 @@ def test_model_on_card_matches_cpu(device, triplets_only, direct_forces):
 @pytest.mark.cuda
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_train_step_on_card_matches_cpu(device, compute_dtype):
-    """One Trainer step of GemNet-Q on the card against the same step on the
-    CPU: the loss within rtol 1e-4 (fp32) and the whole parameter update
+    """Three Trainer steps of GemNet-Q on the card (the captured step)
+    against the same steps on the CPU: the losses within rtol 1e-4 (fp32) and the whole parameter update
     within a relative L2 error of 1e-3 (fp32); bf16 is held to the bf16
     contract of tests/test_bf16.py instead (its roundings differ between the
     card's kernels and the CPU's plain versions), and its losses must fall."""
     from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
-    from gemnet_pytorch_tpu_torch.data import to_torch
     from gemnet_pytorch_tpu_torch.models import GemNet
     from gemnet_pytorch_tpu_torch.training import Trainer
 
@@ -666,8 +667,8 @@ def test_train_step_on_card_matches_cpu(device, compute_dtype):
         state = trainer.init_state()
         p0 = state.params.clone()
         losses = []
-        for _ in range(3):
-            state, loss = trainer.train_on_batch(state, to_torch(batch_np, dev), 1.0)
+        for _ in range(3):  # the captured step on the card
+            state, loss = trainer.train_on_batch(state, batch_np, 1.0)
             losses.append(float(loss))
         runs[str(dev)] = (np.array(losses), (state.params - p0).cpu().numpy())
     (l_cpu, d_cpu), (l_gpu, d_gpu) = runs["cpu"], runs[str(device)]
@@ -703,7 +704,8 @@ def test_high_train_step_on_card_matches_cpu(device):
         state = trainer.init_state()
         p0 = state.params.clone()
         _cuda.reset_launches()
-        state, loss = trainer.train_on_batch(state, to_torch(batch_np, dev), 1.0)
+        state, metrics, _ = trainer.train_step(state, to_torch(batch_np, dev), 1.0)  # eager
+        loss = metrics["loss"]
         torch.cuda.synchronize()
         runs[str(dev)] = (float(loss), (state.params - p0).cpu().numpy(), _cuda.kernel_launches())
     (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = runs["cpu"], runs[str(device)]
@@ -712,3 +714,106 @@ def test_high_train_step_on_card_matches_cpu(device):
                      "gemnet_segment_gather_contract_split3": 12, "gemnet_sorted_segsum_f32": 14}
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
     assert np.linalg.norm(d_gpu - d_cpu) <= 1e-3 * np.linalg.norm(d_cpu)
+
+
+def _plan_cases(rng, device):
+    """(kernel, dtype, call(plan) -> outputs, sorted ids, segments, item rows)
+    at the model's shapes: K1 and K2 (fp32, bf16) and K4 (split3) at the
+    triplet (16-row items) and quadruplet (128-row items) shapes, K3 (fp32,
+    bf16) at the quad_abd shape (64-row items); the ids with a long padded
+    segment and empty ones."""
+    from gemnet_pytorch_tpu_torch.ops import expand_gather as eg
+    from gemnet_pytorch_tpu_torch.ops import segment_outer as so
+
+    cases = []
+    n_seg = 400
+    ids = _sorted_ids(rng, 3000, n_seg, long_seg=n_seg - 1, long_rows=2500)
+    tid = torch.from_numpy(ids).to(device)
+    for S, M, item_rows in ((7, 64, 16), (49, 32, 128)):
+        for dtype in ("float32", "bfloat16", "split3"):
+            dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+            precision = "split3" if dtype == "split3" else "exact"
+            a, b = (torch.from_numpy(rng.normal(size=(len(ids), w)).astype(np.float32))
+                    .to(device).to(dt) for w in (S, M))
+            cot = torch.from_numpy(rng.normal(size=(S, n_seg, M)).astype(np.float32)).to(
+                device).to(dt)
+            cases.append(("K1", dtype, S, lambda p, a=a, b=b, pr=precision: (
+                so.outer_sum(a, b, tid, p, pr),), ids, n_seg, item_rows))
+            cases.append(("K2", dtype, S, lambda p, a=a, b=b, c=cot, pr=precision:
+                          so.gather_contract(c, a, b, tid, p, pr), ids, n_seg, item_rows))
+    n_src = 500
+    idx = rng.integers(0, n_src - 2, 6000)
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    srt = idx[perm].astype(np.int32)
+    for dtype in ("float32", "bfloat16"):
+        x = torch.from_numpy(rng.normal(size=(len(idx), 32)).astype(np.float32)).to(device).to(
+            getattr(torch, dtype))
+        tperm, tsrt = torch.from_numpy(perm).to(device), torch.from_numpy(srt).to(device)
+        cases.append(("K3", dtype, 32, lambda p, x=x, tp=tperm, ts=tsrt: (
+            eg.sorted_segsum_values(x, tp, ts, p),), srt, n_src, 64))
+    return cases
+
+
+@pytest.mark.cuda
+def test_capacity_plans_bit_equal_to_exact_plans(device):
+    """Every kernel of the model's shapes (K1, K2, K4 both directions, K3)
+    on a capacity plan (padding items, merges and tree nodes appended)
+    writes the same bits as on the exact plan, and leaves its counters at
+    zero."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+
+    rng = np.random.default_rng(11)
+    for kernel, dtype, S, call, ids, n_seg, item_rows in _plan_cases(rng, device):
+        exact = segment_plan(ids, n_seg, item_rows, device, capacity=False)
+        cap = segment_plan(ids, n_seg, item_rows, device)
+        assert cap.items.shape[0] > exact.items.shape[0]
+        outs_exact, outs_cap = call(exact), call(cap)
+        torch.cuda.synchronize()
+        for o, r in zip(outs_cap, outs_exact):
+            assert torch.equal(o, r), (kernel, dtype, S)
+        assert int(cap.arrivals.abs().sum()) == int(cap.tree_arrivals.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_captured_fp32_step_matches_eager(device):
+    """One GemNet-Q Trainer captured into a CUDA graph (train_step_fn) and
+    one run eagerly (train_step), from the same weights, 3 steps each: the
+    losses within rtol 1e-5, the parameter updates within a relative L2
+    error of 1e-4, the metric accumulators within rtol 1e-5; the capture
+    recorded the eager step's hand-written kernel launches exactly."""
+    import collections
+
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    cfg = ModelConfig(num_spherical=4, num_radial=4, num_blocks=2, emb_size_atom=32,
+                      emb_size_edge=32, emb_size_trip=16, emb_size_quad=8, emb_size_rbf=8,
+                      emb_size_cbf=8, emb_size_sbf=8, emb_size_bil_quad=8,
+                      emb_size_bil_trip=16)
+    batch_np = _small_batch(False)
+    runs = {}
+    for mode in ("eager", "captured"):
+        trainer = Trainer(GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device),
+                          TrainConfig(learning_rate=1e-3, warmup_steps=1))
+        state = trainer.init_state()
+        p0 = state.params.clone()
+        losses = []
+        _cuda.reset_launches()
+        for i in range(3):
+            if mode == "eager":
+                state, metrics, _ = trainer.train_step(state, to_torch(batch_np, device), 1.0)
+            else:
+                state, metrics, _ = trainer.train_step_fn()(state, batch_np, 1.0)
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                launches = collections.Counter(_cuda.LAUNCHES)
+        runs[mode] = (np.array(losses), (state.params - p0).cpu().numpy(),
+                      state.metric_acc.cpu().numpy(), launches, trainer)
+    eager, cap = runs["eager"], runs["captured"]
+    np.testing.assert_allclose(cap[0], eager[0], rtol=1e-5)
+    assert np.linalg.norm(cap[1] - eager[1]) <= 1e-4 * np.linalg.norm(eager[1])
+    np.testing.assert_allclose(cap[2], eager[2], rtol=1e-5)
+    assert cap[4]._captured[1].launches == eager[3]

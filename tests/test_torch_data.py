@@ -121,15 +121,17 @@ def test_to_torch_dtypes_and_plans(synthetic_npz):
 
 def _plan_segment_sum(plan, x):
     """numpy model of the kernels' two passes over a plan: per-item sums into
-    the output or the partial slots, then the split segments' merge."""
+    the output or the partial slots, then the split segments' merge; the
+    padding items and merges of a capacity plan (segment -1) skipped."""
     items = plan.items.numpy()
     out = np.full((plan.n_segments, x.shape[1]), np.nan)
     partial = np.full((plan.n_partials, x.shape[1]), np.nan)
-    for seg, r0, r1, slot in items:
+    for seg, r0, r1, slot in items[items[:, 0] >= 0]:
         (out if slot < 0 else partial)[seg if slot < 0 else slot] = x[r0:r1].sum(0)
     mp = plan.merge_ptr.numpy()
     for j, seg in enumerate(plan.merge_seg.numpy()):
-        out[seg] = partial[mp[j]:mp[j + 1]].sum(0)
+        if seg >= 0:
+            out[seg] = partial[mp[j]:mp[j + 1]].sum(0)
     return out
 
 
@@ -141,7 +143,7 @@ def test_segment_plan_covers_every_row_once(item_rows):
 
     rng = np.random.default_rng(item_rows)
     ids = np.sort(np.concatenate([rng.integers(0, 40, 200), np.full(300, 17)]))
-    plan = segment_plan(ids, 45, item_rows, "cpu")
+    plan = segment_plan(ids, 45, item_rows, "cpu", capacity=False)
     items = plan.items.numpy()
     assert np.all(items[:, 2] - items[:, 1] <= item_rows)
     covered = np.concatenate([np.arange(r0, r1) for _, r0, r1, _ in items])
@@ -169,7 +171,7 @@ def test_segment_plan_long_and_empty_segments(key):
     n_seg = 500
     ids = np.sort(np.concatenate([np.zeros(10_000, np.int64), rng.integers(3, 400, 2000),
                                   np.arange(450, 460)]))  # ids 1, 2, 400-449, 460- stay empty
-    plan = segment_plan(ids, n_seg, item_rows, "cpu")
+    plan = segment_plan(ids, n_seg, item_rows, "cpu", capacity=False)
     items = plan.items.numpy()
     seg, r0, r1, slot = items.T
     np.testing.assert_array_equal(r0[1:], r1[:-1])  # items tile the rows in order
@@ -215,7 +217,7 @@ def _check_merge_tree(rows, item_rows):
     n_seg = 300
     ids = np.sort(np.concatenate([rng.integers(0, 250, 3000), np.full(rows, 260),
                                   np.full(300, 7)]))  # 261-299 stay empty
-    plan = segment_plan(ids, n_seg, item_rows, "cpu")
+    plan = segment_plan(ids, n_seg, item_rows, "cpu", capacity=False)
     nodes, parent = plan.tree_nodes.numpy(), plan.tree_parent.numpy()
     first, end, out_slot, seg = nodes.T
     assert np.all(end - first >= 1) and np.all(end - first <= MERGE_FAN)
@@ -271,7 +273,9 @@ def test_kernel_id_columns_are_sorted(synthetic_npz):
 def test_segment_plan_rejects_out_of_range_ids():
     from gemnet_pytorch_tpu_torch.data import segment_plan
 
-    assert segment_plan(np.array([0, 0, 2]), 4, 8, "cpu").items.shape == (4, 4)
+    assert segment_plan(np.array([0, 0, 2]), 4, 8, "cpu", capacity=False).items.shape == (4, 4)
+    # at capacity: 4 segments + ceil(3 / 8) items
+    assert segment_plan(np.array([0, 0, 2]), 4, 8, "cpu").items.shape == (5, 4)
     with pytest.raises(ValueError):
         segment_plan(np.array([0, 1, 4]), 4, 8, "cpu")
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of `gemnet_pytorch_tpu_torch/`,
 and not `chip_smoke.py`, imports JAX, flax, optax or the JAX package; nothing
-on the serving or training path imports PyYAML or ase at module level."""
+on the serving or training path imports PyYAML or ase at module level (ase
+only inside md.make_ase_calculator)."""
 
 import ast
 import os
@@ -75,11 +76,20 @@ def test_bench_and_perf_modules_are_checked():
         assert name in rel, name
 
 
+def test_graph_and_md_modules_are_checked():
+    """The CUDA-graph capture, the batch packer and the MD module are among
+    the files checked above."""
+    rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
+    for name in ("graphs.py", "data/packer.py", "md.py"):
+        assert name in rel, name
+
+
 def test_serving_path_imports_no_yaml_or_ase():
-    """PyYAML is imported only inside the config loader, ase nowhere."""
+    """PyYAML is imported only inside the config loader; ase only inside
+    md.py's ASE adapter, where it is installed (as the JAX package's md.py)."""
     for path in _port_files():
         for name, at_top in _imports(path):
-            assert name != "ase", path
+            assert not (name == "ase" and (at_top or not path.endswith(os.sep + "md.py"))), path
             assert not (name == "yaml" and at_top), path
 
 

@@ -310,6 +310,39 @@ def test_trace_attributes_device_time_to_the_ranges(tmp_path):
     assert "K4_backward" in trace.summarize(path, n_execs=2)
 
 
+def test_trace_attributes_graph_replayed_kernels_to_the_step(tmp_path):
+    """A captured step's kernels carry the correlation id of the
+    cudaGraphLaunch (runtime; cuGraphLaunch, driver) that replayed the
+    graph, and run after its range ended: they count under the "step"
+    range holding the replay, each replay's under its own; a replay
+    outside every range counts nowhere, and a memcpy into the graph's
+    static input inside the range counts."""
+    ev = [dict(ph="X", cat="user_annotation", name="step", ts=t, dur=50, tid=1)
+          for t in (0, 1000)]
+    replays = [(10, "cuda_runtime", "cudaGraphLaunch", 1), (1010, "cuda_driver",
+                                                            "cuGraphLaunch", 2),
+               (3000, "cuda_runtime", "cudaGraphLaunch", 3)]
+    for ts, cat, name, corr in replays:
+        ev.append(dict(ph="X", cat=cat, name=name, ts=ts, dur=20, tid=1,
+                       args=dict(correlation=corr)))
+        for j, (kernel, dur) in enumerate((("void outer_sum_ffma_ring<7>(float const*)", 40.0),
+                                           ("void sorted_segsum_kernel<float, 4>(int)", 10.0),
+                                           ("void at::native::elementwise_kernel<128>", 2.0))):
+            ev.append(dict(ph="X", cat="kernel", name=kernel, ts=ts + 100 + 60 * j, dur=dur,
+                           tid=7, args=dict(correlation=corr)))
+    ev.append(dict(ph="X", cat="cuda_runtime", name="cudaMemcpyAsync", ts=5, dur=2, tid=1,
+                   args=dict(correlation=9)))
+    ev.append(dict(ph="X", cat="gpu_memcpy", name="Memcpy DtoD (Device -> Device)", ts=60,
+                   dur=4.0, tid=7, args=dict(correlation=9)))
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    mt = trace.step_device_ms(str(path), match="step")
+    assert mt.count == 2 and mt.total_ms == pytest.approx((2 * 52 + 4) / 1e3)
+    assert trace.module_times(str(path))["step"].mean_ms == pytest.approx(0.054)
+    cats = trace.op_category_summary(str(path), n_execs=3)
+    assert cats["K1"] == pytest.approx(0.04) and cats["K3"] == pytest.approx(0.01)
+
+
 @pytest.mark.parametrize("name,group", [
     ("void (anonymous namespace)::outer_sum_mma_ring<__nv_bfloat16>(...)", "K1"),
     ("void (anonymous namespace)::outer_sum_warp_kernel<float>(...)", "K1"),

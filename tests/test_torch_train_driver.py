@@ -177,8 +177,8 @@ def test_plateau_timing_and_early_stopping(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,env", [
     (["--dp", "2"], {}), (["--halo", "2"], {}), (["--dp-halo", "2", "2"], {}),
     (["--pp", "2"], {}), (["--tp", "2"], {}), (["--coordinator", "localhost:1234"], {}),
-    (["--steps-per-call", "4"], {}), ([], {"GEMNET_SWEEP_OVERRIDES": "{}"}),
-], ids=["dp", "halo", "dp-halo", "pp", "tp", "coordinator", "steps-per-call", "sweep"])
+    ([], {"GEMNET_SWEEP_OVERRIDES": "{}"}),
+], ids=["dp", "halo", "dp-halo", "pp", "tp", "coordinator", "sweep"])
 def test_main_refuses_unported(monkeypatch, argv, env):
     from gemnet_pytorch_tpu_torch import train
 
@@ -186,6 +186,54 @@ def test_main_refuses_unported(monkeypatch, argv, env):
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError):
         train.main(argv + ["--device", "cpu"])
+
+
+def test_steps_per_call_chunks_and_matches_single_steps(tmp_path, monkeypatch):
+    """`--steps-per-call 4` on the CPU, 9 steps with eval every 3 and
+    checkpoints every 4: the chunks the loop runs are the repository
+    train.py's (up to K, none across a multiple of 10, 4 or 3), K > 1
+    chunks go through train_on_batches, and the final checkpoint equals
+    that of `--steps-per-call 1` bit for bit."""
+    from gemnet_pytorch_tpu_torch import train
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    chunks = []
+    one, many = Trainer.train_on_batch, Trainer.train_on_batches
+
+    def train_on_batch(self, state, batch, lr_scale, metrics=None):
+        chunks.append(1)
+        return one(self, state, batch, lr_scale, metrics)
+
+    def train_on_batches(self, state, batches, lr_scale):
+        chunks.append(len(batches))
+        return many(self, state, batches, lr_scale)
+
+    monkeypatch.setattr(Trainer, "train_on_batch", train_on_batch)
+    monkeypatch.setattr(Trainer, "train_on_batches", train_on_batches)
+    import yaml
+
+    cfg_path = tmp_path / "config.yaml"
+    cfg_path.write_text(yaml.safe_dump(dict(RUN, num_steps=9, evaluation_interval=3,
+                                            save_interval=4)))
+    saved = {}
+    for k in (1, 4):
+        chunks.clear()
+        run_dir = tmp_path / f"k{k}"
+        train.main(["--config", str(cfg_path), "--device", "cpu", "--steps-per-call", str(k),
+                    "--synthetic-molecules", str(RUN_MOLECULES), "--restart", str(run_dir)])
+        saved[k] = torch.load(str(run_dir / "logs" / "checkpoint"), weights_only=True)
+        if k == 1:
+            assert chunks == [1] * 9
+    # the rule of train.py:394-405, stepped by hand from step 0
+    expected, step = [], 0
+    while step < 9:
+        n = min(4, 9 - step, *(i - step % i for i in (10, 4, 3)))
+        expected.append(n)
+        step += n
+    assert chunks == expected == [3, 1, 2, 2, 1]
+    assert saved[1].keys() == saved[4].keys()
+    for key, value in saved[1].items():
+        assert torch.equal(value, saved[4][key]), key
 
 
 def test_main_on_cpu_and_cuda_refusal(tmp_path, monkeypatch):
