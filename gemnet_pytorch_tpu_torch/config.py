@@ -4,9 +4,9 @@
 
 The defaults equal `config.yaml` (GemNet-Q at the released widths and the
 reference's training hyperparameters). Knobs that only the JAX package serves
-(edge partitioning, remat, MVE, AGC, the tree-mode optimizer) stay as fields
-so one YAML file configures both packages; `models.gemnet.GemNet` and
-`training.Trainer` raise on the ones this package does not run yet.
+(edge partitioning, remat) stay as fields so one YAML file configures both
+packages; `models.gemnet.GemNet` raises on the ones this package does not run
+yet.
 """
 
 from __future__ import annotations
@@ -81,8 +81,8 @@ class TrainConfig:
     loss: str = "rmse"  # "mae" | "rmse" (force loss; energy always MAE)
     mve: bool = False
     agc: bool = False
-    # the JAX package's AGC parity switch and its tree-mode optimizer; the
-    # port runs the flat optimizer only (see the module docstring)
+    # AGC's reference-parity selection (training/tree_opt.py) and the
+    # optimizer's layout: the flat buffer, or per tensor (always with AGC)
     agc_compat_reference: bool = False
     flat_optimizer: bool = True
     batch_size: int = 32

@@ -60,7 +60,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "compute_dtype": cfg.compute_dtype not in ("float32", "bfloat16"),
         "matmul_precision": cfg.matmul_precision not in ("default", "high", "highest"),
-        "num_targets": cfg.num_targets != 1,
         "ep_axis": cfg.ep_axis is not None,
         "ep_halo": cfg.ep_halo,
         "remat_blocks": cfg.remat_blocks,
@@ -210,10 +209,10 @@ class GemNet(nn.Module):
                                    batch["intm_db_plan"])
 
         # ---- block stack ----
-        E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask)
+        E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask, atom_mask)
         for int_block, out_block in zip(self.int_blocks, self.out_blocks[1:]):
             h, m = int_block(h, m, basis, ind, masks)
-            E, F = out_block(h, m, rbf_out, id_a, edge_mask)
+            E, F = out_block(h, m, rbf_out, id_a, edge_mask, atom_mask)
             E_a = E_a + E
             F_ca = F_ca + F
         return finalize_outputs(cfg, batch, E_a, F_ca, V_ca)
@@ -244,7 +243,13 @@ def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca):
 def energy_and_forces(model: GemNet, batch: dict[str, torch.Tensor], create_graph: bool = False):
     """(E, F) with the variant's force path: the direct head, or
     F = -dE/dR through autograd (reference gemnet.py:598-613), shaped
-    (n_atoms_pad, 1, 3).
+    (n_atoms_pad, num_targets, 3).
+
+    With num_targets > 1 (JAX `models/gemnet.py:415-430`): one forward, then
+    one `torch.autograd.grad` of E[:, t].sum() per target, the graph
+    retained for all but the last. Not `is_grads_batched`: it runs the
+    backward under vmap, which the kernels' autograd Functions do not
+    support.
 
     Serving passes create_graph=False and a model whose parameters do not
     require grad (`GemNetCalculator` freezes them), so no graph over the
@@ -253,9 +258,13 @@ def energy_and_forces(model: GemNet, batch: dict[str, torch.Tensor], create_grap
     if model.cfg.direct_forces:
         return model(batch)
     R = batch["R"].detach().requires_grad_(True)
+    n_targets = model.cfg.num_targets
     with torch.enable_grad():
         E, _ = model(batch, R)
-        (dE_dR,) = torch.autograd.grad(E[:, 0].sum(), R, create_graph=create_graph)
+        dE_dR = [torch.autograd.grad(E[:, t].sum(), R, create_graph=create_graph,
+                                     retain_graph=create_graph or t < n_targets - 1)[0]
+                 for t in range(n_targets)]
     if not create_graph:
         E = E.detach()
-    return E, -dE_dR[:, None, :]
+    # one target: a view, no copy (the normal step's graph stays as it was)
+    return E, -(dE_dR[0][:, None, :] if n_targets == 1 else torch.stack(dE_dR, dim=1))

@@ -56,19 +56,19 @@ class QuadrupletInteraction(nn.Module):
 
     def forward(self, m, rbf, cbf, sbf, ind, masks):
         x_db = self.dense_db(m)
-        x_db = self.scale_rbf(x_db * self.mlp_rbf(rbf))
+        x_db = self.scale_rbf(x_db * self.mlp_rbf(rbf), x_db, masks["edge"], masks["edge"])
         x_db = self.down_projection(x_db)
 
         # circular basis hadamard on the intermediate d->b space
         x_db = expand_gather(x_db, ind["id4_expand_intm_db"], *ind["intm_db_sort"])
-        x_db = self.scale_cbf(x_db * self.mlp_cbf(cbf))
+        x_db = self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
 
         # spherical basis bilinear over quadruplets -> edges
         x_db = expand_gather(x_db, ind["id4_expand_abd"], *ind["quad_abd_sort"])
         rbf_W1, sph_rows = sbf
         x = self.mlp_sbf(rbf_W1, sph_rows, x_db, ind["id4_reduce_ca"],
                          ind["id4_reduce_ca_plan"], mask=masks["quad"])
-        x = self.scale_sbf_sum(x)
+        x = self.scale_sbf_sum(x, x_db, masks["quad"], masks["edge"])
 
         x_ca = self.up_projection_ca(x)
         x_ac = self.up_projection_ac(x)[ind["id_swap"]]
@@ -96,14 +96,14 @@ class TripletInteraction(nn.Module):
 
     def forward(self, m, rbf3, cbf3, ind, masks):
         x_ba = self.dense_ba(m)
-        x_ba = self.scale_rbf(x_ba * self.mlp_rbf(rbf3))
+        x_ba = self.scale_rbf(x_ba * self.mlp_rbf(rbf3), x_ba, masks["edge"], masks["edge"])
         x_ba = self.down_projection(x_ba)
 
         x_ba = expand_gather(x_ba, ind["id3_expand_ba"], *ind["trip_ba_sort"])
         rbf_W1, sph_rows = cbf3
         x = self.mlp_cbf(rbf_W1, sph_rows, x_ba, ind["id3_reduce_ca"],
                          ind["id3_reduce_ca_plan"], mask=masks["trip"])
-        x = self.scale_cbf_sum(x)
+        x = self.scale_cbf_sum(x, x_ba, masks["trip"], masks["edge"])
 
         x_ca = self.up_projection_ca(x)
         x_ac = self.up_projection_ac(x)[ind["id_swap"]]
@@ -159,7 +159,7 @@ class InteractionBlock(nn.Module):
         for layer in self.layers_after_skip:
             m = layer(m)
 
-        h2 = self.atom_update(h, m, basis["rbf_h"], ind["id_a"], masks["edge"])
+        h2 = self.atom_update(h, m, basis["rbf_h"], ind["id_a"], masks["edge"], masks["atom"])
         h = scale(h + h2, _INV_SQRT2)
 
         m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"])

@@ -118,18 +118,49 @@ class EdgeEmbedding(nn.Module):
         return self.dense(torch.cat([h[id_first], h[id_second], m_rbf], dim=-1))
 
 
+def _masked_feature_var(t, mask):
+    """(mean over features of the masked unbiased per-feature variance, the
+    masked row count), in fp32 (JAX `models/layers.py:140-150`)."""
+    t2 = t.reshape(t.shape[0], -1).float()
+    if mask is None:
+        n = t2.new_tensor(float(t2.shape[0]))
+        mean = t2.mean(dim=0)
+        var = ((t2 - mean) ** 2).sum(dim=0) / torch.clamp_min(n - 1, 1.0)
+    else:
+        m = mask.to(t2.dtype)[:, None]
+        n = m.sum()
+        mean = (t2 * m).sum(dim=0) / torch.clamp_min(n, 1.0)
+        var = (((t2 - mean) ** 2) * m).sum(dim=0) / torch.clamp_min(n - 1, 1.0)
+    return var.mean(), n
+
+
 class ScalingFactor(nn.Module):
     """Non-trainable activation-variance scale (reference scaling.py:150-174),
-    keyed by its global name for scaling_factors.json."""
+    keyed by its global name for scaling_factors.json.
+
+    `stats` is None, and the layer is one multiply, except inside
+    `scaling.collect_stats`: there each call also appends the statistics of
+    its reference input `x_ref` and its scaled output, [var_in·n, var_out·n,
+    n] with n the output's masked row count (JAX `models/layers.py:115-161`,
+    the `scale_stats` it sows), which `training.fit_scaling` sums."""
 
     def __init__(self, scale_name: str):
         super().__init__()
         self.scale_name = scale_name
         self.register_buffer("scale_factor", torch.tensor(1.0))
+        self.stats: Optional[list] = None
 
-    def forward(self, y):
+    def forward(self, y, x_ref=None, mask_ref=None, mask_y=None):
         # the fp32 scale is cast down to y's dtype, never y up (layers.py:134-136)
-        return y * self.scale_factor.to(y.dtype)
+        y = y * self.scale_factor.to(y.dtype)
+        if self.stats is not None:
+            with torch.no_grad():
+                var_in, _ = _masked_feature_var(x_ref, mask_ref)
+                var_out, n_out = _masked_feature_var(y, mask_y)
+                # the reference weighs both variances by the output's rows
+                # (scaling.py:107-120)
+                self.stats.append(torch.stack([var_in * n_out, var_out * n_out, n_out]))
+        return y
 
 
 class EfficientInteractionDownProjection(nn.Module):
@@ -187,9 +218,10 @@ class AtomUpdateBlock(nn.Module):
         self.layers = _atom_mlp(emb_size_edge, emb_size_atom, n_hidden, activation, generator,
                                 dtype)
 
-    def forward(self, h, m, rbf, id_target, edge_mask):
+    def forward(self, h, m, rbf, id_target, edge_mask, atom_mask):
         x = m * self.dense_rbf(rbf)
-        x = self.scale_sum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask))
+        x = self.scale_sum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask), m,
+                           edge_mask, atom_mask)
         for layer in self.layers:
             x = layer(x)
         return x
@@ -224,16 +256,17 @@ class OutputBlock(nn.Module):
             self.out_forces = Dense(emb_size_edge, num_targets, generator=g, zero_init=zero,
                                     dtype=dtype)
 
-    def forward(self, h, m, rbf, id_target, edge_mask):
+    def forward(self, h, m, rbf, id_target, edge_mask, atom_mask):
         x = m * self.dense_rbf(rbf)
 
-        x_E = self.scale_sum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask))
+        x_E = self.scale_sum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask), m,
+                             edge_mask, atom_mask)
         for layer in self.layers:
             x_E = layer(x_E)
         x_E = self.out_energy(x_E)
 
         if self.direct_forces:
-            x_F = self.scale_rbf(x)
+            x_F = self.scale_rbf(x, m, edge_mask, edge_mask)
             for layer in self.seq_forces:
                 x_F = layer(x_F)
             x_F = self.out_forces(x_F)

@@ -4,13 +4,16 @@
 Each `layers.ScalingFactor` holds its factor in a `scale_factor` buffer
 (the reference state-dict schema) and carries its global name
 (`TripInteraction_1_had_rbf`, ...), the key of `scaling_factors.json`.
-Fitting the factors (the JAX package's `scale_stats` statistics) is not
-ported yet.
+`collect_stats` turns on the statistics `training.fit_scaling` fits the
+factors from (the JAX package's `scale_stats` collection); outside it a
+factor is one multiply.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+from typing import Iterable, Optional
 
 from torch import nn
 
@@ -55,3 +58,23 @@ def load_scales_from_json(model: nn.Module, scale_file: str) -> None:
     for name, module in scaling_factors(model).items():
         if name in content:
             module.scale_factor.fill_(float(content[name]))
+
+
+@contextlib.contextmanager
+def collect_stats(model: nn.Module, names: Optional[Iterable[str]] = None):
+    """Inside the block, every call of the named factors (all, where `names`
+    is None) appends its [var_in·n, var_out·n, n] to the list this yields
+    under the factor's name; the statistics are off again after it."""
+    factors = scaling_factors(model)
+    chosen = list(factors) if names is None else list(names)
+    missing = [name for name in chosen if name not in factors]
+    if missing:
+        raise KeyError(f"the model has no scaling factor {missing}")
+    stats = {name: [] for name in chosen}
+    try:
+        for name in chosen:
+            factors[name].stats = stats[name]
+        yield stats
+    finally:
+        for name in chosen:
+            factors[name].stats = None

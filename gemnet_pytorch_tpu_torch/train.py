@@ -19,7 +19,10 @@ threads (`Trainer.packer`), and each step is the Trainer's
 `train_step_fn()`: a CUDA graph replay on the card. `--steps-per-call K`
 runs up to K steps per host call (`Trainer.train_on_batches`), in chunks
 cut as the repository's train.py cuts them (`chunk_steps`). Validation on
-the EMA weights runs the eager step.
+the EMA weights is the Trainer's captured eval step (`test_on_batch`).
+Every mode of the Trainer comes from the config dict: `mve` with
+`num_targets: 2`, `agc` and `agc_compat_reference`, and `flat_optimizer:
+false` (the per-tensor optimizer).
 
 `main(argv)` parses the flags into a config dict; `run(config, ...)` trains
 from such a dict, so a caller without PyYAML (the card's machine) passes

@@ -4,10 +4,10 @@ in place of orbax).
 
 Counterpart of the reference's two .pth files per run (train_seml.py:336-340):
 `save_checkpoint` writes the whole `TrainState` (step, flat parameters,
-optimizer state, EMA, metric accumulators) and the plateau state into a
-`path + ".plateau.npz"` sidecar, as the JAX package does; `save_params`
-writes the model's `state_dict` (the reference schema's names, scale factors
-included).
+optimizer state, flat or per tensor, EMA, metric accumulators) and the
+plateau state into a `path + ".plateau.npz"` sidecar, as the JAX package
+does; `save_params` writes the model's `state_dict` (the reference
+schema's names, scale factors included).
 
 Restores are in place. The model's parameters are views of `state.params`
 (`flat_opt.flatten_parameters`), so `restore_checkpoint` copies into the
@@ -56,10 +56,16 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 
 def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
-    """The tensors a checkpoint holds, by key: the state's own (no copies)."""
+    """The tensors a checkpoint holds, by key: the state's own (no copies).
+    The per-tensor optimizer's moments are keyed by parameter name
+    (`opt_state.mu.<name>`)."""
     out = {k: getattr(state, k) for k in _STATE_FIELDS}
     for f in dataclasses.fields(state.opt_state):
-        out[f"opt_state.{f.name}"] = getattr(state.opt_state, f.name)
+        value = getattr(state.opt_state, f.name)
+        if isinstance(value, dict):
+            out.update({f"opt_state.{f.name}.{name}": t for name, t in value.items()})
+        else:
+            out[f"opt_state.{f.name}"] = value
     return out
 
 

@@ -817,3 +817,145 @@ def test_captured_fp32_step_matches_eager(device):
     assert np.linalg.norm(cap[1] - eager[1]) <= 1e-4 * np.linalg.norm(eager[1])
     np.testing.assert_allclose(cap[2], eager[2], rtol=1e-5)
     assert cap[4]._captured[1].launches == eager[3]
+
+
+# ---------------------------------------------------------------- the rest of training
+
+_SMALL_Q = dict(num_spherical=4, num_radial=4, num_blocks=2, emb_size_atom=32, emb_size_edge=32,
+                emb_size_trip=16, emb_size_quad=8, emb_size_rbf=8, emb_size_cbf=8,
+                emb_size_sbf=8, emb_size_bil_quad=8, emb_size_bil_trip=16)
+
+
+@pytest.mark.cuda
+def test_captured_mve_step_matches_eager(device):
+    """MVE (num_targets=2, two -dE/dR backwards and the grad-of-grad through
+    both) with deterministic algorithms: 3 captured steps against 3 eager
+    ones from the same weights, the losses within rtol 1e-5, the update
+    within a relative L2 error of 1e-4, the 8 metric accumulators within
+    rtol 1e-5; the capture recorded the eager step's launches; 2 blocks:
+    4 + 16 K1 (the forward's; two per first-backward K2), 8 + 4 + 8 K2 (the
+    two backwards'; the forward K1s' VJP; one per first-backward K2) and
+    2 x 8 + 6 K3 (the two backwards'; the forward's network gathers)."""
+    import collections
+
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    cfg = ModelConfig(num_targets=2, **_SMALL_Q)
+    batch_np = _small_batch(False)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("eager", "captured"):
+            trainer = Trainer(GemNet(cfg, generator=torch.Generator().manual_seed(0),
+                                     device=device),
+                              TrainConfig(learning_rate=1e-3, warmup_steps=1, mve=True))
+            state = trainer.init_state()
+            p0 = state.params.clone()
+            losses = []
+            _cuda.reset_launches()
+            for i in range(3):
+                if mode == "eager":
+                    state, metrics, _ = trainer.train_step(state, to_torch(batch_np, device), 1.0)
+                else:
+                    state, metrics, _ = trainer.train_step_fn()(state, batch_np, 1.0)
+                losses.append(float(metrics["loss"]))
+                if i == 0:
+                    launches = collections.Counter(_cuda.LAUNCHES)
+                    per_kernel = _cuda.kernel_launches()
+            runs[mode] = (np.array(losses), (state.params - p0).cpu().numpy(),
+                          state.metric_acc.cpu().numpy(), launches, trainer, per_kernel)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    eager, cap = runs["eager"], runs["captured"]
+    assert eager[5] == {"gemnet_segment_outer_sum_f32": 20,
+                        "gemnet_segment_gather_contract_f32": 20,
+                        "gemnet_sorted_segsum_f32": 22}
+    assert eager[2].shape == (8, 2) and np.isfinite(cap[0]).all()
+    np.testing.assert_allclose(cap[0], eager[0], rtol=1e-5)
+    assert np.linalg.norm(cap[1] - eager[1]) <= 1e-4 * np.linalg.norm(eager[1])
+    np.testing.assert_allclose(cap[2], eager[2], rtol=1e-5)
+    assert cap[4]._captured[1].launches == eager[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(flat_optimizer=False), dict(agc=True, grad_clip_max=0.02),
+                                  dict(agc=True, agc_compat_reference=True, grad_clip_max=0.02)],
+                         ids=["tree", "agc", "agc_compat"])
+def test_tree_and_agc_steps_on_card_match_cpu(device, over):
+    """Three captured steps of the per-tensor optimizer (with global-norm
+    clipping, or AGC with either selection) on the card against the same
+    steps on the CPU: losses within rtol 1e-4, the whole update within a
+    relative L2 error of 1e-3; every moment stays at its address."""
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    batch_np = _small_batch(False)
+    runs = {}
+    for dev in ("cpu", device):
+        trainer = Trainer(GemNet(ModelConfig(**_SMALL_Q), generator=torch.Generator().manual_seed(0),
+                                 device=dev),
+                          TrainConfig(learning_rate=1e-3, warmup_steps=1, **over))
+        state = trainer.init_state()
+        ptrs = [t.data_ptr() for t in state.opt_state.nu_max.values()]
+        p0 = state.params.clone()
+        losses = []
+        for _ in range(3):
+            state, loss = trainer.train_on_batch(state, batch_np, 1.0)
+            losses.append(float(loss))
+        assert [t.data_ptr() for t in state.opt_state.nu_max.values()] == ptrs
+        assert int(state.opt_state.count) == 3
+        runs[str(dev)] = (np.array(losses), (state.params - p0).cpu().numpy())
+    (l_cpu, d_cpu), (l_gpu, d_gpu) = runs["cpu"], runs[str(device)]
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    assert np.linalg.norm(d_gpu - d_cpu) <= 1e-3 * np.linalg.norm(d_cpu)
+
+
+@pytest.mark.cuda
+def test_captured_eval_matches_eager(device):
+    """After two steps (EMA apart from the weights): the captured eval of
+    the EMA weights and of the current ones against the eager eval
+    (deterministic algorithms, metrics rtol 1e-5), each from its own graph
+    (keyed on the buffer the parameters are bound to), the parameters bound
+    to the trained buffer after; the captured predict against the eager
+    one; a second eval replays without a new capture."""
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    batch_np = _small_batch(False)
+    trainer = Trainer(GemNet(ModelConfig(**_SMALL_Q), generator=torch.Generator().manual_seed(0),
+                             device=device),
+                      TrainConfig(learning_rate=1e-3, warmup_steps=1, ema_decay=0.5))
+    state = trainer.init_state()
+    for _ in range(2):
+        state, _ = trainer.train_on_batch(state, batch_np, 1.0)
+    batch = to_torch(batch_np, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got = {}
+        for use_ema in (True, False):
+            metrics, _ = trainer.eval_step_fn()(state, batch_np, use_ema)
+            got[use_ema] = {k: float(v) for k, v in metrics.items()}
+            want = {k: float(v) for k, v in trainer.eval_step(state, batch, use_ema)[0].items()}
+            for k in want:
+                np.testing.assert_allclose(got[use_ema][k], want[k], rtol=1e-5, err_msg=k)
+            assert next(trainer.model.parameters()).data_ptr() == state.params.data_ptr()
+        assert got[True]["loss"] != got[False]["loss"]
+        graphs_before = dict(trainer._forward_captured["eval"])
+        assert len(graphs_before) == 2
+        trainer.eval_step_fn()(state, batch_np, True)
+        assert trainer._forward_captured["eval"] == graphs_before
+        E, _, F, _ = trainer.predict_fn()(state, batch_np, use_ema=True)
+        E0, _, F0, _ = trainer.predict(state, batch, use_ema=True)
+        torch.testing.assert_close(E, E0, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(F, F0, rtol=1e-5, atol=1e-6)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with pytest.raises(TypeError, match="eval_step"):
+        trainer.test_on_batch(state, batch, None)

@@ -84,6 +84,16 @@ def test_graph_and_md_modules_are_checked():
         assert name in rel, name
 
 
+def test_rest_of_training_modules_are_checked():
+    """The per-tensor optimizer, scale fitting (its module and its entry
+    point) and the scaling bookkeeping are among the files checked above;
+    the entry point reads PyYAML only inside `main`."""
+    rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
+    for name in ("training/tree_opt.py", "training/fit_scaling.py", "fit_scaling.py",
+                 "models/scaling.py"):
+        assert name in rel, name
+
+
 def test_serving_path_imports_no_yaml_or_ase():
     """PyYAML is imported only inside the config loader; ase only inside
     md.py's ASE adapter, where it is installed (as the JAX package's md.py)."""

@@ -309,17 +309,6 @@ def test_loss_metrics_match_jax(loss):
             rtol=1e-6)
 
 
-@pytest.mark.parametrize("knob,value", [("mve", True), ("agc", True), ("flat_optimizer", False)])
-def test_unported_trainer_knobs_raise(knob, value):
-    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
-    from gemnet_pytorch_tpu_torch.models import GemNet
-    from gemnet_pytorch_tpu_torch.training import Trainer
-
-    model = GemNet(ModelConfig(**TINY), generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=knob):
-        Trainer(model, TrainConfig(**{knob: value}))
-
-
 # ---------------------------------------------------------------- data, metrics
 
 @pytest.mark.parametrize("triplets_only", [False, True], ids=["Q", "T"])
