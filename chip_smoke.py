@@ -93,12 +93,27 @@ Phases:
      beside the flat optimizer's; the captured eval of the EMA and the
      current weights against the eager eval, and ms per eval batch both
      ways; `fit_scaling.run` (34 factors, 2 batches each) timed on the card,
-     and at batches of 8 on the card against the CPU.
+     and at batches of 8 on the card against the CPU;
+ 13. the rest of the single-device stack: the native graph builder (built
+     on the card's host in phase 2) against the numpy builder at both bench
+     batches, array for array, and each one's host ms; a DataProvider's
+     batches per second (2 prefetch workers, batches of 32 packed) with each
+     builder, beside the captured fp32 step's ms; phase 11's MD run with each
+     builder, ms per step split into graph build, pad_batch, plans and pack,
+     and the rest; `load_pretrained` of a written directory (GemNet-Q, in
+     fp32 and "high") predicting the example molecule on the card against
+     the CPU, its launches pinned, and the predict and MD examples; with
+     deterministic algorithms 5 captured fp32 remat steps against 5 without
+     (the remat step's launches pinned in REMAT_LAUNCHES), and ms, device
+     ms and peak MiB of the captured bf16 step with and without remat at
+     both batches; bilinear_implementation="xla" (the plain versions)
+     refused on the card, with no launch. Phase 10's fwd_ms_median is the
+     trainer's captured predict.
 
 The last lines are the `{"kernels": [...]}` record (every kernel at both
 batches' shapes, its launches on each path: serving, training, probe,
-bench and graph, the launches the captured graphs of phase 11 hold, and
-rest, phase 12's), the
+bench and graph, the launches the captured graphs of phase 11 hold,
+rest, phase 12's, and stack, phase 13's), the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero before those lines. Without a CUDA device
 it fails at once.
@@ -118,6 +133,7 @@ import time
 import numpy as np
 
 from gemnet_pytorch_tpu_torch import bench
+from gemnet_pytorch_tpu_torch.data.graph import build_graph, build_graph_numpy
 from gemnet_pytorch_tpu_torch.perf import roofline, trace
 
 # kernel vs plain version: both sum in fp32, in another order (and the plain
@@ -253,6 +269,21 @@ FIT_RTOL = 1e-4
 MD_STEPS = 100
 MD_SETTINGS = dict(dynamics="verlet", time=0.2, temperature=50, interval=1, traj_path=None,
                    seed=1, logfile=None)
+
+# phase 13: host ms of each graph builder, median of this many builds; the
+# provider's batches (train.py's synthetic dataset, 4-12 atoms a molecule)
+BUILDER_REPEATS = 5
+PROVIDER_MOLECULES = 512
+PROVIDER_WARMUP = 4
+PROVIDER_BATCHES = 40
+# phase 13: a captured fp32 remat step against the unremat'd one: the remat
+# test's tolerances (tests/test_torch_remat.py: E/F rtol 1e-6, gradients
+# 1e-5). Launches of one remat step: the train step's (TRAIN_LAUNCHES) and
+# each block's forward again in the -dE/dR backward and in the loss's
+# backward: 2 x 8 more K1
+REMAT_RTOL = 1e-6
+REMAT_UPDATE_REL_L2 = 1e-5
+REMAT_LAUNCHES = dict(TRAIN_LAUNCHES["float32"], gemnet_segment_outer_sum_f32=40)
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -1684,6 +1715,332 @@ def rest_phase(cfg, mols, device, workdir: str) -> dict:
     return timing
 
 
+# ---------------------------------------------------------------- the rest of the single-device stack
+
+# phase 13's graph builders: the native one and the numpy reference
+BUILDERS = {"native": build_graph, "numpy": build_graph_numpy}
+
+def graph_fields_equal(a, b) -> bool:
+    import dataclasses
+
+    return all(getattr(a, f.name).dtype == getattr(b, f.name).dtype
+               and np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def host_ms(fn, n: int = BUILDER_REPEATS) -> float:
+    """Median host ms of `n` calls of fn()."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def builders(cfg) -> dict:
+    """Phase 13 (a): the native graph builder, built on this host, against
+    the numpy builder at both bench batches, array for array; each
+    builder's host ms (median of BUILDER_REPEATS)."""
+    from gemnet_pytorch_tpu_torch.data import native
+
+    log(f"  native builder: {native.build()}")
+    out = {}
+    for kind in bench.KINDS:
+        mols = bench.molecules(kind)
+        N = np.array([len(z) for z, _ in mols])
+        R = np.concatenate([r for _, r in mols])
+
+        def run(backend):
+            return BUILDERS[backend](R, N, cfg.cutoff, cfg.int_cutoff,
+                                     triplets_only=cfg.triplets_only)
+
+        g_native, g_numpy = run("native"), run("numpy")
+        check(graph_fields_equal(g_native, g_numpy),
+              f"bench-{kind}: the native graph builder disagrees with the numpy one")
+        ms = {backend: host_ms(lambda: run(backend)) for backend in ("numpy", "native")}
+        out[kind] = ms
+        log(f"  bench-{kind} ({g_native.n_edges} edges, {g_native.n_triplets} triplets, "
+            f"{g_native.n_quads} quads): native equals numpy array for array; host ms "
+            f"(median of {BUILDER_REPEATS}): numpy {ms['numpy']:.2f}, native {ms['native']:.2f} "
+            f"({ms['numpy'] / ms['native']:.1f}x)")
+    return out
+
+
+def provider_rates(cfg, workdir: str, step_ms=None) -> dict:
+    """Phase 13 (b): padded, packed batches per second out of a
+    DataProvider with two prefetch workers (train.py's provider: batches
+    of 32, the packer's `pack` in the workers), on train.py's synthetic
+    dataset, with the numpy and the native builder; beside the captured
+    fp32 small step's ms (phase 11), where given."""
+    from unittest import mock
+
+    from gemnet_pytorch_tpu_torch.data import DataContainer, DataProvider, containers
+    from gemnet_pytorch_tpu_torch.data import make_dataset
+    from gemnet_pytorch_tpu_torch.data.packer import BatchPacker
+
+    path = os.path.join(workdir, "provider.npz")
+    make_dataset(path, n_molecules=PROVIDER_MOLECULES, seed=0)
+    out = {}
+    for backend in ("numpy", "native"):
+        with mock.patch.object(containers, "build_graph", BUILDERS[backend]):
+            provider = DataProvider(DataContainer(path, cfg.cutoff, cfg.int_cutoff),
+                                    ntrain=PROVIDER_MOLECULES, nval=0, batch_size=32, seed=0)
+            batches = provider.get_dataset("train", prefetch_workers=2,
+                                           transform=BatchPacker().pack)
+            for _ in range(PROVIDER_WARMUP):
+                next(batches)
+            t0 = time.perf_counter()
+            for _ in range(PROVIDER_BATCHES):
+                next(batches)
+            out[backend] = PROVIDER_BATCHES / (time.perf_counter() - t0)
+            batches.close()
+    beside = (f"; the captured fp32 small step takes {step_ms:.3f} ms ({1e3 / step_ms:.1f} "
+              "steps/s)" if step_ms else "")
+    log(f"  DataProvider, batches of 32 packed in 2 prefetch workers ({PROVIDER_BATCHES} "
+        f"batches): numpy {out['numpy']:.1f} batches/s ({1e3 / out['numpy']:.2f} ms a batch), "
+        f"native {out['native']:.1f} batches/s ({1e3 / out['native']:.2f} ms){beside}")
+    return out
+
+
+def md_parts(cfg, mols, device) -> dict:
+    """Phase 13 (c): phase 11's MD run (MD_STEPS Verlet steps on the first
+    bench-small molecule, the predict captured once, before the timed run)
+    with the numpy and the native builder; ms per step, split into the
+    graph build, pad_batch, the plans and packing, and the rest (the copy
+    to the card, the replay, the fetch of E and F, the integrator)."""
+    from unittest import mock
+
+    from gemnet_pytorch_tpu_torch.data import Molecule, containers
+    from gemnet_pytorch_tpu_torch.data.packer import BatchPacker
+    from gemnet_pytorch_tpu_torch.md import MDSimulator
+
+    Z, R = mols[0]
+    model = make_model(cfg, device)
+    out = {}
+    for backend in ("numpy", "native"):
+        spent = collections.Counter()
+
+        def timed(part, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent[part] += time.perf_counter() - t0
+            return run
+
+        mol = Molecule(R, Z, cfg.cutoff, cfg.int_cutoff, triplets_only=cfg.triplets_only)
+        sim = MDSimulator(mol, model, max_steps=MD_STEPS, device=device, **MD_SETTINGS)
+        sim.calc.calculate()  # the capture, outside the timed run
+        capture_s = sim.calc.captured._captured[1].seconds
+        with mock.patch.object(containers, "build_graph",
+                               timed("graph build", BUILDERS[backend])), \
+                mock.patch.object(containers, "pad_batch", timed("pad_batch",
+                                                                 containers.pad_batch)), \
+                mock.patch.object(BatchPacker, "pack", timed("plans and pack",
+                                                             BatchPacker.pack)):
+            t0 = time.perf_counter()
+            traj = sim.run()
+            sec = time.perf_counter() - t0
+        check(len(traj) == MD_STEPS and np.isfinite(traj.frames_E).all(),
+              f"MD ({backend} builder): non-finite trajectory")
+        check(sim.calc.captured.captures == 1, f"MD ({backend}): captured more than once")
+        parts = {k: v / MD_STEPS * 1e3 for k, v in spent.items()}
+        parts["rest"] = sec / MD_STEPS * 1e3 - sum(parts.values())
+        out[backend] = dict(ms_per_step=sec / MD_STEPS * 1e3, capture_s=capture_s, **parts)
+        log(f"  MD, {backend} builder: {out[backend]['ms_per_step']:.2f} ms a step over "
+            f"{MD_STEPS} steps (the capture before them, {capture_s:.2f} s): graph build "
+            f"{parts['graph build']:.2f}, pad_batch {parts['pad_batch']:.2f}, plans and pack "
+            f"{parts['plans and pack']:.2f}, copy + replay + fetch + integrator "
+            f"{parts['rest']:.2f} ms")
+    return out
+
+
+def write_pretrained(directory: str, cfg, seed: int = 0):
+    """A pretrained directory of `cfg`: model_kwargs.json, a
+    scaling_factors.json with factors from default_rng(seed) in [0.5, 2),
+    and model.pth (the reference state dict of weights from `seed`, the
+    factors in it). Returns the weights' path."""
+    import dataclasses
+
+    from gemnet_pytorch_tpu_torch.compat import save_reference_checkpoint
+    from gemnet_pytorch_tpu_torch.models.scaling import (
+        load_scales_from_json, scale_names_in_creation_order,
+    )
+    from gemnet_pytorch_tpu_torch.utils.jsonio import write_json
+
+    os.makedirs(directory, exist_ok=True)
+    write_json(os.path.join(directory, "model_kwargs.json"), dataclasses.asdict(cfg))
+    rng = np.random.default_rng(seed)
+    scale_file = os.path.join(directory, "scaling_factors.json")
+    write_json(scale_file, {name: float(rng.uniform(0.5, 2.0))
+                            for name in scale_names_in_creation_order(cfg)})
+    model = make_model(cfg, "cpu", seed)
+    load_scales_from_json(model, scale_file)
+    weights = os.path.join(directory, "model.pth")
+    save_reference_checkpoint(weights, model, cfg)
+    return weights
+
+
+def pretrained(cfg, device, workdir: str) -> dict:
+    """Phase 13 (d): `load_pretrained` of a written directory on the card
+    (GemNet-Q at the config.yaml widths; and in matmul_precision="high"),
+    the example molecule predicted by the calculator (captured) against the
+    same load on the CPU (rtol SERVE_RTOL), its capture's launches those of
+    a predict (SERVE_LAUNCHES); then `examples.predict` and
+    `examples.md_simulation` on the card."""
+    import dataclasses
+
+    from gemnet_pytorch_tpu_torch.data import Molecule
+    from gemnet_pytorch_tpu_torch.examples import md_simulation
+    from gemnet_pytorch_tpu_torch.examples import predict as example
+    from gemnet_pytorch_tpu_torch.md import GemNetCalculator
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.pretrained import load_pretrained
+
+    out = {}
+    for mode in ("default", "high"):
+        mcfg = dataclasses.replace(cfg, matmul_precision=mode)
+        directory = os.path.join(workdir, f"GemNet-Q-{mode}")
+        weights = write_pretrained(directory, mcfg)
+        results = {}
+        for dev in (device, "cpu"):
+            model = load_pretrained(directory, weights_path=weights, device=dev)
+            calc = GemNetCalculator(Molecule(example.R, example.Z, mcfg.cutoff,
+                                             mcfg.int_cutoff), model, device=dev)
+            results[str(dev)] = calc.calculate()
+            if dev != "cpu":
+                launches = collections.Counter()
+                for (name, _), n in calc.captured._captured[1].launches.items():
+                    launches[name] += n
+        (E, F), (E_cpu, F_cpu) = results[str(device)], results["cpu"]
+        errs = [close(np.array([E]), np.array([E_cpu]), SERVE_RTOL), close(F, F_cpu, SERVE_RTOL)]
+        log(f"  load_pretrained ({mode}) on the card: E {E:.6f} eV (CPU {E_cpu:.6f}), |dE| "
+            f"{errs[0][1]:.3e}, |dF| {errs[1][1]:.3e} (rtol {SERVE_RTOL}); the predict's "
+            f"capture launched {dict(launches)}")
+        check(all(ok for ok, _ in errs), f"the loaded model ({mode}) on the card disagrees with "
+              "the CPU")
+        check(dict(launches) == SERVE_LAUNCHES[mode],
+              f"the loaded model's predict ({mode}) launched {dict(launches)}, expected "
+              f"{SERVE_LAUNCHES[mode]}")
+        out[mode] = dict(E=E, dE=errs[0][1], dF=errs[1][1])
+    energy, forces = example.main([os.path.join(workdir, "GemNet-Q-default")])
+    check(np.isfinite(energy) and np.isfinite(forces).all(), "examples.predict: non-finite")
+    traj = md_simulation.main(["--traj", os.path.join(workdir, "md.npz"), "--steps", "20"])
+    check(len(traj) == 2 and np.isfinite(traj.frames_E).all(), "examples.md_simulation failed")
+    log(f"  examples.predict and examples.md_simulation (20 Langevin steps) ran on the card")
+    return out
+
+
+def remat(cfg, mols, device) -> dict:
+    """Phase 13 (e): with deterministic algorithms, CAPTURED_STEPS captured
+    fp32 steps with remat_blocks against as many without, from one state
+    (loss rtol REMAT_RTOL, update relative L2 REMAT_UPDATE_REL_L2: the remat
+    test's E/F and gradient tolerances); the remat step's launches, eager
+    and captured (REMAT_LAUNCHES); then ms, device ms and peak MiB (graph
+    pool included) of the captured bf16 step with and without remat at both
+    bench batches (`time_captured`)."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for on in (False, True):
+            trainer, state = make_trainer(dataclasses.replace(cfg, remat_blocks=on),
+                                          "float32", device)
+            start, p0 = state_copy(state), state.params.clone()
+            if on:
+                before = collections.Counter(_cuda.kernel_launches())
+                trainer.train_step(state, to_torch(batch_np, device), 1.0)
+                torch.cuda.synchronize()
+                eager = collections.Counter(_cuda.kernel_launches())
+                eager.subtract(before)
+                eager = dict(+eager)
+            words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
+            step_fn = trainer.train_step_fn()
+            runs[on] = five_steps(trainer, state, start, p0,
+                                  lambda: step_fn(state, words, 1.0)[1])
+            if on:
+                captured = collections.Counter()
+                for (name, _), n in trainer._captured[1].launches.items():
+                    captured[name] += n
+            del trainer, state, step_fn, words
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diffs, equal = run_diffs(runs[True], runs[False], p0)
+    log(f"  remat_blocks, fp32, deterministic algorithms: {CAPTURED_STEPS} captured steps "
+        f"against the unremat'd ones: bit-equal {equal}, max loss rel {diffs[0]:.3e}, update "
+        f"rel L2 {diffs[1]:.3e}; launches of a remat step: eager {eager}, captured "
+        f"{dict(captured)}")
+    check(diffs[0] <= REMAT_RTOL and diffs[1] <= REMAT_UPDATE_REL_L2,
+          "the captured remat step disagrees with the unremat'd one")
+    check(eager == REMAT_LAUNCHES and dict(captured) == REMAT_LAUNCHES,
+          f"a remat step launched {eager} (captured {dict(captured)}), expected {REMAT_LAUNCHES}")
+    out = dict(bit_equal=equal, loss_rel=diffs[0], update_rel=diffs[1])
+    for kind in bench.KINDS:
+        for on in (False, True):
+            mcfg = dataclasses.replace(cfg, remat_blocks=on)
+            trainer, state, fn, capture_s, n_real, base = captured_trainer(
+                mcfg, kind, device, "bfloat16")
+            tag = "remat" if on else "plain"
+            out[f"{kind}_{tag}"] = time_captured(
+                fn, trainer._captured[1].graph,
+                f"bf16 captured step{' with remat' if on else ''}, bench-{kind}", base)
+            del trainer, state, fn
+            torch.cuda.empty_cache()
+    return out
+
+
+def xla(cfg, mols, device) -> None:
+    """Phase 13 (f): bilinear_implementation="xla" (the plain versions) on
+    the card: the bench-small predict raises, with no kernel launched."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    batch = to_torch(bench.padded_batch(cfg, mols)[0], device)
+    model = make_model(dataclasses.replace(cfg, bilinear_implementation="xla"), device)
+    torch.cuda.synchronize()
+    before = collections.Counter(_cuda.kernel_launches())
+    try:
+        predict(model, batch)
+        message = None
+    except ValueError as err:
+        message = str(err)
+    torch.cuda.synchronize()
+    count = collections.Counter(_cuda.kernel_launches())
+    count.subtract(before)
+    log(f"  bilinear_implementation='xla' on the card, bench-small predict: {message!r}; "
+        f"launches {dict(+count)}")
+    check(message is not None and "'xla'" in message,
+          "bilinear_implementation='xla' ran on the card: no plain version may run there")
+    check(not +count, f"'xla' on the card launched {dict(+count)} before it raised")
+
+
+def stack_phase(cfg, mols, device, workdir: str, step_ms=None, fwd_ms=None) -> dict:
+    """Phase 13. `step_ms`: the captured fp32 small step's ms (phase 11);
+    `fwd_ms`: the bench's fwd_ms_median (phase 10), where known. Returns the
+    timings."""
+    timing = dict(builders=builders(cfg), provider=provider_rates(cfg, workdir, step_ms),
+                  md=md_parts(cfg, mols, device), pretrained=pretrained(cfg, device, workdir),
+                  remat=remat(cfg, mols, device))
+    xla(cfg, mols, device)
+    if fwd_ms is not None:
+        log(f"  the bench's fwd_ms_median (phase 10), now the captured predict: {fwd_ms:.3f} ms")
+    return timing
+
+
 # ---------------------------------------------------------------- bench
 
 def run_bench(workdir: str, windows: int = 3):
@@ -1744,7 +2101,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 1
     from gemnet_pytorch_tpu_torch.config import ModelConfig
-    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.data import native, to_torch
     from gemnet_pytorch_tpu_torch.ops import _cuda
     from gemnet_pytorch_tpu_torch.scripts import gather_probe
 
@@ -1763,6 +2120,8 @@ def main() -> int:
     log("== 2. build")
     seconds = _cuda.build()
     log(f"  built {', '.join(_cuda.SOURCES)} in {seconds:.1f} s")
+    t0 = time.perf_counter()
+    log(f"  the native graph builder: {native.build()} in {time.perf_counter() - t0:.1f} s")
     for source, text in _cuda.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1841,15 +2200,27 @@ def main() -> int:
         torch.cuda.synchronize()
         rest_census = dict(_cuda.LAUNCHES)
 
+    log(f"== 13. the rest of the single-device stack: the native graph builder, the provider, "
+        f"MD's host parts, load_pretrained and the examples, remat_blocks, "
+        f"bilinear_implementation='xla' [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_stack_") as workdir:
+        _cuda.reset_launches()
+        stack_timing = stack_phase(cfg, mols, device, workdir,
+                                   step_ms=graph_timing["float32"]["captured_ms"],
+                                   fwd_ms=bench_out["fwd_ms_median"])
+        torch.cuda.synchronize()
+        stack_census = dict(_cuda.LAUNCHES)
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
              "train_high": high_census, "probe": probe_census, "bench": bench_census,
-             "graph": graph_census, "rest": rest_census}
+             "graph": graph_census, "rest": rest_census, "stack": stack_census}
     # each row's own paths, where it must have launched (at the large
     # shapes only the bench's steps and phase 12's timed MVE steps run, in
     # fp32 and bf16: no path runs split3 there); "graph": the launches the
     # captured graphs of phase 11 hold; "rest": phase 12's launches (eager,
-    # and those its captures recorded; a replay is counted at its capture)
+    # and those its captures recorded; a replay is counted at its capture);
+    # "stack": phase 13's, counted as phase 12's
     own = {"f32": ("serve", "train_fp32", "graph", "rest"),
            "bf16": ("train_bf16", "graph", "rest"),
            "split3": ("serve_high", "train_high", "graph", "rest")}
@@ -1904,7 +2275,18 @@ def main() -> int:
         + "; fp32 small step " + ", ".join(
             f"{m} {t['ms']:.3f}" for m, t in rest_timing["optimizer"].items())
         + f" ms; eval {rest_timing['eval']['captured_ms']:.3f} ms (eager "
-        f"{rest_timing['eval']['eager_ms']:.3f}); fitting {rest_timing['fit_s']:.1f} s")
+        f"{rest_timing['eval']['eager_ms']:.3f}); fitting {rest_timing['fit_s']:.1f} s; "
+        + "graph build small / large ms numpy vs native " + ", ".join(
+            f"{t['numpy']:.2f} / {t['native']:.2f}" for t in stack_timing["builders"].values())
+        + "; provider batches/s numpy {numpy:.1f}, native {native:.1f}".format(
+            **stack_timing["provider"])
+        + "; MD ms/step numpy {:.2f}, native {:.2f}".format(
+            *(stack_timing["md"][b]["ms_per_step"] for b in ("numpy", "native")))
+        + "; bf16 step ms / peak MiB, plain vs remat: " + "; ".join(
+            f"{kind} {stack_timing['remat'][f'{kind}_plain']['ms']:.3f} / "
+            f"{stack_timing['remat'][f'{kind}_plain']['peak_mib']:.1f} vs "
+            f"{stack_timing['remat'][f'{kind}_remat']['ms']:.3f} / "
+            f"{stack_timing['remat'][f'{kind}_remat']['peak_mib']:.1f}" for kind in bench.KINDS))
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

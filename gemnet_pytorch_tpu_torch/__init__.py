@@ -8,5 +8,7 @@ mode or in fp32 "high", with the bilinear neighbour reduction, its VJP and
 the sorted segment sum as CUDA kernels on fp32 and bf16 streams, the
 bilinear pair also in the split3 mode on the tensor cores (`csrc/`). On
 CPU tensors the same entry points run plain PyTorch versions of those
-kernels. This package imports neither JAX nor the JAX package.
+kernels. Graphs are built on the host by a native C++ builder (`native/`);
+released models load through `pretrained` (and TF2 checkpoints through
+`tf_import`). This package imports neither JAX nor the JAX package.
 """

@@ -17,6 +17,8 @@ two workloads made from `default_rng(0)`:
 Timing (perf/timing.py): chained steps (the step threads its state; the
 forward threads a zero scalar) in windows that end in a value fetch of the
 last output; the median, best and spread (max - min) of the windows. The
+forward timed (`fwd_ms_median`) is the trainer's captured predict
+(`predict_fn()`) on the packed batch, on the card. The
 step timed is the Trainer's `train_step_fn()`, the counterpart of the jitted
 step `bench.py` times: on the card a CUDA graph replay, its packed batch
 resident on the device as the JAX bench's batch is. The headline dtype is
@@ -164,20 +166,37 @@ def measure_train_step(trainer, state, words, rtt, tag, device, **windows):
     return res
 
 
-def measure_forward(trainer, batch, rtt, tag, **windows):
-    """Seconds per forward (E and -dE/dR), chained through a zero scalar
-    added to R (bench.py:233-260)."""
+def measure_forward(trainer, state, batch, words, rtt, tag, **windows):
+    """Seconds per forward (E and -dE/dR), each chained onto the last through
+    a zero scalar added to R (bench.py:226-260). On the card it is the
+    trainer's captured predict (`predict_fn()`) replayed on the packed words
+    `words`, as JAX jits its forward on the train step's packed signature; the
+    zero is added to R inside `words`. On the CPU it runs eagerly on the
+    batch of tensors `batch`."""
     box = {"eps": torch.zeros((), device=trainer.device)}
+    if trainer.device.type == "cuda":
+        predict = trainer.predict_fn()
+        R = trainer.packer.unpack(words)["R"]  # a view of the words
 
-    def fwd_once():
-        E, _ = energy_and_forces(trainer.model, dict(batch, R=batch["R"] + box["eps"]))
-        box["eps"] = E.sum() * 0.0
-        return box["eps"]
+        def fwd_once():
+            R.add_(box["eps"])
+            box["eps"] = predict(state, words)[0].sum() * 0.0
+            return box["eps"]
+    else:
+        def fwd_once():
+            E, _ = energy_and_forces(trainer.model, dict(batch, R=batch["R"] + box["eps"]))
+            box["eps"] = E.sum() * 0.0
+            return box["eps"]
 
+    t0 = time.perf_counter()
     fetch_scalar(fwd_once())
+    log(f"[{tag}] fwd first call{' (its capture)' if trainer.device.type == 'cuda' else ''}: "
+        f"{time.perf_counter() - t0:.1f} s")
     res = timed_windows(fwd_once, rtt_s=rtt, **windows)
     log(f"[{tag}] fwd steady: median {res['median_s'] * 1e3:.3f} ms, best "
         f"{res['best_s'] * 1e3:.3f} ms ({res['iters']} chained/window)")
+    # the predict's graph and pool go before the train step's peak is read
+    trainer.drop_forward_graphs("predict")
     return res
 
 
@@ -285,7 +304,9 @@ def run(args: argparse.Namespace, model_overrides: dict | None = None, windows: 
         words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
         res[f"{kind}_n_real"] = n_real
         if kind == "small":
-            res["fwd"] = measure_forward(trainer, batch, rtt, kind, **win)
+            res["fwd"] = measure_forward(trainer, state, batch, words, rtt, kind, **win)
+            if on_card:
+                torch.cuda.empty_cache()
         t = measure_train_step(trainer, state, words, rtt, kind, device, **win)
         res[kind] = t
         log(f"[{kind}] -> {n_real / t['median_s']:.4e} trip+quad/s (median)")

@@ -4,7 +4,7 @@
 
 The defaults equal `config.yaml` (GemNet-Q at the released widths and the
 reference's training hyperparameters). Knobs that only the JAX package serves
-(edge partitioning, remat) stay as fields so one YAML file configures both
+(edge partitioning) stay as fields so one YAML file configures both
 packages; `models.gemnet.GemNet` raises on the ones this package does not run
 yet.
 """

@@ -1,10 +1,12 @@
-"""Batched molecular-graph index construction (host side, numpy/scipy).
+"""Batched molecular-graph index construction (host side).
 
-This package's copy of the numpy builder in `gemnet_pytorch_tpu/data/graph.py`:
-the atom -> edge -> triplet -> quadruplet index hierarchy with the reference's
-canonical undirected edge order, triplets sorted by their reduce edge, and the
+This package's copy of `gemnet_pytorch_tpu/data/graph.py`: the atom -> edge
+-> triplet -> quadruplet index hierarchy with the reference's canonical
+undirected edge order, triplets sorted by their reduce edge, and the
 two-level "intermediate triplet" quadruplet construction
-(reference gemnet/training/data_container.py:156-489). The output arrays are
+(reference gemnet/training/data_container.py:156-489). `build_graph` runs
+the native C++ builder (`native.py`); `build_graph_numpy` is the numpy/scipy
+builder it is held against, with the same arrays. The output arrays are
 unpadded; `padding.py` turns them into static-shape masked batches.
 
 Index vocabulary (the interchange schema, identical to the reference):
@@ -137,6 +139,13 @@ def _batched_adjacency(R: np.ndarray, N: np.ndarray, cutoff: float):
     )
 
 
+def _check_sizes(R, N) -> np.ndarray:
+    N = np.asarray(N, dtype=np.int64)
+    if np.shape(R) != (int(N.sum()), 3):
+        raise ValueError(f"R has shape {np.shape(R)}, N holds {int(N.sum())} atoms")
+    return N
+
+
 def build_graph(
     R: np.ndarray,
     N: np.ndarray,
@@ -144,14 +153,28 @@ def build_graph(
     int_cutoff: float | None = None,
     triplets_only: bool = False,
 ) -> GraphArrays:
-    """Build the full index hierarchy for a batch of molecules.
+    """Build the full index hierarchy for a batch of molecules with the
+    native C++ builder (`native.py`, built at first use; a failed build
+    raises, nothing falls back to numpy).
 
     R: (nAtoms, 3) concatenated positions; N: (nMolecules,) atoms per
     molecule; cutoff: edge cutoff; int_cutoff: quadruplet interaction cutoff.
     """
-    N = np.asarray(N, dtype=np.int64)
+    N = _check_sizes(R, N)
+    return _build_graph_native(R, N, cutoff, int_cutoff, triplets_only)
+
+
+def build_graph_numpy(
+    R: np.ndarray,
+    N: np.ndarray,
+    cutoff: float,
+    int_cutoff: float | None = None,
+    triplets_only: bool = False,
+) -> GraphArrays:
+    """`build_graph`'s arrays from numpy and scipy: the reference the
+    native builder is held against, array for array."""
+    N = _check_sizes(R, N)
     n_atoms = int(N.sum())
-    assert R.shape == (n_atoms, 3)
     batch_seg = np.repeat(np.arange(len(N), dtype=INT), N)
 
     idx_t, idx_s = _batched_adjacency(R, N, cutoff)
@@ -254,4 +277,30 @@ def build_graph(
     g.id4_expand_intm_db = id4_expand_intm_db
     g.id4_reduce_intm_ab = id4_reduce_intm_ab
     g.id4_expand_intm_ab = id4_expand_intm_ab
+    return g
+
+
+def _build_graph_native(R, N, cutoff, int_cutoff, triplets_only) -> GraphArrays:
+    """The native C++ builder's arrays as GraphArrays (JAX `graph.py:324-354`)."""
+    from .native import build_graph_native
+
+    raw = build_graph_native(R, N, cutoff, int_cutoff or 0.0, triplets_only)
+    batch_seg = np.repeat(np.arange(len(N), dtype=INT), N)
+    n_undir = len(raw["id_c"]) // 2
+    ind = np.arange(n_undir, dtype=INT)
+    g = GraphArrays(
+        batch_seg=batch_seg,
+        id_c=raw["id_c"],
+        id_a=raw["id_a"],
+        id_undir=np.concatenate([ind, ind]),
+        id_swap=np.concatenate([ind + n_undir, ind]),
+        id3_expand_ba=raw["id3_expand_ba"],
+        id3_reduce_ca=raw["id3_reduce_ca"],
+        Kidx3=raw["Kidx3"],
+    )
+    if not triplets_only:
+        for key in ("id4_int_a", "id4_int_b", "id4_reduce_ca", "id4_expand_db",
+                    "id4_reduce_cab", "id4_expand_abd", "Kidx4", "id4_reduce_intm_ca",
+                    "id4_expand_intm_db", "id4_reduce_intm_ab", "id4_expand_intm_ab"):
+            setattr(g, key, raw[key])
     return g

@@ -13,7 +13,9 @@ pool, overwritten by the next replay.
 `capture` warms the function up on a side stream first, as PyTorch asks
 (cuBLAS handles and workspaces, the autograd engine's device thread and the
 kernels' libraries are set up outside the capture), then lets the caller
-undo what the warm-up changed, then captures. A failed capture raises: no
+undo what the warm-up changed, then captures. Every capture on a device
+warms up on the same side stream, so captures do not each add a stream's
+cuBLAS workspaces to what the process holds. A failed capture raises: no
 caller falls back to running the function eagerly on the card.
 """
 
@@ -29,6 +31,10 @@ from .ops import _cuda
 
 # eager calls on a side stream before a capture
 WARMUP_CALLS = 2
+# the warm-up stream of each device, shared by every capture: each stream
+# that runs a cuBLAS call gets cuBLAS and cuBLASLt workspaces of its own,
+# which PyTorch keeps for the life of the process
+_WARMUP_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 # the hand-written kernels' device functions (perf/trace.PROFILE_GROUPS)
 KERNEL_NAMES = ("outer_sum", "gather_contract", "sorted_segsum")
 
@@ -52,7 +58,9 @@ def capture(fn, device, before_capture=None, warmup: int = WARMUP_CALLS,
     t0 = time.perf_counter()
     device = torch.device(device)
     current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
+    side = _WARMUP_STREAMS.get(device)
+    if side is None:
+        side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
     side.wait_stream(current)
     with torch.cuda.device(device), torch.cuda.stream(side):
         for _ in range(warmup):

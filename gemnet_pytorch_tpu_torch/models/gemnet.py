@@ -34,12 +34,34 @@ product, keeps 10. And PyTorch's flag for fp32 products
 (`torch.backends.cuda.matmul.allow_tf32`) is process-wide: it cannot be
 scoped to one model's dense backward matmuls. "default" and "highest" are
 exact fp32.
+
+bilinear_implementation chooses, as in the JAX package
+(`ops/pallas/segment_outer.py:251-256`), between the hand-written kernels
+and their plain versions for K1/K2 (the bilinears) and K3 (the VJPs of the
+interaction blocks' expand gathers; the geometry's stay "auto", as in JAX):
+"auto" the kernels on the card and the plain versions on the CPU, "xla" the
+plain versions, which raise on a CUDA tensor, "pallas" the kernels, which
+raise on a CPU tensor (`ops._cuda.use_kernel`).
+
+remat_blocks recomputes each interaction block and each output block of the
+block loop in the backward instead of holding its intermediates (JAX
+`models/gemnet.py:300-304`, `nn.remat`), through
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`: every backward
+that reaches a block (the -dE/dR backward and the loss's grad-of-grad) runs
+its forward again, with its K1 launches, and differentiates the recomputed
+graph. The numbers are the same: the recomputation runs the same ops on the
+same inputs. The model draws no random numbers, so the RNG state is
+neither saved nor restored (no read of the CUDA generator inside a graph
+capture).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..data.padding import SORT_META_KEYS
@@ -62,13 +84,14 @@ def _check_supported(cfg: ModelConfig) -> None:
         "matmul_precision": cfg.matmul_precision not in ("default", "high", "highest"),
         "ep_axis": cfg.ep_axis is not None,
         "ep_halo": cfg.ep_halo,
-        "remat_blocks": cfg.remat_blocks,
-        "bilinear_implementation": cfg.bilinear_implementation != "auto",
     }
     for knob, bad in unsupported.items():
         if bad:
             raise NotImplementedError(
                 f"{knob}={getattr(cfg, knob)!r} is not supported by the PyTorch port yet")
+    if cfg.bilinear_implementation not in _cuda.IMPLEMENTATIONS:
+        raise ValueError(f"bilinear_implementation={cfg.bilinear_implementation!r}: one of "
+                         f"{_cuda.IMPLEMENTATIONS}")
 
 
 def _required(batch: dict, keys) -> None:
@@ -116,7 +139,8 @@ class GemNet(nn.Module):
                 cfg.emb_size_rbf, cfg.emb_size_cbf, cfg.emb_size_sbf, cfg.emb_size_bil_trip,
                 cfg.emb_size_bil_quad, cfg.num_before_skip, cfg.num_after_skip,
                 cfg.num_concat, cfg.num_atom, cfg.triplets_only, block_nr=i + 1,
-                activation=cfg.activation, precision=precision, **kw)
+                activation=cfg.activation, precision=precision,
+                implementation=cfg.bilinear_implementation, **kw)
             for i in range(cfg.num_blocks)])
         self.out_blocks = nn.ModuleList([
             OutputBlock(
@@ -210,12 +234,21 @@ class GemNet(nn.Module):
 
         # ---- block stack ----
         E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask, atom_mask)
+        run = _remat if cfg.remat_blocks else _call
         for int_block, out_block in zip(self.int_blocks, self.out_blocks[1:]):
-            h, m = int_block(h, m, basis, ind, masks)
-            E, F = out_block(h, m, rbf_out, id_a, edge_mask, atom_mask)
+            h, m = run(int_block, h, m, basis, ind, masks)
+            E, F = run(out_block, h, m, rbf_out, id_a, edge_mask, atom_mask)
             E_a = E_a + E
             F_ca = F_ca + F
         return finalize_outputs(cfg, batch, E_a, F_ca, V_ca)
+
+
+def _call(block, *args):
+    return block(*args)
+
+
+# remat_blocks (module docstring)
+_remat = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
 
 
 def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca):

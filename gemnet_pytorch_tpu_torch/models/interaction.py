@@ -8,7 +8,9 @@ carry their sort metadata, so their VJPs run as the sorted segment sum K3.
 `dtype` is every layer's compute dtype (None: fp32; torch.bfloat16 in the
 bf16 mode), passed through as `gemnet_pytorch_tpu/models/interaction.py`
 does; `precision` is the bilinears' kernel mode ("split3" when
-matmul_precision="high", else "exact").
+matmul_precision="high", else "exact") and `implementation`
+(bilinear_implementation) picks the kernels or their plain versions for the
+bilinears and the expand gathers' VJPs, as the JAX blocks thread it.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class QuadrupletInteraction(nn.Module):
     def __init__(self, emb_size_edge, emb_size_quad, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, emb_size_sbf, activation=None, scale_prefix="QuadInteraction_1",
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact"):
+                 precision: str = "exact", implementation: str = "auto"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.dense_db = Dense(emb_size_edge, emb_size_edge, activation, **kw)
@@ -47,8 +49,10 @@ class QuadrupletInteraction(nn.Module):
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
         self.mlp_cbf = Dense(emb_size_cbf, emb_size_quad, **kw)
         self.scale_cbf = ScalingFactor(scale_prefix + "_had_cbf")
+        self.implementation = implementation
         self.mlp_sbf = EfficientInteractionBilinear(
-            emb_size_quad, emb_size_sbf, emb_size_bilinear, precision=precision, **kw)
+            emb_size_quad, emb_size_sbf, emb_size_bilinear, precision=precision,
+            implementation=implementation, **kw)
         self.scale_sbf_sum = ScalingFactor(scale_prefix + "_sum_sbf")
         self.down_projection = Dense(emb_size_edge, emb_size_quad, activation, **kw)
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
@@ -60,11 +64,13 @@ class QuadrupletInteraction(nn.Module):
         x_db = self.down_projection(x_db)
 
         # circular basis hadamard on the intermediate d->b space
-        x_db = expand_gather(x_db, ind["id4_expand_intm_db"], *ind["intm_db_sort"])
+        x_db = expand_gather(x_db, ind["id4_expand_intm_db"], *ind["intm_db_sort"],
+                             implementation=self.implementation)
         x_db = self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
 
         # spherical basis bilinear over quadruplets -> edges
-        x_db = expand_gather(x_db, ind["id4_expand_abd"], *ind["quad_abd_sort"])
+        x_db = expand_gather(x_db, ind["id4_expand_abd"], *ind["quad_abd_sort"],
+                             implementation=self.implementation)
         rbf_W1, sph_rows = sbf
         x = self.mlp_sbf(rbf_W1, sph_rows, x_db, ind["id4_reduce_ca"],
                          ind["id4_reduce_ca_plan"], mask=masks["quad"])
@@ -81,14 +87,16 @@ class TripletInteraction(nn.Module):
     def __init__(self, emb_size_edge, emb_size_trip, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, activation=None, scale_prefix="TripInteraction_1",
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact"):
+                 precision: str = "exact", implementation: str = "auto"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.dense_ba = Dense(emb_size_edge, emb_size_edge, activation, **kw)
         self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, **kw)
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
+        self.implementation = implementation
         self.mlp_cbf = EfficientInteractionBilinear(
-            emb_size_trip, emb_size_cbf, emb_size_bilinear, precision=precision, **kw)
+            emb_size_trip, emb_size_cbf, emb_size_bilinear, precision=precision,
+            implementation=implementation, **kw)
         self.scale_cbf_sum = ScalingFactor(scale_prefix + "_sum_cbf")
         self.down_projection = Dense(emb_size_edge, emb_size_trip, activation, **kw)
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
@@ -99,7 +107,8 @@ class TripletInteraction(nn.Module):
         x_ba = self.scale_rbf(x_ba * self.mlp_rbf(rbf3), x_ba, masks["edge"], masks["edge"])
         x_ba = self.down_projection(x_ba)
 
-        x_ba = expand_gather(x_ba, ind["id3_expand_ba"], *ind["trip_ba_sort"])
+        x_ba = expand_gather(x_ba, ind["id3_expand_ba"], *ind["trip_ba_sort"],
+                             implementation=self.implementation)
         rbf_W1, sph_rows = cbf3
         x = self.mlp_cbf(rbf_W1, sph_rows, x_ba, ind["id3_reduce_ca"],
                          ind["id3_reduce_ca_plan"], mask=masks["trip"])
@@ -119,7 +128,7 @@ class InteractionBlock(nn.Module):
                  emb_size_bil_quad, num_before_skip, num_after_skip, num_concat, num_atom,
                  triplets_only: bool, block_nr: int = 1, activation: Optional[str] = None,
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact"):
+                 precision: str = "exact", implementation: str = "auto"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.triplets_only = triplets_only
@@ -128,10 +137,11 @@ class InteractionBlock(nn.Module):
             self.quad_interaction = QuadrupletInteraction(
                 emb_size_edge, emb_size_quad, emb_size_bil_quad, emb_size_rbf, emb_size_cbf,
                 emb_size_sbf, activation, f"QuadInteraction_{block_nr}", precision=precision,
-                **kw)
+                implementation=implementation, **kw)
         self.trip_interaction = TripletInteraction(
             emb_size_edge, emb_size_trip, emb_size_bil_trip, emb_size_rbf, emb_size_cbf,
-            activation, f"TripInteraction_{block_nr}", precision=precision, **kw)
+            activation, f"TripInteraction_{block_nr}", precision=precision,
+            implementation=implementation, **kw)
         self.layers_before_skip = nn.ModuleList(
             [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_before_skip)])
         self.layers_after_skip = nn.ModuleList(

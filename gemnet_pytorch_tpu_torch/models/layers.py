@@ -181,21 +181,24 @@ class EfficientInteractionDownProjection(nn.Module):
 class EfficientInteractionBilinear(nn.Module):
     """Bilinear contraction + neighbour sum, weight (emb, I, out)
     (reference efficient.py:120-189), on the segment-outer-sum kernel;
-    `precision` ("exact" or "split3") is the kernels' mode."""
+    `precision` ("exact" or "split3") is the kernels' mode and
+    `implementation` ("auto", "pallas", "xla") chooses the kernels or their
+    plain versions."""
 
     def __init__(self, emb_size: int, emb_size_interm: int, units_out: int,
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact"):
+                 precision: str = "exact", implementation: str = "auto"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(emb_size, emb_size_interm, units_out))
         he_orthogonal_(self.weight, generator)
         self.dtype = dtype
         self.precision = precision
+        self.implementation = implementation
 
     def forward(self, rbf_W1, sph_rows, m, id_reduce, plan, mask=None):
         return bil_ops.bilinear(rbf_W1, sph_rows, m, id_reduce, plan,
                                 _cast(self.weight, self.dtype), mask=mask,
-                                precision=self.precision)
+                                precision=self.precision, implementation=self.implementation)
 
 
 def _atom_mlp(emb_size_edge, emb_size_atom, n_hidden, activation, generator, dtype):

@@ -12,12 +12,12 @@ factor is one multiply.
 from __future__ import annotations
 
 import contextlib
-import json
 from typing import Iterable, Optional
 
 from torch import nn
 
 from ..config import ModelConfig
+from ..utils.jsonio import read_json
 from .layers import ScalingFactor
 
 
@@ -51,10 +51,7 @@ def scaling_factors(model: nn.Module) -> dict[str, ScalingFactor]:
 
 def load_scales_from_json(model: nn.Module, scale_file: str) -> None:
     """Set every factor named in a scaling_factors.json (in place)."""
-    if not scale_file.endswith(".json"):
-        raise ValueError(f"{scale_file} is not a json path")
-    with open(scale_file) as f:
-        content = json.load(f)
+    content = read_json(scale_file)
     for name, module in scaling_factors(model).items():
         if name in content:
             module.scale_factor.fill_(float(content[name]))

@@ -53,39 +53,42 @@ def _segsum_cuda(x, perm, plan):
     return out
 
 
-def sorted_segsum_values(x, perm, sorted_ids, plan):
+def sorted_segsum_values(x, perm, sorted_ids, plan, implementation="auto"):
     """K3 without autograd: sum of the rows of x grouped by idx, through the
-    sorted order, in x's dtype. The kernel on a CUDA tensor, the plain
-    version on CPU."""
+    sorted order, in x's dtype. The kernel or the plain version as
+    `_cuda.use_kernel(implementation, device)` says: by default the kernel
+    on a CUDA tensor, the plain version on CPU."""
     if x.dtype not in _cuda.DTYPE_SUFFIX:
         raise TypeError(f"x is {x.dtype}: only float32 and bfloat16 are supported")
     suffix = _cuda.DTYPE_SUFFIX[x.dtype]
-    _cuda.note_kernel("K3", "backward", suffix, f"gemnet_sorted_segsum_{suffix}",
-                      (x.shape[0], x.shape[1], plan.n_segments))
-    if x.device.type == "cuda":
+    kernel = _cuda.use_kernel(implementation, x.device)
+    if implementation != "xla":  # the census counts the card's launch
+        _cuda.note_kernel("K3", "backward", suffix, f"gemnet_sorted_segsum_{suffix}",
+                          (x.shape[0], x.shape[1], plan.n_segments))
+    if kernel:
         return _segsum_cuda(x, perm, plan)
-    if x.device.type == "cpu":
-        return _segsum_plain(x[perm.long()], sorted_ids, plan.n_segments)
-    raise ValueError(f"no sorted segment sum for device {x.device}")
+    return _segsum_plain(x[perm.long()], sorted_ids, plan.n_segments)
 
 
 class ExpandGather(torch.autograd.Function):
     """table[idx]; backward: the sorted segment sum (expand_gather.py:199-215)."""
 
     @staticmethod
-    def forward(ctx, table, idx, perm, sorted_ids, plan):
+    def forward(ctx, table, idx, perm, sorted_ids, plan, implementation):
         if plan.n_segments != table.shape[0]:
             raise ValueError(
                 f"sort metadata covers {plan.n_segments} rows, table has {table.shape[0]}")
         ctx.save_for_backward(idx, perm, sorted_ids)
-        ctx.plan = plan
+        ctx.modes = plan, implementation
         return table[idx]
 
     @staticmethod
     def backward(ctx, cot):
         idx, perm, sorted_ids = ctx.saved_tensors
-        d_table = SortedSegsum.apply(cot.contiguous(), perm, sorted_ids, ctx.plan, idx)
-        return d_table.to(cot.dtype), None, None, None, None
+        plan, implementation = ctx.modes
+        d_table = SortedSegsum.apply(cot.contiguous(), perm, sorted_ids, plan, idx,
+                                     implementation)
+        return d_table.to(cot.dtype), None, None, None, None, None
 
 
 class SortedSegsum(torch.autograd.Function):
@@ -93,28 +96,29 @@ class SortedSegsum(torch.autograd.Function):
     ExpandGather again (expand_gather.py:255-271)."""
 
     @staticmethod
-    def forward(ctx, x, perm, sorted_ids, plan, idx):
+    def forward(ctx, x, perm, sorted_ids, plan, idx, implementation):
         ctx.save_for_backward(idx, perm, sorted_ids)
-        ctx.plan = plan
+        ctx.modes = plan, implementation
         # the cotangent of x must carry x's dtype (the JAX package keeps a
         # zero-size sentinel residual for this)
         ctx.x_dtype = x.dtype
-        return sorted_segsum_values(x, perm, sorted_ids, plan)
+        return sorted_segsum_values(x, perm, sorted_ids, plan, implementation)
 
     @staticmethod
     def backward(ctx, g):
         idx, perm, sorted_ids = ctx.saved_tensors
-        dx = ExpandGather.apply(g.to(ctx.x_dtype), idx, perm, sorted_ids, ctx.plan)
-        return dx, None, None, None, None
+        dx = ExpandGather.apply(g.to(ctx.x_dtype), idx, perm, sorted_ids, *ctx.modes)
+        return dx, None, None, None, None, None
 
 
-def expand_gather(table, idx, perm, sorted_ids, plan):
+def expand_gather(table, idx, perm, sorted_ids, plan, implementation="auto"):
     """table[idx] with a sorted-segment-sum VJP. idx int64; perm and
     sorted_ids int32 with sorted_ids == idx[perm] ascending; plan their
-    SegmentPlan over table's rows."""
-    return ExpandGather.apply(table, idx, perm, sorted_ids, plan)
+    SegmentPlan over table's rows; implementation "auto", "pallas" or "xla"
+    chooses the VJP's kernel or plain version (`_cuda.use_kernel`)."""
+    return ExpandGather.apply(table, idx, perm, sorted_ids, plan, implementation)
 
 
-def sorted_segsum(x, perm, sorted_ids, plan, idx):
+def sorted_segsum(x, perm, sorted_ids, plan, idx, implementation="auto"):
     """(n_src, M) sums of the rows of x grouped by idx."""
-    return SortedSegsum.apply(x, perm, sorted_ids, plan, idx)
+    return SortedSegsum.apply(x, perm, sorted_ids, plan, idx, implementation)

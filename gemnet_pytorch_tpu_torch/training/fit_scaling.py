@@ -13,9 +13,7 @@ JAX package writes, after its `comment` key.
 
 from __future__ import annotations
 
-import json
 import logging
-import os
 from typing import Iterator, Optional
 
 import numpy as np
@@ -24,24 +22,7 @@ import torch
 from ..data.batch import to_torch
 from ..models.gemnet import GemNet, energy_and_forces
 from ..models.scaling import collect_stats, scale_names_in_creation_order, scaling_factors
-
-
-def write_json(path: str, data: dict) -> None:
-    """`data` as `path`, a .json file (the JAX package's utils/jsonio.py)."""
-    if not path.endswith(".json"):
-        raise ValueError(f"{path} is not a json path")
-    with open(path, "w", encoding="utf-8") as f:
-        json.dump(data, f, ensure_ascii=False, indent=4)
-
-
-def update_json(path: str, data: dict) -> None:
-    """Merge `data` into the .json file at `path` (made if missing)."""
-    content = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            content = json.load(f)
-    content.update(data)
-    write_json(path, content)
+from ..utils.jsonio import update_json, write_json
 
 
 @torch.no_grad()

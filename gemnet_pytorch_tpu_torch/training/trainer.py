@@ -511,6 +511,11 @@ class Trainer:
 
         return run
 
+    def drop_forward_graphs(self, kind: str) -> None:
+        """Free the captured forwards of `kind` ("eval" or "predict") and
+        their graph pools; the next call of that kind captures anew."""
+        self._forward_captured[kind].clear()
+
     # -- host-side convenience mirroring the reference API --
     def train_on_batch(self, state: TrainState, batch, lr_scale, metrics=None):
         """One train step through `train_step_fn()` (the captured step on a

@@ -263,7 +263,7 @@ def test_scale_factor_names_and_json(jax_run, tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("compute_dtype", "float16"), ("matmul_precision", "tensorfloat32"), ("ep_axis", "ep"), ("ep_halo", True), ("remat_blocks", True),
+    ("compute_dtype", "float16"), ("matmul_precision", "tensorfloat32"), ("ep_axis", "ep"), ("ep_halo", True),
 ])
 def test_unsupported_knobs_raise(knob, value):
     from gemnet_pytorch_tpu_torch.config import ModelConfig
