@@ -108,12 +108,35 @@ Phases:
      ms and peak MiB of the captured bf16 step with and without remat at
      both batches; bilinear_implementation="xla" (the plain versions)
      refused on the card, with no launch. Phase 10's fwd_ms_median is the
-     trainer's captured predict.
+     trainer's captured predict;
+ 14. data parallelism and the halo edge partition (`parallel/`), with
+     deterministic algorithms for the gates: (a) on an NCCL group of one
+     (`parallel.initialize_distributed`), the captured dp step against the
+     captured single-device step (fp32 and bf16, 5 steps from one state,
+     bit-equality printed, phase 11's gates), its all-reduces issued at the
+     capture and none at a replay, the captured dp eval of the EMA weights
+     (EVAL_RTOL), ms per step both ways; (e) the halo step at one shard,
+     captured against eager (bit-equal where two eager runs are) and
+     against the single-device step (tests/test_halo.py's gates); then 2
+     spawned gloo ranks sharing cuda:0 (collectives through the host): (b)
+     dp with bench-small's 32 molecules in two padded halves, one fp32 step
+     against the single-device step on all 32 (loss 1e-5, update rel L2
+     TRAIN_UPDATE_REL_L2) and each half's predict (SERVE_RTOL); (c) halo on
+     bench-small: E/F and one fp32 step at tests/test_halo.py's gates, each
+     rank's launches pinned (HALO_LAUNCHES: K1/K2 on its local rows and
+     plans, no K3); (d) halo on bench-large: E/F (SERVE_RTOL), each rank's
+     peak MiB and ms of an eager fp32 and bf16 step beside the
+     single-device step's (one card: not a scaling number); (f) the
+     training entry point, `train.run` with dp=1 on the NCCL group and with
+     halo=2 on the gloo ranks (4 steps, eval and checkpoint every 2, rank
+     0's checkpoint at step 4). Phase 3 also holds K1/K2 at the halo shard's
+     shapes against their plain versions.
 
 The last lines are the `{"kernels": [...]}` record (every kernel at both
 batches' shapes, its launches on each path: serving, training, probe,
 bench and graph, the launches the captured graphs of phase 11 hold,
-rest, phase 12's, and stack, phase 13's), the
+rest, phase 12's, stack, phase 13's, and parallel, phase 14's, its
+gloo ranks' included), the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero before those lines. Without a CUDA device
 it fails at once.
@@ -284,6 +307,27 @@ PROVIDER_BATCHES = 40
 REMAT_RTOL = 1e-6
 REMAT_UPDATE_REL_L2 = 1e-5
 REMAT_LAUNCHES = dict(TRAIN_LAUNCHES["float32"], gemnet_segment_outer_sum_f32=40)
+# phase 14: launches of one fp32 halo train step on each rank, on its local
+# rows and plans: TRAIN_LAUNCHES' K1 and K2 (8 forward K1; 8 K2 in -dE/dR;
+# 8 K2 for the forward's K1s and 2 K1 + 1 K2 for each first-backward K2 in
+# the loss's backward) and no K3: the halo model's expand gathers are plain
+# gathers, as the JAX package's (models/interaction.py:64-70)
+HALO_LAUNCHES = {"gemnet_segment_outer_sum_f32": 24, "gemnet_segment_gather_contract_f32": 24}
+# phase 14: the gloo group's ranks (sharing cuda:0), tests/test_halo.py's
+# train-step settings (:241-282: its TrainConfig, whose warm-up is the
+# default 3750 steps), the timed bench-large halo steps, and the bound on
+# every wait of the spawned group
+PARALLEL_RANKS = 2
+# phase 14 (f): the training entry point in each mode, `train.run` at the
+# config.yaml widths on a synthetic dataset of 48 molecules of 4-12 atoms
+# (seed 0), batches of 16, eval and checkpoint every 2 steps
+PARALLEL_RUN = dict(batch_size=16, num_steps=4, evaluation_interval=2, save_interval=2,
+                    data_seed=0, warmup_steps=1)
+PARALLEL_RUN_MOLECULES = 48
+HALO_TRAIN = dict(weight_decay=1e-6, loss="mae", rho_force=0.5, learning_rate=3e-3,
+                  warmup_steps=3750)
+LARGE_HALO_STEPS = 3
+PARALLEL_TIMEOUT_S = 400
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -309,7 +353,14 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") with the seconds since the
+    script started."""
+    if msg.startswith("== "):
+        msg += f" (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -762,7 +813,7 @@ def make_trainer(cfg, compute_dtype: str, device, seed: int = 0, train_kw=None):
     same in both dtypes), at config.yaml's training hyperparameters with the
     learning rate at its full 1e-3 from step 0 (warmup_steps=1), as
     tests/test_bf16.py's train step; `train_kw` sets other TrainConfig
-    fields (the Trainer's modes)."""
+    fields (the Trainer's modes, or another warm-up)."""
     import dataclasses
 
     import torch
@@ -773,7 +824,7 @@ def make_trainer(cfg, compute_dtype: str, device, seed: int = 0, train_kw=None):
 
     model = GemNet(dataclasses.replace(cfg, compute_dtype=compute_dtype),
                    generator=torch.Generator().manual_seed(seed), device=device)
-    trainer = Trainer(model, TrainConfig(warmup_steps=1, **(train_kw or {})))
+    trainer = Trainer(model, TrainConfig(**{"warmup_steps": 1, **(train_kw or {})}))
     return trainer, trainer.init_state()
 
 
@@ -2041,6 +2092,524 @@ def stack_phase(cfg, mols, device, workdir: str, step_ms=None, fwd_ms=None) -> d
     return timing
 
 
+# ---------------------------------------------------------------- parallel
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def allclose(a, b, rtol: float, atol: float) -> tuple[bool, float]:
+    """numpy's allclose, and the largest |a - b| over its bound atol + rtol·|b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    excess = np.abs(a - b) / (atol + rtol * np.abs(b))
+    return bool(np.all(excess <= 1.0)), float(excess.max())
+
+
+def collectives_of(fn) -> dict:
+    """The collectives `fn()` issued, by (kind, backend)."""
+    from gemnet_pytorch_tpu_torch.parallel.collectives import CALLS
+
+    before = collections.Counter(CALLS)
+    fn()
+    after = collections.Counter(CALLS)
+    after.subtract(before)
+    return dict(+after)
+
+
+def padded_halves(cfg, mols):
+    """`mols` in two halves padded to one PadDims (the larger half's sizes
+    and 5% headroom, as bench.padded_batch pads): a dp shard each."""
+    from gemnet_pytorch_tpu_torch.data import pad_batch, scale_graph_dims
+    from gemnet_pytorch_tpu_torch.data.synthetic import toy_energy_forces
+
+    half = len(mols) // PARALLEL_RANKS
+    parts = [mols[i * half:(i + 1) * half] for i in range(PARALLEL_RANKS)]
+    raws, dims = [], None
+    for part in parts:
+        _, g, d = bench.padded_batch(cfg, part)
+        raws.append((part, g))
+        dims = d if dims is None else dims.grow_to(scale_graph_dims(g, 1.05), len(part),
+                                                   d.n_atoms)
+    out = []
+    for part, g in raws:
+        Z = np.concatenate([z for z, _ in part])
+        R = np.concatenate([r for _, r in part])
+        EF = [toy_energy_forces(z, r) for z, r in part]
+        out.append(pad_batch(g, Z, R, dims, E=np.array([e for e, _ in EF], np.float32),
+                             F=np.concatenate([f for _, f in EF]),
+                             triplets_only=cfg.triplets_only))
+    return out
+
+
+def halo_batches(cfg, mols, n_shards: int):
+    """(the single-device padded batch of `mols`, its halo partition over
+    `n_shards` at the same molecule and atom padding)."""
+    from gemnet_pytorch_tpu_torch.data.synthetic import toy_energy_forces
+    from gemnet_pytorch_tpu_torch.parallel import build_halo_partition
+
+    batch_np, g, dims = bench.padded_batch(cfg, mols)
+    Z = np.concatenate([z for z, _ in mols])
+    R = np.concatenate([r for _, r in mols])
+    EF = [toy_energy_forces(z, r) for z, r in mols]
+    part = build_halo_partition(g, Z, R, n_shards, E=np.array([e for e, _ in EF], np.float32),
+                                F=np.concatenate([f for _, f in EF]),
+                                triplets_only=cfg.triplets_only, n_mol_pad=dims.n_mol,
+                                n_atoms_pad=dims.n_atoms)
+    return batch_np, part
+
+
+def halo_step_gates(label: str, got, ref, p0) -> None:
+    """One halo train step against the single-device one: tests/test_halo.py
+    :241-282's gates (loss rtol 1e-4 atol 1e-6; parameters and EMA rtol 1e-3
+    atol 2e-5; accumulators rtol 1e-4 atol 1e-6) and the update's relative
+    L2 error within TRAIN_UPDATE_REL_L2."""
+    (loss, params, ema, acc), (rloss, rparams, rema, racc) = got, ref
+    ok_l, ex_l = allclose(loss, rloss, 1e-4, 1e-6)
+    ok_p, ex_p = allclose(params, rparams, 1e-3, 2e-5)
+    ok_e, ex_e = allclose(ema, rema, 1e-3, 2e-5)
+    ok_a, ex_a = allclose(acc, racc, 1e-4, 1e-6)
+    rel = rel_l2(params - p0, rparams - p0)
+    log(f"  {label}: loss {loss:.6f} vs {rloss:.6f}; largest share of the test_halo bound: loss "
+        f"{ex_l:.3f}, params {ex_p:.3f}, EMA {ex_e:.3f}, accumulators {ex_a:.3f}; update rel L2 "
+        f"{rel:.3e} (limit {TRAIN_UPDATE_REL_L2})")
+    check(ok_l and ok_p and ok_e and ok_a and rel <= TRAIN_UPDATE_REL_L2,
+          f"{label}: the halo step disagrees with the single-device step")
+
+
+def ef_gates(label: str, E, F, E_ref, F_ref) -> None:
+    """E and F against the single-device predict at tests/test_halo.py's
+    gates (E rtol 1e-5 atol 1e-5, F rtol 1e-4 atol 1e-5)."""
+    ok_e, ex_e = allclose(E, E_ref, 1e-5, 1e-5)
+    ok_f, ex_f = allclose(F, F_ref, 1e-4, 1e-5)
+    log(f"  {label}: E max |diff| {np.abs(E - E_ref).max():.3e} (share of the bound {ex_e:.3f}), "
+        f"F {np.abs(F - F_ref).max():.3e} ({ex_f:.3f}); max |E| {np.abs(E_ref).max():.3e}, "
+        f"|F| {np.abs(F_ref).max():.3e}")
+    check(ok_e and ok_f, f"{label}: E/F disagree with the single-device predict")
+
+
+def host(t):
+    """A numpy copy of a tensor."""
+    return t.detach().cpu().clone().numpy()
+
+
+def step_outputs(state, metrics):
+    """(loss, parameters, EMA, accumulators) after a step, on the host."""
+    return (float(metrics["loss"]), host(state.params), host(state.ema_params),
+            host(state.metric_acc))
+
+
+def dp_nccl(cfg, mols, device, group) -> dict:
+    """Phase 14 (a): the captured dp step under NCCL at world size 1 against
+    the captured single-device step, fp32 and bf16, from one state
+    (bit-equality printed; the gates of phase 11), its all-reduces issued at
+    the capture and none at a replay (they replay inside the graph); the
+    captured dp eval of the EMA weights against the single-device one
+    (EVAL_RTOL); ms per step both ways."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch import graphs
+    from gemnet_pytorch_tpu_torch.parallel import dp
+
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    timing = {}
+    for dt in ("float32", "bfloat16"):
+        runs, fns = {}, {}
+        for kind in ("single", "dp"):
+            trainer, state = make_trainer(cfg, dt, device)
+            start, p0 = state_copy(state), state.params.clone()
+            words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
+            step_fn = (trainer.train_step_fn() if kind == "single"
+                       else dp.make_dp_train_step(trainer, group))
+            if kind == "dp":
+                eager = collectives_of(lambda: trainer.train_step(
+                    state, trainer._device_batch(batch_np), 1.0, group))
+                capture = collectives_of(lambda: step_fn(state, words, 1.0))
+                replay = collectives_of(lambda: step_fn(state, words, 1.0))
+            runs[kind] = five_steps(trainer, state, start, p0,
+                                    lambda: step_fn(state, words, 1.0)[1])
+            fns[kind] = (trainer, state, step_fn, words)
+        diffs, equal = run_diffs(runs["dp"], runs["single"], p0)
+        trainer, state, step_fn, words = fns["dp"]
+        log(f"  (a) {dt}: {CAPTURED_STEPS} captured dp steps (NCCL, world size 1) vs as many "
+            f"captured single-device steps: bit-equal {equal}; max loss rel {diffs[0]:.3e}, "
+            f"update rel L2 {diffs[1]:.3e}, accumulators rel {diffs[2]:.3e}; collectives of an "
+            f"eager dp step {eager}, of the first call ({graphs.WARMUP_CALLS} warm-up steps and "
+            f"the capture) {capture}, of a replay {replay} (at one rank NCCL sums in place "
+            "without a kernel)"
+            + ("" if equal else " (not bit-equal: the autograd engine orders the double "
+               "backward's gradient sums by sequence numbers its two threads count apart, "
+               "phase 11; the dp step adds the all-reduces of the loss's denominators)"))
+        tol = (CAPTURED_LOSS_RTOL, CAPTURED_UPDATE_REL_L2) if dt == "float32" else (0.06, 0.06)
+        check(diffs[0] <= tol[0] and diffs[1] <= tol[1] and diffs[2] <= tol[0],
+              f"(a) {dt}: the captured dp step disagrees with the single-device step")
+        n_step = sum(eager.values())
+        check(n_step > 0 and set(eager) == {("all_reduce", "nccl")} and not replay
+              and sum(capture.values()) == (graphs.WARMUP_CALLS + 1) * n_step,
+              f"(a) {dt}: the dp step's all-reduces were not captured into its graph")
+        if dt == "float32":
+            strainer, sstate = fns["single"][:2]
+            sstate.ema_params.mul_(1.01)
+            state.ema_params.copy_(sstate.ema_params)
+            state.params.copy_(sstate.params)
+            ref, _ = strainer.eval_step_fn()(sstate, fns["single"][3], use_ema=True)
+            got, _ = dp.make_dp_eval_step(trainer, group)(state, words, use_ema=True)
+            rel = max(abs(float(got[k]) - float(ref[k])) / abs(float(ref[k])) for k in ref)
+            log(f"  (a) captured dp eval of the EMA weights vs single-device: max rel {rel:.3e}")
+            check(rel <= EVAL_RTOL, "(a) the captured dp eval disagrees with the single-device")
+        for kind in ("single", "dp"):
+            tr, st, fn, wd = fns[kind]
+            timing[f"{kind}_{dt}"] = time_captured(
+                lambda: fn(st, wd, 1.0)[1]["loss"], tr._captured[1].graph,
+                f"(a) {dt} captured {kind} step, bench-small, deterministic algorithms", 0)
+        del fns, trainer, state, step_fn, words
+        torch.cuda.empty_cache()
+    return timing
+
+
+def halo_nccl(cfg, mols, device, group) -> None:
+    """Phase 14 (e): the halo step at one shard under NCCL, captured (the
+    all-to-alls and psums inside the graph), against its eager run from one
+    state (bit-equal where two eager runs are, else phase 11's gates) and
+    against the captured single-device step (test_halo.py's gates), fp32,
+    tests/test_halo.py's optimizer settings."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.parallel import halo
+
+    batch_np, part = halo_batches(cfg, mols, 1)
+    # train.py's agreement on the pads before each step, on the card's group
+    check(halo.agree_halo_pads(part["halo_pads"], group) == part["halo_pads"],
+          "(e) the pads agreed over the NCCL group are not the rank's own")
+    local = halo.local_halo_batch(part, 0)
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    start, p0 = state_copy(state), state.params.clone()
+    hm = halo.halo_model(trainer.model, group)
+    tensors = to_torch(local, device)
+    eager = lambda: trainer.train_step(state, tensors, 1.0, model=hm)[1]  # noqa: E731
+    captured_fn = halo.make_halo_train_step(trainer, group)
+    words = trainer.packer.to_device(trainer.packer.pack(local), device)
+    captured = lambda: captured_fn(state, words, 1.0)[1]  # noqa: E731
+    a, b, c = (five_steps(trainer, state, start, p0, fn) for fn in (eager, eager, captured))
+    (ab, ab_equal), (ca, ca_equal) = run_diffs(b, a, p0), run_diffs(c, a, p0)
+    log(f"  (e) halo at 1 shard, NCCL: {CAPTURED_STEPS} captured steps vs eager: bit-equal "
+        f"{ca_equal} (two eager runs bit-equal {ab_equal}); max loss rel {ca[0]:.3e}, update "
+        f"rel L2 {ca[1]:.3e}; captured in {trainer._captured[1].seconds:.2f} s")
+    if ab_equal:
+        check(ca_equal, "(e) two eager halo runs are bit-equal and the captured one is not")
+    check(ca[0] <= CAPTURED_LOSS_RTOL and ca[1] <= CAPTURED_UPDATE_REL_L2,
+          "(e) the captured halo step disagrees with its eager run")
+    # one step of each from the start, against the single-device captured step
+    state_restore(state, start)
+    metrics = captured()
+    got = step_outputs(state, metrics)
+    strainer, sstate = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    smetrics = strainer.train_step_fn()(sstate, batch_np, 1.0)[1]
+    ref = step_outputs(sstate, smetrics)
+    halo_step_gates("(e) captured halo step (1 shard) vs the captured single-device step",
+                    got, ref, host(p0))
+    del trainer, state, strainer, sstate, captured_fn, words, tensors
+    torch.cuda.empty_cache()
+
+
+def driver_run(device, workdir: str, group, **mode) -> dict:
+    """Phase 14 (f): `train.run` in a parallel mode (dp=N or halo=N over
+    `group`) for PARALLEL_RUN's steps: the best metrics, finite, and rank
+    0's checkpoint at the last step."""
+    from gemnet_pytorch_tpu_torch import train as train_driver
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    run_dir = os.path.join(workdir, "run_" + "_".join(mode))
+    config = dict(PARALLEL_RUN, restart=run_dir, logdir=workdir)
+    best = train_driver.run(config, device=device, synthetic_molecules=PARALLEL_RUN_MOLECULES,
+                            group=group, **mode)
+    check(all(np.isfinite(v) for v in best.values()), f"train.run({mode}): non-finite metrics")
+    if mesh.is_main(group):
+        import torch
+
+        ckpt = torch.load(os.path.join(run_dir, "logs", "checkpoint"), map_location="cpu",
+                          weights_only=True)
+        check(int(ckpt["step"]) == PARALLEL_RUN["num_steps"],
+              f"train.run({mode}): rank 0's checkpoint at step {int(ckpt['step'])}")
+    return best
+
+
+def parallel_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 14 (b)-(d) on one rank of a gloo group whose ranks share
+    cuda:0 (a spawned process), on the model and molecules of
+    workdir/spec.pt: the results go to workdir/rank<r>.pt for the parent to
+    hold against the single-device card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.config import ModelConfig
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import dp, halo, mesh
+
+    spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
+    device = torch.device(spec["device"])
+    # gloo on the card, named: NCCL cannot put two ranks on one GPU
+    group = mesh.initialize_distributed(
+        f"file://{workdir}/store", world, rank, "gloo", device=device,
+        timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    cfg = ModelConfig(**spec["cfg"])
+    mols = spec["mols"]
+    out = {}
+    _cuda.reset_launches()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # (b) dp: a half each
+    half = padded_halves(cfg, mols)[rank]
+    trainer, state = make_trainer(cfg, "float32", device)
+    p0 = state.params.clone()
+    state, metrics, _ = dp.make_dp_train_step(trainer, group)(state, half, 1.0)
+    out["dp_step"] = (float(metrics["loss"]), host(state.params - p0))
+    E, F = dp.make_dp_predict_fn(make_model(cfg, device), group)(to_torch(half, device))
+    out["dp_predict"] = (host(E), host(F))
+    del trainer, state
+    # (c) halo, bench-small: predict, one step and its launches
+    _, part = halo_batches(cfg, mols, world)
+    E, F = halo.make_halo_apply(make_model(cfg, device), group)(
+        halo.shard_halo_batch(part, group, device))
+    out["halo_small"] = (host(E), host(F))
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    local = halo.local_halo_batch(part, rank)
+    torch.cuda.synchronize()
+    before = collections.Counter(_cuda.kernel_launches())
+    state, metrics = halo.make_halo_train_step(trainer, group)(state, local, 1.0)
+    torch.cuda.synchronize()
+    census = collections.Counter(_cuda.kernel_launches())
+    census.subtract(before)
+    out["halo_census"] = dict(+census)
+    out["halo_step"] = step_outputs(state, metrics)
+    out["shapes"] = {k: tuple(v.shape) for k, v in local.items()
+                     if k in ("id_c", "id3_reduce_ca", "id4_reduce_ca", "edge_halo_send_idx",
+                              "intm_halo_send_idx")}
+    del trainer, state
+    torch.use_deterministic_algorithms(False)
+    # (d) halo, bench-large: predict; per dtype peak MiB and ms of a step
+    _, part = halo_batches(cfg, spec["large_mols"], world)
+    E, F = halo.make_halo_apply(make_model(cfg, device), group)(
+        halo.shard_halo_batch(part, group, device))
+    out["halo_large"] = (host(E), host(F))
+    local = halo.local_halo_batch(part, rank)
+    for dt in ("float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        trainer, state = make_trainer(cfg, dt, device)
+        step = halo.make_halo_train_step(trainer, group)
+        batch = to_torch(local, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batch, 1.0)  # warm-up
+        dist.barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LARGE_HALO_STEPS):
+            state, metrics = step(state, batch, 1.0)
+        torch.cuda.synchronize()
+        out[f"large_{dt}"] = dict(
+            ms=(time.perf_counter() - t0) / LARGE_HALO_STEPS * 1e3,
+            peak_mib=torch.cuda.max_memory_allocated() / 2**20, loss=float(metrics["loss"]))
+        del trainer, state, step, batch
+    torch.cuda.empty_cache()
+    # (f) the training entry point, halo over the group
+    t0 = time.perf_counter()
+    out["halo_run"] = (driver_run(device, workdir, group, halo=world),
+                       time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["launches"] = collections.Counter(_cuda.LAUNCHES)  # (b)-(d), (f)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(workdir: str, spec: dict) -> list:
+    """Phase 14's gloo group: PARALLEL_RANKS spawned processes on cuda:0
+    running `parallel_rank` on `spec`; a rank that fails stops the others;
+    every wait is bounded by PARALLEL_TIMEOUT_S."""
+    import multiprocessing
+
+    import torch
+
+    torch.save(spec, os.path.join(workdir, "spec.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=parallel_rank, args=(r, PARALLEL_RANKS, workdir))
+             for r in range(PARALLEL_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * PARALLEL_RANKS, f"phase 14's gloo ranks exited {codes}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(PARALLEL_RANKS)]
+
+
+def single_device_references(cfg, mols, large_mols, device) -> dict:
+    """Phase 14's single-device card runs for (b)-(d): the captured step on
+    all of bench-small and the predict of each half (b); the predict of
+    bench-small and one step at test_halo.py's settings (c); the predict of
+    bench-large and the peak MiB and ms of an eager step per dtype (d)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+
+    ref = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        batch_np, _, _ = bench.padded_batch(cfg, mols)
+        trainer, state = make_trainer(cfg, "float32", device)
+        p0 = state.params.clone()
+        metrics = trainer.train_step_fn()(state, batch_np, 1.0)[1]
+        ref["dp_step"] = (float(metrics["loss"]), host(state.params - p0))
+        model = make_model(cfg, device)
+        ref["dp_predict"] = [tuple(host(t) for t in predict(model, to_torch(h, device)))
+                             for h in padded_halves(cfg, mols)]
+        ref["halo_small"] = tuple(host(t) for t in predict(model, to_torch(batch_np,
+                                                                                   device)))
+        trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        ref["p0"] = host(state.params)
+        metrics = trainer.train_step_fn()(state, batch_np, 1.0)[1]
+        ref["halo_step"] = step_outputs(state, metrics)
+        del trainer, state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    large_np, _, _ = bench.padded_batch(cfg, large_mols)
+    large = to_torch(large_np, device)
+    ref["halo_large"] = tuple(host(t) for t in predict(model, large))
+    del model
+    for dt in ("float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        trainer, state = make_trainer(cfg, dt, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(state, large, 1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LARGE_HALO_STEPS):
+            trainer.train_step(state, large, 1.0)
+        torch.cuda.synchronize()
+        ref[f"large_{dt}"] = dict(ms=(time.perf_counter() - t0) / LARGE_HALO_STEPS * 1e3,
+                                  peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+        del trainer, state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def gloo_ranks(cfg, mols, large_mols, device, workdir: str, power: str):
+    """Phase 14 (b)-(d): the spawned gloo ranks against the single-device
+    card, bench-small `mols`, bench-large `large_mols`. Returns (the ranks'
+    launches, by kernel and shape, summed; the bench-large numbers)."""
+    import dataclasses
+
+    ref = single_device_references(cfg, mols, large_mols, device)
+    t0 = time.perf_counter()
+    results = spawn_ranks(workdir, dict(device=str(device), cfg=dataclasses.asdict(cfg),
+                                        mols=mols, large_mols=large_mols))
+    log(f"  {PARALLEL_RANKS} gloo ranks on cuda:0 ran (b)-(d) in {time.perf_counter() - t0:.1f} s "
+        f"(spawn and CUDA start included)")
+    # (b)
+    losses = [r["dp_step"][0] for r in results]
+    rel = rel_l2(results[0]["dp_step"][1], ref["dp_step"][1])
+    log(f"  (b) dp, 2 halves of 16 molecules, one fp32 step: loss {losses} vs single-device on "
+        f"all 32 {ref['dp_step'][0]:.6f}; update rel L2 {rel:.3e} (limit {TRAIN_UPDATE_REL_L2})")
+    check(all(abs(x - ref["dp_step"][0]) <= 1e-5 * abs(ref["dp_step"][0]) for x in losses)
+          and rel <= TRAIN_UPDATE_REL_L2,
+          "(b) the dp step over 2 gloo ranks disagrees with the single-device step")
+    check(np.array_equal(results[0]["dp_step"][1], results[1]["dp_step"][1]),
+          "(b) the ranks' dp updates differ")
+    for r, res in enumerate(results):
+        for name, got, want in zip("EF", res["dp_predict"], ref["dp_predict"][r]):
+            ok, err = close(got, want, SERVE_RTOL)
+            log(f"  (b) dp predict, rank {r}'s half, {name}: max |diff| {err:.3e}")
+            check(ok, f"(b) rank {r}'s dp predict {name} disagrees with the single-device one")
+    # (c)
+    for r, res in enumerate(results):
+        ef_gates(f"(c) halo predict, bench-small, rank {r}", *res["halo_small"], *ref["halo_small"])
+        halo_step_gates(f"(c) halo fp32 step, bench-small, rank {r}", res["halo_step"],
+                        ref["halo_step"], ref["p0"])
+        log(f"  (c) rank {r}'s shard: {res['shapes']}; one step launched {res['halo_census']}")
+        check(res["halo_census"] == HALO_LAUNCHES,
+              f"(c) rank {r}'s halo step launched {res['halo_census']}, expected {HALO_LAUNCHES}")
+    # (d): SERVE_RTOL of the largest |E|, |F|, as every card-vs-card predict
+    # here (tests/test_halo.py's elementwise gates are sized for its 4 small
+    # molecules; at bench-large |F| reaches ~70 and a near-zero component
+    # carries the summation-order error of its sums)
+    for r, res in enumerate(results):
+        for name, got, want in zip("EF", res["halo_large"], ref["halo_large"]):
+            ok, err = close(got, want, SERVE_RTOL)
+            log(f"  (d) halo predict, bench-large, rank {r}, {name}: max |diff| {err:.3e}, max "
+                f"|{name}| {np.abs(want).max():.3e} (rtol {SERVE_RTOL} of it)")
+            check(ok, f"(d) rank {r}'s halo {name} at bench-large disagrees with the "
+                  "single-device predict")
+    large = {}
+    for dt in ("float32", "bfloat16"):
+        ranks = [res[f"large_{dt}"] for res in results]
+        large[dt] = dict(single=ref[f"large_{dt}"], ranks=ranks)
+        peaks = ", ".join(f"{x['peak_mib']:.1f}" for x in ranks)
+        ms = ", ".join(f"{x['ms']:.1f}" for x in ranks)
+        one = ref[f"large_{dt}"]
+        log(f"  (d) bench-large {dt} eager train step [{power}]: peak MiB per rank {peaks} vs "
+            f"single-device {one['peak_mib']:.1f}; ms per step {ms} (gloo through the host, "
+            f"2 ranks sharing one card: not a scaling number) vs single-device eager "
+            f"{one['ms']:.1f}")
+    best = [res["halo_run"][0] for res in results]
+    log(f"  (f) train.run(halo={PARALLEL_RANKS}) over the gloo ranks, "
+        f"{PARALLEL_RUN['num_steps']} steps on {PARALLEL_RUN_MOLECULES} synthetic molecules in "
+        f"{max(res['halo_run'][1] for res in results):.1f} s: best {best[0]}")
+    check(all(b == best[0] for b in best), "(f) the ranks' train.run(halo) disagree")
+    launches = collections.Counter()
+    for res in results:
+        launches.update(res["launches"])
+    return launches, large
+
+
+def parallel_phase(cfg, mols, device, workdir: str, power: str, large_mols=None) -> dict:
+    """Phase 14: (a) and (e) in this process on an NCCL group of one, with
+    deterministic algorithms, and (f)'s dp run; (b)-(d) and (f)'s halo run
+    on a spawned gloo group of 2 ranks sharing cuda:0. Returns the timings
+    and the gloo ranks' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    group = mesh.initialize_distributed(f"localhost:{free_port()}", 1, 0, device=device)
+    check(mesh.backend(group) == "nccl", f"phase 14's group is {mesh.backend(group)}, not NCCL")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        timing = dict(dp=dp_nccl(cfg, mols, device, group))
+        halo_nccl(cfg, mols, device, group)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    try:
+        t0 = time.perf_counter()
+        best = driver_run(device, workdir, group, dp=1)
+        log(f"  (f) train.run(dp=1) on the NCCL group (captured steps and eval), "
+            f"{PARALLEL_RUN['num_steps']} steps on {PARALLEL_RUN_MOLECULES} synthetic molecules "
+            f"in {time.perf_counter() - t0:.1f} s: best {best}")
+    finally:
+        dist.destroy_process_group()
+    launches, timing["large"] = gloo_ranks(cfg, mols, large_mols or bench.molecules("large"),
+                                           device, workdir, power)
+    return timing, launches
+
+
 # ---------------------------------------------------------------- bench
 
 def run_bench(workdir: str, windows: int = 3):
@@ -2146,6 +2715,21 @@ def main() -> int:
         "K3 quad_abd)")
     errors.update(compare_kernels(large))
     log(f"  large shapes checked in {time.perf_counter() - t0:.1f} s")
+    # the halo path's K1/K2 shapes: rank 0's shard of bench-small over
+    # PARALLEL_RANKS, its own rows and segment plans (phase 14 (c) launches
+    # them, in fp32)
+    from gemnet_pytorch_tpu_torch.parallel import local_halo_batch
+
+    shard = to_torch(local_halo_batch(halo_batches(cfg, mols, PARALLEL_RANKS)[1], 0), device)
+    halo = [c for c in kernel_cases(cfg, shard, device, tags=("triplet", "quadruplet"))
+            if c["dtype"] == "f32"]
+    for case in halo:
+        case["tag"] += "@halo"
+    log(f"== 3. kernels vs plain versions at the halo shard's shapes ({PARALLEL_RANKS} ranks, "
+        "bench-small: K1/K2 fp32 on a rank's local rows and plans)")
+    errors.update(compare_kernels(halo))
+    del shard
+    large += halo
 
     log(f"== 4. kernel timing [{power}]")
     timings = time_kernels(cases + large, power)
@@ -2211,20 +2795,36 @@ def main() -> int:
         torch.cuda.synchronize()
         stack_census = dict(_cuda.LAUNCHES)
 
+    log(f"== 14. data parallelism and the halo edge partition: NCCL at world size 1 (captured "
+        f"dp and halo steps), {PARALLEL_RANKS} gloo ranks sharing cuda:0 (dp, halo at both "
+        f"bench batches) [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_parallel_") as workdir:
+        t0 = time.perf_counter()
+        _cuda.reset_launches()
+        parallel_timing, rank_launches = parallel_phase(cfg, mols, device, workdir, power)
+        torch.cuda.synchronize()
+        parallel_census = collections.Counter(_cuda.LAUNCHES)
+        parallel_census.update(rank_launches)
+        log(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
              "train_high": high_census, "probe": probe_census, "bench": bench_census,
-             "graph": graph_census, "rest": rest_census, "stack": stack_census}
+             "graph": graph_census, "rest": rest_census, "stack": stack_census,
+             "parallel": dict(parallel_census)}
     # each row's own paths, where it must have launched (at the large
     # shapes only the bench's steps and phase 12's timed MVE steps run, in
     # fp32 and bf16: no path runs split3 there); "graph": the launches the
     # captured graphs of phase 11 hold; "rest": phase 12's launches (eager,
     # and those its captures recorded; a replay is counted at its capture);
-    # "stack": phase 13's, counted as phase 12's
-    own = {"f32": ("serve", "train_fp32", "graph", "rest"),
-           "bf16": ("train_bf16", "graph", "rest"),
+    # "stack": phase 13's, counted as phase 12's; "parallel": phase 14's, this
+    # process's and its gloo ranks'
+    own = {"f32": ("serve", "train_fp32", "graph", "rest", "parallel"),
+           "bf16": ("train_bf16", "graph", "rest", "parallel"),
            "split3": ("serve_high", "train_high", "graph", "rest")}
     own_large = {"f32": ("bench", "rest"), "bf16": ("bench", "rest"), "split3": ()}
+    # at the halo shard's shapes: phase 14's gloo ranks
+    own_halo = {"f32": ("parallel",)}
     cases += large
     kernels = []
     for case in cases:
@@ -2245,7 +2845,8 @@ def main() -> int:
         if case["kernel"] in ("P1", "P2"):
             must = ("probe",)
         else:
-            must = (own_large if case["tag"].endswith("@large") else own)[row["dtype"]]
+            must = (own_large if case["tag"].endswith("@large") else
+                    own_halo if case["tag"].endswith("@halo") else own)[row["dtype"]]
         for p in must:
             check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
         lib = [f"{row[k]:.4f}" if row[k] is not None else "null"
@@ -2286,7 +2887,16 @@ def main() -> int:
             f"{kind} {stack_timing['remat'][f'{kind}_plain']['ms']:.3f} / "
             f"{stack_timing['remat'][f'{kind}_plain']['peak_mib']:.1f} vs "
             f"{stack_timing['remat'][f'{kind}_remat']['ms']:.3f} / "
-            f"{stack_timing['remat'][f'{kind}_remat']['peak_mib']:.1f}" for kind in bench.KINDS))
+            f"{stack_timing['remat'][f'{kind}_remat']['peak_mib']:.1f}" for kind in bench.KINDS)
+        + "; captured dp (NCCL, world size 1) vs single step ms, deterministic algorithms: "
+        + ", ".join(f"{dt} {parallel_timing['dp'][f'dp_{dt}']['ms']:.3f} vs "
+                    f"{parallel_timing['dp'][f'single_{dt}']['ms']:.3f}"
+                    for dt in ("float32", "bfloat16"))
+        + "; halo over 2 gloo ranks on one card, bench-large eager step peak MiB a rank vs one "
+        "device: " + ", ".join(
+            f"{dt} {parallel_timing['large'][dt]['ranks'][0]['peak_mib']:.1f} vs "
+            f"{parallel_timing['large'][dt]['single']['peak_mib']:.1f}"
+            for dt in ("float32", "bfloat16")))
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

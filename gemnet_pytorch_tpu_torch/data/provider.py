@@ -134,7 +134,7 @@ class DataProvider:
 
     def get_dataset(
         self, split: str, batch_size: Optional[int] = None, prefetch_workers: int = 2,
-        transform=None,
+        transform=None, raw_transform=None,
     ) -> Iterator[dict[str, np.ndarray]]:
         """Infinite padded-batch iterator. With prefetch_workers > 0, batches
         are built by background threads ahead of consumption (numpy padding
@@ -142,14 +142,20 @@ class DataProvider:
         with device steps — the reference's DataLoader-worker role
         (data_provider.py:164), absent there by default (num_workers=0).
         `transform`, where given, maps each padded batch in the same threads
-        (the JAX provider's, provider.py:125-133): the trainer's
-        `packer.pack` yields packed int32 rows."""
+        (the JAX provider's, provider.py:125-153): the trainer's
+        `packer.pack` yields packed int32 rows. `raw_transform(g, Z, R, E, F)`
+        instead replaces the padding and receives the raw batched graph (the
+        halo partitioner builds its own layout, parallel/halo.py)."""
         if split not in self.idx:
             raise KeyError(f"no split {split!r}")
+        if transform is not None and raw_transform is not None:
+            raise ValueError("pass transform or raw_transform, not both")
         batch_size = batch_size or self.batch_size
         sels = self._selections(split, batch_size)
 
         def build(sel):
+            if raw_transform is not None:
+                return raw_transform(*self.data_container.build(sel))
             batch = self._build_padded(sel)
             return transform(batch) if transform is not None else batch
 

@@ -53,6 +53,16 @@ graph. The numbers are the same: the recomputation runs the same ops on the
 same inputs. The model draws no random numbers, so the RNG state is
 neither saved nor restored (no read of the CUDA generator inside a graph
 capture).
+
+ep_halo=True (with ep_axis, JAX's axis name) is the halo edge partition
+(`parallel/halo.py`, JAX `models/gemnet.py:120-127`, `:148-160`,
+`:264-276`, `:322-323`, `:371-372`): the model runs on one rank's shard of
+a halo partition, over the process group `group` (`parallel.halo.halo_model`
+makes such a view of a model, sharing its parameters). The geometry takes
+the partitioner's per-row atom indices, the blocks exchange halo rows and
+psum the per-atom accumulators, the direct-force F_atom is psum'd, and E
+and F come out replicated on every rank. ep_axis without ep_halo (the JAX
+package's "rung 2a", `parallel/ep.py`) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -67,6 +77,8 @@ from ..config import ModelConfig
 from ..data.padding import SORT_META_KEYS
 from ..ops import _cuda, geometry
 from ..ops.segment import masked_segment_mean, masked_segment_sum
+from ..parallel import mesh
+from ..parallel.collectives import psum
 from .basis import CircularBasis, RadialBasis, SphericalBasis
 from .interaction import InteractionBlock
 from .layers import (
@@ -82,13 +94,19 @@ def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "compute_dtype": cfg.compute_dtype not in ("float32", "bfloat16"),
         "matmul_precision": cfg.matmul_precision not in ("default", "high", "highest"),
-        "ep_axis": cfg.ep_axis is not None,
-        "ep_halo": cfg.ep_halo,
     }
     for knob, bad in unsupported.items():
         if bad:
             raise NotImplementedError(
                 f"{knob}={getattr(cfg, knob)!r} is not supported by the PyTorch port yet")
+    if cfg.ep_axis is not None and not cfg.ep_halo:
+        raise NotImplementedError(
+            f"ep_axis={cfg.ep_axis!r} without ep_halo is the JAX package's rung 2a "
+            "(parallel/ep.py), not ported yet: a later slice brings it; the halo mode "
+            "(ep_halo=True) runs")
+    if cfg.ep_halo and cfg.ep_axis is None:
+        raise ValueError("ep_halo needs ep_axis (the axis name; parallel.halo.halo_model sets "
+                         "both)")
     if cfg.bilinear_implementation not in _cuda.IMPLEMENTATIONS:
         raise ValueError(f"bilinear_implementation={cfg.bilinear_implementation!r}: one of "
                          f"{_cuda.IMPLEMENTATIONS}")
@@ -100,13 +118,22 @@ def _required(batch: dict, keys) -> None:
         raise KeyError(f"batch lacks {missing}: build it with pad_batch and data.to_torch")
 
 
+# the halo shard's keys the forward reads besides the plans
+HALO_KEYS = ("trip_b_atom", "edge_halo_send_idx", "edge_halo_send_mask", "id3_reduce_ca_plan")
+HALO_QUAD_KEYS = ("intm_ext_a_atom", "intm_ext_b_atom", "intm_ext_d_atom", "intm_halo_send_idx",
+                  "intm_halo_send_mask", "id4_reduce_ca_plan")
+
+
 class GemNet(nn.Module):
     """GemNet-(d)T/(d)Q. Weights are drawn from `generator` on the CPU and
-    the module is then moved to `device`."""
+    the module is then moved to `device`. `group`: the process group of a
+    halo model (cfg.ep_halo)."""
 
-    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device="cuda",
+                 group=None):
         super().__init__()
         _check_supported(cfg)
+        self.group = group
         # full fp32 dense products on the card in every mode (module docstring)
         _cuda.set_matmul_precision()
         precision = "split3" if cfg.matmul_precision == "high" else "exact"
@@ -155,10 +182,18 @@ class GemNet(nn.Module):
         num_targets, 3) with direct forces, else the per-edge heads, zero.
         `R` overrides batch["R"] so the caller can differentiate w.r.t. it."""
         cfg, cdt = self.cfg, self.cdt
-        _required(batch, ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan", "id3_reduce_ca_plan"))
-        if not cfg.triplets_only:
-            _required(batch, SORT_META_KEYS + (
-                "intm_db_plan", "quad_abd_plan", "quad_cab_plan", "id4_reduce_ca_plan"))
+        halo = cfg.ep_halo
+        if halo:
+            if self.group is None:
+                raise ValueError("a halo model runs over a process group: make it with "
+                                 "parallel.halo.halo_model(model, group)")
+            _required(batch, HALO_KEYS + (() if cfg.triplets_only else HALO_QUAD_KEYS))
+        else:
+            _required(batch, ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan",
+                              "id3_reduce_ca_plan"))
+            if not cfg.triplets_only:
+                _required(batch, SORT_META_KEYS + (
+                    "intm_db_plan", "quad_abd_plan", "quad_cab_plan", "id4_reduce_ca_plan"))
         if R is None:
             R = batch["R"]
         Z = batch["Z"]
@@ -168,8 +203,13 @@ class GemNet(nn.Module):
 
         # ---- geometry ----
         D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask)
-        angles3 = geometry.triplet_angles(R, id_c, id_a, batch["id3_reduce_ca"],
-                                          batch["id3_expand_ba"])
+        if halo:
+            # the expand edge's source atom, precomputed per local triplet row
+            angles3 = geometry.triplet_angles_halo(R, id_c, id_a, batch["id3_reduce_ca"],
+                                                   batch["trip_b_atom"])
+        else:
+            angles3 = geometry.triplet_angles(R, id_c, id_a, batch["id3_reduce_ca"],
+                                              batch["id3_expand_ba"])
 
         # ---- basis: triplets ----
         rbf = self.rbf_basis(D_ca) * edge_mask[:, None].to(R.dtype)
@@ -182,14 +222,24 @@ class GemNet(nn.Module):
                          int_edge=batch["int_edge_mask"])
             D_ab, _ = geometry.interatomic_vectors(
                 R, batch["id4_int_b"], batch["id4_int_a"], masks["int_edge"])
-            phi_cab, phi_abd, theta_cabd = geometry.quadruplet_angles(
-                R, id_c, id_a, batch["id4_int_b"], batch["id4_int_a"],
-                batch["id4_expand_abd"], batch["id4_reduce_cab"],
-                batch["id4_expand_intm_db"], batch["id4_reduce_intm_ca"],
-                batch["id4_expand_intm_ab"], batch["id4_reduce_intm_ab"],
-                abd_sort=(batch["quad_abd_perm"], batch["quad_abd_sorted"], batch["quad_abd_plan"]),
-                cab_sort=(batch["quad_cab_perm"], batch["quad_cab_sorted"], batch["quad_cab_plan"]),
-            )
+            if halo:
+                phi_cab, phi_abd, theta_cabd = geometry.quadruplet_angles_halo(
+                    R, id_c, id_a, batch["id4_int_b"], batch["id4_reduce_intm_ca"],
+                    batch["id4_reduce_intm_ab"], batch["id4_reduce_cab"],
+                    batch["intm_ext_a_atom"], batch["intm_ext_b_atom"],
+                    batch["intm_ext_d_atom"], batch["id4_expand_intm_db"].shape[0],
+                    batch["id4_expand_abd"])
+            else:
+                phi_cab, phi_abd, theta_cabd = geometry.quadruplet_angles(
+                    R, id_c, id_a, batch["id4_int_b"], batch["id4_int_a"],
+                    batch["id4_expand_abd"], batch["id4_reduce_cab"],
+                    batch["id4_expand_intm_db"], batch["id4_reduce_intm_ca"],
+                    batch["id4_expand_intm_ab"], batch["id4_reduce_intm_ab"],
+                    abd_sort=(batch["quad_abd_perm"], batch["quad_abd_sorted"],
+                              batch["quad_abd_plan"]),
+                    cab_sort=(batch["quad_cab_perm"], batch["quad_cab_sorted"],
+                              batch["quad_cab_plan"]),
+                )
             # dense circular basis on the intermediate d->b space
             # (reference gemnet.py:517, basis_layers.py:133-147)
             cbf4_env = self.cbf_basis.rbf_env(D_ab, masks["int_edge"])  # (IE, S, R)
@@ -223,24 +273,33 @@ class GemNet(nn.Module):
 
         ind = {k: batch[k] for k in ("id_c", "id_a", "id_swap", "id3_expand_ba",
                                      "id3_reduce_ca", "id3_reduce_ca_plan")}
-        ind["trip_ba_sort"] = (batch["trip_ba_perm"], batch["trip_ba_sorted"], batch["trip_ba_plan"])
         if not cfg.triplets_only:
             ind.update({k: batch[k] for k in ("id4_reduce_ca", "id4_reduce_ca_plan",
                                               "id4_expand_intm_db", "id4_expand_abd")})
-            ind["quad_abd_sort"] = (batch["quad_abd_perm"], batch["quad_abd_sorted"],
-                                    batch["quad_abd_plan"])
-            ind["intm_db_sort"] = (batch["intm_db_perm"], batch["intm_db_sorted"],
-                                   batch["intm_db_plan"])
+        group = self.group if halo else None
+        if halo:
+            ind["halo_group"] = group
+            ind["edge_send"] = (batch["edge_halo_send_idx"], batch["edge_halo_send_mask"])
+            if not cfg.triplets_only:
+                ind["intm_send"] = (batch["intm_halo_send_idx"], batch["intm_halo_send_mask"])
+        else:
+            ind["trip_ba_sort"] = (batch["trip_ba_perm"], batch["trip_ba_sorted"],
+                                   batch["trip_ba_plan"])
+            if not cfg.triplets_only:
+                ind["quad_abd_sort"] = (batch["quad_abd_perm"], batch["quad_abd_sorted"],
+                                        batch["quad_abd_plan"])
+                ind["intm_db_sort"] = (batch["intm_db_perm"], batch["intm_db_sorted"],
+                                       batch["intm_db_plan"])
 
         # ---- block stack ----
-        E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask, atom_mask)
+        E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask, atom_mask, group)
         run = _remat if cfg.remat_blocks else _call
         for int_block, out_block in zip(self.int_blocks, self.out_blocks[1:]):
             h, m = run(int_block, h, m, basis, ind, masks)
-            E, F = run(out_block, h, m, rbf_out, id_a, edge_mask, atom_mask)
+            E, F = run(out_block, h, m, rbf_out, id_a, edge_mask, atom_mask, group)
             E_a = E_a + E
             F_ca = F_ca + F
-        return finalize_outputs(cfg, batch, E_a, F_ca, V_ca)
+        return finalize_outputs(cfg, batch, E_a, F_ca, V_ca, group)
 
 
 def _call(block, *args):
@@ -251,9 +310,11 @@ def _call(block, *args):
 _remat = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
 
 
-def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca):
+def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca, group=None):
     """Per-molecule energy aggregation and the direct-force edge->atom
-    mapping (reference gemnet.py:578-592)."""
+    mapping (reference gemnet.py:578-592); a halo model's F_atom is psum'd
+    over `group` (JAX `models/gemnet.py:371-372`). The `id_undir` average
+    is local: a shard owns both directions of its pairs."""
     atom_mask, edge_mask = batch["atom_mask"], batch["edge_mask"]
     n_mol = batch["mol_mask"].shape[0]
     if cfg.extensive:
@@ -268,7 +329,8 @@ def finalize_outputs(cfg: ModelConfig, batch, E_a, F_ca, V_ca):
             F_und = masked_segment_mean(F_ca, batch["id_undir"], n_undir, mask=edge_mask)
             F_ca = F_und[batch["id_undir"]]
         F_ji = F_ca[:, :, None] * V_ca[:, None, :]  # (E, T, 3)
-        F_atom = masked_segment_sum(F_ji, batch["id_a"], batch["Z"].shape[0], mask=edge_mask)
+        F_atom = psum(masked_segment_sum(F_ji, batch["id_a"], batch["Z"].shape[0],
+                                         mask=edge_mask), group)
         return E_mol, F_atom.float()
     return E_mol, F_ca.float()
 
@@ -287,17 +349,26 @@ def energy_and_forces(model: GemNet, batch: dict[str, torch.Tensor], create_grap
     Serving passes create_graph=False and a model whose parameters do not
     require grad (`GemNetCalculator` freezes them), so no graph over the
     parameters is built; training (grad-of-grad) passes create_graph=True.
+
+    A halo model (cfg.ep_halo) returns E replicated and F exact and
+    replicated on every rank: each energy sum is seeded with 1/P on each of
+    the P ranks, and the ranks' R-gradients are psum'd (`parallel/halo.py`).
     """
-    if model.cfg.direct_forces:
+    cfg = model.cfg
+    if cfg.direct_forces:
         return model(batch)
+    group = model.group if cfg.ep_halo else None
+    seed = 1.0 / mesh.world_size(group) if group is not None else None
     R = batch["R"].detach().requires_grad_(True)
-    n_targets = model.cfg.num_targets
+    n_targets = cfg.num_targets
     with torch.enable_grad():
         E, _ = model(batch, R)
-        dE_dR = [torch.autograd.grad(E[:, t].sum(), R, create_graph=create_graph,
+        dE_dR = [torch.autograd.grad(E[:, t].sum() if seed is None else E[:, t].sum() * seed, R,
+                                     create_graph=create_graph,
                                      retain_graph=create_graph or t < n_targets - 1)[0]
                  for t in range(n_targets)]
     if not create_graph:
         E = E.detach()
     # one target: a view, no copy (the normal step's graph stays as it was)
-    return E, -(dE_dR[0][:, None, :] if n_targets == 1 else torch.stack(dE_dR, dim=1))
+    dE_dR = dE_dR[0][:, None, :] if n_targets == 1 else torch.stack(dE_dR, dim=1)
+    return E, -psum(dE_dR, group)

@@ -11,6 +11,16 @@ does; `precision` is the bilinears' kernel mode ("split3" when
 matmul_precision="high", else "exact") and `implementation`
 (bilinear_implementation) picks the kernels or their plain versions for the
 bilinears and the expand gathers' VJPs, as the JAX blocks thread it.
+
+The halo mode (`parallel/halo.py`; JAX `models/interaction.py:43-100`,
+`:236-310`): `ind["halo_group"]` is set and the index columns are a
+shard's. Each message-passing path runs in two stages, `prelude` (the dense
+layers up to the activations that are the halo payload) and `finish` (the
+expand gather, the bilinear, the up-projections); the block issues the edge
+exchange after the triplet prelude, then the quadruplet prelude and the
+intermediate exchange, then both finishes, in the JAX package's order. The
+expand gathers there are plain gathers: the sort metadata of a global
+batch is invalid for a shard's re-sliced rows (JAX `:64-70`, `:86-98`).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.expand_gather import expand_gather
+from ..parallel.halo import halo_extend
 from .layers import (
     AtomUpdateBlock,
     Dense,
@@ -58,19 +69,29 @@ class QuadrupletInteraction(nn.Module):
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
         self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
 
-    def forward(self, m, rbf, cbf, sbf, ind, masks):
+    def prelude(self, m, rbf, cbf, ind, masks, halo: bool = False):
+        """Up to the intermediate-db activations (the halo payload)."""
         x_db = self.dense_db(m)
         x_db = self.scale_rbf(x_db * self.mlp_rbf(rbf), x_db, masks["edge"], masks["edge"])
         x_db = self.down_projection(x_db)
 
-        # circular basis hadamard on the intermediate d->b space
-        x_db = expand_gather(x_db, ind["id4_expand_intm_db"], *ind["intm_db_sort"],
-                             implementation=self.implementation)
-        x_db = self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
+        # circular basis hadamard on the intermediate d->b space (halo: the
+        # intm_db rows live with their d->b edge, so the gather is local)
+        if halo:
+            x_db = x_db[ind["id4_expand_intm_db"]]
+        else:
+            x_db = expand_gather(x_db, ind["id4_expand_intm_db"], *ind["intm_db_sort"],
+                                 implementation=self.implementation)
+        return self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
 
+    def finish(self, x_db, sbf, ind, masks, halo: bool = False):
+        """From the (halo-extended) intermediate-db activations on."""
         # spherical basis bilinear over quadruplets -> edges
-        x_db = expand_gather(x_db, ind["id4_expand_abd"], *ind["quad_abd_sort"],
-                             implementation=self.implementation)
+        if halo:
+            x_db = x_db[ind["id4_expand_abd"]]
+        else:
+            x_db = expand_gather(x_db, ind["id4_expand_abd"], *ind["quad_abd_sort"],
+                                 implementation=self.implementation)
         rbf_W1, sph_rows = sbf
         x = self.mlp_sbf(rbf_W1, sph_rows, x_db, ind["id4_reduce_ca"],
                          ind["id4_reduce_ca_plan"], mask=masks["quad"])
@@ -79,6 +100,9 @@ class QuadrupletInteraction(nn.Module):
         x_ca = self.up_projection_ca(x)
         x_ac = self.up_projection_ac(x)[ind["id_swap"]]
         return scale(x_ca + x_ac, _INV_SQRT2)
+
+    def forward(self, m, rbf, cbf, sbf, ind, masks):
+        return self.finish(self.prelude(m, rbf, cbf, ind, masks), sbf, ind, masks)
 
 
 class TripletInteraction(nn.Module):
@@ -102,13 +126,19 @@ class TripletInteraction(nn.Module):
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
         self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
 
-    def forward(self, m, rbf3, cbf3, ind, masks):
+    def prelude(self, m, rbf3, masks):
+        """Up to the down-projected edge activations (the halo payload)."""
         x_ba = self.dense_ba(m)
         x_ba = self.scale_rbf(x_ba * self.mlp_rbf(rbf3), x_ba, masks["edge"], masks["edge"])
-        x_ba = self.down_projection(x_ba)
+        return self.down_projection(x_ba)
 
-        x_ba = expand_gather(x_ba, ind["id3_expand_ba"], *ind["trip_ba_sort"],
-                             implementation=self.implementation)
+    def finish(self, x_ba, cbf3, ind, masks, halo: bool = False):
+        """From the (halo-extended) edge activations on."""
+        if halo:
+            x_ba = x_ba[ind["id3_expand_ba"]]
+        else:
+            x_ba = expand_gather(x_ba, ind["id3_expand_ba"], *ind["trip_ba_sort"],
+                                 implementation=self.implementation)
         rbf_W1, sph_rows = cbf3
         x = self.mlp_cbf(rbf_W1, sph_rows, x_ba, ind["id3_reduce_ca"],
                          ind["id3_reduce_ca_plan"], mask=masks["trip"])
@@ -117,6 +147,9 @@ class TripletInteraction(nn.Module):
         x_ca = self.up_projection_ca(x)
         x_ac = self.up_projection_ac(x)[ind["id_swap"]]
         return scale(x_ca + x_ac, _INV_SQRT2)
+
+    def forward(self, m, rbf3, cbf3, ind, masks):
+        return self.finish(self.prelude(m, rbf3, masks), cbf3, ind, masks)
 
 
 class InteractionBlock(nn.Module):
@@ -156,11 +189,27 @@ class InteractionBlock(nn.Module):
 
     def forward(self, h, m, basis, ind, masks):
         x_ca_skip = self.dense_ca(m)
-        x3 = self.trip_interaction(m, basis["rbf3"], basis["cbf3"], ind, masks)
+        group = ind.get("halo_group")
+        if group is not None:
+            # halo: the edge exchange before the quadruplet prelude, the
+            # intermediate exchange before the triplet finish (JAX's order)
+            x_ba = self.trip_interaction.prelude(m, basis["rbf3"], masks)
+            x_ba = halo_extend(x_ba, *ind["edge_send"], group)
+            if not self.triplets_only:
+                x_db = self.quad_interaction.prelude(m, basis["rbf4"], basis["cbf4"], ind, masks,
+                                                     halo=True)
+                x_db = halo_extend(x_db, *ind["intm_send"], group)
+            x3 = self.trip_interaction.finish(x_ba, basis["cbf3"], ind, masks, halo=True)
+            if not self.triplets_only:
+                x4 = self.quad_interaction.finish(x_db, basis["sbf4"], ind, masks, halo=True)
+        else:
+            x3 = self.trip_interaction(m, basis["rbf3"], basis["cbf3"], ind, masks)
+            if not self.triplets_only:
+                x4 = self.quad_interaction(m, basis["rbf4"], basis["cbf4"], basis["sbf4"], ind,
+                                           masks)
         if self.triplets_only:
             x = scale(x_ca_skip + x3, _INV_SQRT2)
         else:
-            x4 = self.quad_interaction(m, basis["rbf4"], basis["cbf4"], basis["sbf4"], ind, masks)
             x = scale(x_ca_skip + x3 + x4, _INV_SQRT3)
 
         for layer in self.layers_before_skip:
@@ -169,7 +218,8 @@ class InteractionBlock(nn.Module):
         for layer in self.layers_after_skip:
             m = layer(m)
 
-        h2 = self.atom_update(h, m, basis["rbf_h"], ind["id_a"], masks["edge"], masks["atom"])
+        h2 = self.atom_update(h, m, basis["rbf_h"], ind["id_a"], masks["edge"], masks["atom"],
+                              psum_group=group)
         h = scale(h + h2, _INV_SQRT2)
 
         m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"])

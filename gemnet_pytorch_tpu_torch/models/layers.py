@@ -23,6 +23,7 @@ from torch import nn
 
 from ..ops import bilinear as bil_ops
 from ..ops.segment import masked_segment_sum
+from ..parallel.collectives import psum
 from .initializers import atom_embedding_, he_orthogonal_
 
 
@@ -209,7 +210,11 @@ def _atom_mlp(emb_size_edge, emb_size_atom, n_hidden, activation, generator, dty
 
 
 class AtomUpdateBlock(nn.Module):
-    """Edge->atom aggregation + MLP (reference atom_update_block.py:9-72)."""
+    """Edge->atom aggregation + MLP (reference atom_update_block.py:9-72).
+
+    `psum_group`: the halo mode's group (JAX's `psum_axis`,
+    `models/layers.py:224-237`): each shard's segment sum covers its local
+    edges only, so the small (nAtoms, emb) accumulator is psum'd."""
 
     def __init__(self, emb_size_atom: int, emb_size_edge: int, emb_size_rbf: int,
                  n_hidden: int, activation: Optional[str] = None,
@@ -221,10 +226,10 @@ class AtomUpdateBlock(nn.Module):
         self.layers = _atom_mlp(emb_size_edge, emb_size_atom, n_hidden, activation, generator,
                                 dtype)
 
-    def forward(self, h, m, rbf, id_target, edge_mask, atom_mask):
+    def forward(self, h, m, rbf, id_target, edge_mask, atom_mask, psum_group=None):
         x = m * self.dense_rbf(rbf)
-        x = self.scale_sum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask), m,
-                           edge_mask, atom_mask)
+        x2 = psum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask), psum_group)
+        x = self.scale_sum(x2, m, edge_mask, atom_mask)
         for layer in self.layers:
             x = layer(x)
         return x
@@ -232,7 +237,9 @@ class AtomUpdateBlock(nn.Module):
 
 class OutputBlock(nn.Module):
     """Atom update + energy head, and the direct per-edge force head when
-    `direct_forces` (reference atom_update_block.py:75-193)."""
+    `direct_forces` (reference atom_update_block.py:75-193); `psum_group`
+    as AtomUpdateBlock's (JAX `models/layers.py:263-285`): the energy's
+    per-atom accumulator is psum'd, the per-edge force heads stay local."""
 
     def __init__(self, emb_size_atom: int, emb_size_edge: int, emb_size_rbf: int,
                  n_hidden: int, num_targets: int, activation: Optional[str] = None,
@@ -259,11 +266,11 @@ class OutputBlock(nn.Module):
             self.out_forces = Dense(emb_size_edge, num_targets, generator=g, zero_init=zero,
                                     dtype=dtype)
 
-    def forward(self, h, m, rbf, id_target, edge_mask, atom_mask):
+    def forward(self, h, m, rbf, id_target, edge_mask, atom_mask, psum_group=None):
         x = m * self.dense_rbf(rbf)
 
-        x_E = self.scale_sum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask), m,
-                             edge_mask, atom_mask)
+        x_E = psum(masked_segment_sum(x, id_target, h.shape[0], mask=edge_mask), psum_group)
+        x_E = self.scale_sum(x_E, m, edge_mask, atom_mask)
         for layer in self.layers:
             x_E = layer(x_E)
         x_E = self.out_energy(x_E)

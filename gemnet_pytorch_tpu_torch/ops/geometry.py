@@ -90,3 +90,54 @@ def quadruplet_angles(
     # dihedral c -> a - b <- d
     angle_cabd = neighbor_angles(R_ac_proj, R_bd_proj)
     return angle_cab, angle_abd, angle_cabd
+
+
+def triplet_angles_halo(R, id_c, id_a, id3_reduce_ca, trip_b_atom):
+    """Halo-mode triplet angles (JAX `ops/geometry.py:69-84`): the expand
+    edge's source atom is precomputed per row by the host partitioner
+    (parallel/halo.py), so no cross-shard edge lookup is needed;
+    id3_reduce_ca holds LOCAL edge slots. Same math as `triplet_angles`."""
+    Rc = R[id_c[id3_reduce_ca]]
+    Ra = R[id_a[id3_reduce_ca]]
+    Rb = R[trip_b_atom]
+    return neighbor_angles(Rc - Ra, Rb - Ra)
+
+
+def quadruplet_angles_halo(
+    R, id_c, id_a, id4_int_b, id4_reduce_intm_ca, id4_reduce_intm_ab, id4_reduce_cab,
+    intm_ext_a_atom, intm_ext_b_atom, intm_ext_d_atom, n_intm_db_local: int, id4_expand_abd,
+):
+    """Halo-mode quadruplet angles (JAX `ops/geometry.py:87-138`), the math
+    of `quadruplet_angles` over the partitioned spaces, with plain gathers
+    (no sort metadata exists for a shard's rows):
+
+    - intm_ca rows are local (owned with their c->a edge;
+      `id4_reduce_intm_ca` holds LOCAL edge slots);
+    - the intm_db dihedral projection is computed on the EXTENDED
+      [local ; halo] space from per-row ATOM indices (R is replicated, so a
+      halo row's geometry needs no exchange);
+    - angle_abd (the circular basis' input) is returned for the local
+      intm_db rows only."""
+    # c -> a <- b on local intm_ca rows, one (n, 4) gather to the quads
+    Rc = R[id_c[id4_reduce_intm_ca]]
+    Ra = R[id_a[id4_reduce_intm_ca]]
+    Rb = R[id4_int_b[id4_reduce_intm_ab]]
+    R_ac = Rc - Ra
+    R_ab = Rb - Ra
+    packed = torch.cat(
+        [neighbor_angles(R_ab, R_ac)[:, None], vector_rejection(R_ac, R_ab)],
+        dim=1)[id4_reduce_cab]
+    angle_cab = packed[:, 0]
+    R_ac_proj = packed[:, 1:]
+
+    # a - b <- d on the EXTENDED intm_db space
+    Ra = R[intm_ext_a_atom]
+    Rb = R[intm_ext_b_atom]
+    Rd = R[intm_ext_d_atom]
+    R_ba = Ra - Rb
+    R_bd = Rd - Rb
+    angle_abd = neighbor_angles(R_ba, R_bd)[:n_intm_db_local]
+    R_bd_proj = vector_rejection(R_bd, R_ba)[id4_expand_abd]  # -> quad space
+
+    angle_cabd = neighbor_angles(R_ac_proj, R_bd_proj)
+    return angle_cab, angle_abd, angle_cabd

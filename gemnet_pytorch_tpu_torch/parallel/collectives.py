@@ -1,0 +1,172 @@
+"""Collectives with exact transposes: the counterparts of `jax.lax.psum`
+and `jax.lax.all_to_all` inside the JAX package's `shard_map`s.
+
+JAX differentiates a sharded program itself: `check_vma=True` tracks which
+values vary over the mesh axis and transposes every collective. Here each
+rank's autograd sees only its own graph, so every collective that carries a
+gradient is a `torch.autograd.Function` whose backward is the collective's
+transpose, built from the same Functions, so that `create_graph=True`
+differentiates it again (the train step differentiates twice: its force
+loss backpropagates through -dE/dR):
+
+- `psum` (all-reduce, sum): its transpose is `psum`. Over the ranks'
+  unrolled program, an all-reduced value y = sum_s x_s feeds every rank,
+  so x_s's cotangent is the sum of every rank's cotangent of y;
+- `all_to_all` (block j of rank r goes to rank j, block r): the reverse
+  exchange is the same all-to-all, so it is its own transpose.
+
+A replicated scalar that every rank differentiates (the halo loss, the
+energy sum of -dE/dR) is seeded with 1/P on each of the P ranks: the ranks'
+backwards then compute the gradient of the one objective sum_r (1/P) L_r =
+L, whose tied copies (replicated inputs, parameters) add up to the
+single-device gradient (`parallel/halo.py`).
+
+`all_reduce_` is the plain in-place sum for values nothing differentiates
+(gradients, mask counts), `broadcast_` copies one rank's tensor to all,
+and `all_gather` stacks every rank's tensor.
+Every collective issued on a group is counted in `CALLS`, by kind and
+backend (a captured step's are issued at its capture).
+
+The ranks must issue their collectives in one order. The forward's order
+is the program's; a backward's is the autograd engine's, which runs ready
+nodes by sequence number: the same on every rank, as every rank builds the
+same graph from the same history.
+
+On a gloo group a CUDA tensor is staged through pinned host memory, by
+design: gloo is the host backend of the one-card runs, its collectives run
+on CPU tensors. gloo takes no bf16: it is summed in fp32 and exchanged as
+raw bytes. An NCCL group takes the tensors where they are, and its
+collectives are kernels a CUDA graph captures. `group=None` is a group of
+one: every collective is the identity.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.distributed as dist
+
+from . import mesh
+
+# collectives issued, by (kind, backend)
+CALLS: collections.Counter = collections.Counter()
+
+
+def _gloo(group) -> bool:
+    return mesh.backend(group) == "gloo"
+
+
+def _host_copy(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """`t` on the host in `dtype` (a pinned copy of a CUDA tensor)."""
+    host = torch.empty(t.shape, dtype=dtype or t.dtype, pin_memory=t.is_cuda)
+    host.copy_(t)
+    return host
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum `t` over the group in place (no gradient); returns `t`."""
+    if group is None:
+        return t
+    if not t.is_contiguous():
+        raise ValueError("all_reduce_ needs a contiguous tensor")
+    CALLS[("all_reduce", mesh.backend(group))] += 1
+    if _gloo(group) and (t.is_cuda or t.dtype == torch.bfloat16):
+        host = _host_copy(t, torch.float32 if t.dtype == torch.bfloat16 else None)
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Overwrite `t` with rank `src`'s in place (no gradient); returns `t`."""
+    if group is None:
+        return t
+    if not t.is_contiguous():
+        raise ValueError("broadcast_ needs a contiguous tensor")
+    CALLS[("broadcast", mesh.backend(group))] += 1
+    if _gloo(group) and (t.is_cuda or t.dtype == torch.bfloat16):
+        host = _host_copy(t, torch.float32 if t.dtype == torch.bfloat16 else None)
+        dist.broadcast(host, src=src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """(P, ...) blocks: block j of this rank goes to rank j, which holds it
+    as block `rank` of its output."""
+    x = x.contiguous()
+    if group is None:
+        return x.clone()
+    if x.shape[0] != mesh.world_size(group):
+        raise ValueError(f"all_to_all of {x.shape[0]} blocks over {mesh.world_size(group)} "
+                         "ranks")
+    CALLS[("all_to_all", mesh.backend(group))] += 1
+    if not _gloo(group):
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+    # gloo moves 4- and 8-byte words; a bf16 block goes as its bytes
+    raw = x.dtype not in (torch.float32, torch.float64, torch.int32, torch.int64)
+    src = x.view(torch.uint8) if raw else x
+    host = _host_copy(src) if x.is_cuda else src
+    out = torch.empty_like(host)
+    dist.all_to_all_single(out, host, group=group)
+    out = out.to(x.device)
+    return out.view(x.dtype) if raw else out
+
+
+class Psum(torch.autograd.Function):
+    """All-reduce (sum); backward: Psum of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return Psum.apply(g, ctx.group), None
+
+
+class AllToAll(torch.autograd.Function):
+    """All-to-all over the leading (P, ...) block axis; backward: the same
+    all-to-all of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return AllToAll.apply(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum of `x` over the group (`jax.lax.psum`)."""
+    return x if group is None else Psum.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-to-all over x's leading axis of P blocks
+    (`jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0)`)."""
+    return x if group is None else AllToAll.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(P, *x.shape): every rank's `x`, in rank order (no gradient)."""
+    if group is None:
+        return x[None]
+    x = x.contiguous()
+    CALLS[("all_gather", mesh.backend(group))] += 1
+    staged = _gloo(group) and x.is_cuda
+    src = _host_copy(x) if staged else x
+    parts = [torch.empty_like(src) for _ in range(mesh.world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.stack(parts)
+    return out.to(x.device) if staged else out

@@ -1,11 +1,16 @@
-"""Training driver of the PyTorch port: the single-device path of the
-repository's `train.py` (reference train_seml.py:42-387).
+"""Training driver of the PyTorch port: the repository's `train.py`
+(reference train_seml.py:42-387) on one device, or data-parallel (`--dp
+N`) or halo edge-partitioned (`--halo N`) over N processes, one a device.
 
     python -m gemnet_pytorch_tpu_torch.train [--config config.yaml] [--num-steps N]
         [--dataset PATH] [--batch-size B] [--evaluation-interval N]
         [--save-interval N] [--logdir DIR] [--restart RUN_DIR]
         [--synthetic-molecules N] [--export-torch OUT.pth] [--steps-per-call K]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--dp N | --halo N]
+        [--coordinator HOST:PORT --num-processes N --process-id I]
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N
 
 It builds the model, data and Trainer from the flat config schema
 (config.yaml), and runs the step loop with periodic checkpoints, validation
@@ -28,8 +33,26 @@ false` (the per-tensor optimizer).
 from such a dict, so a caller without PyYAML (the card's machine) passes
 the dict itself. `--config` is read only when given and present.
 
-Not ported, and refused: the parallel modes (`--dp`, `--ep`, `--halo`,
-`--dp-halo`, `--pp`, `--tp`, `--coordinator`) and the
+The parallel modes (train.py:46-48, :63-67, :87-116, :271-330): one
+process per device, started by `python -m torch.distributed.run` or with the
+coordinator flags (process 0's host:port, the process count, this
+process's id); the process group's backend follows the device (NCCL on
+the card, gloo on the CPU). `--dp N` (N = the world size, as train.py
+asserts; `--coordinator` alone takes the world size) gives each rank one of
+N batches drawn by every process alike, and runs the data-parallel step
+(`parallel.dp`); `--halo N` partitions each batch over the N ranks in the
+prefetch threads, with HaloPads estimated from sample batches, grown on an
+outlier batch and agreed across the ranks before each step (`HaloBatches`),
+and runs the halo step (`parallel.halo`). Validation runs
+on the same group. Only rank 0 writes the log, the checkpoints, the best
+model and the export; the other ranks log to sidecar directories and keep
+their plateau and early-stopping state in lockstep. Every rank resumes
+from rank 0's checkpoint. `run(config, dp=N, group=...)` takes a group the
+caller made (a gloo group on one card, as chip_smoke.py's phase 14 does).
+
+Not ported yet, and refused: `--dp-halo` (parallel/hybrid.py, the next
+slice), `--ep` (rung 2a, parallel/ep.py), `--pp`/`--pp-micro`
+(parallel/pp.py) and `--tp` (parallel/tp.py), in that order; and the
 `GEMNET_SWEEP_OVERRIDES` environment variable (a caller passes its
 overrides in `run`'s config dict instead).
 """
@@ -41,6 +64,7 @@ import logging
 import os
 import random
 import string
+import threading
 import time
 from datetime import datetime
 from typing import Optional
@@ -53,14 +77,18 @@ from .config import ModelConfig, TrainConfig
 from .data import DataContainer, DataProvider, make_dataset
 from .models import GemNet
 from .models.scaling import load_scales_from_json
+from .parallel import halo as halo_mod
+from .parallel import mesh
 from .training import (
     BestMetrics, Metrics, PlateauState, Trainer, make_writer, restore_checkpoint,
     save_checkpoint, save_params,
 )
 
-# flags of the repository's train.py this driver refuses, with their "unset" value
-UNPORTED_FLAGS = {"dp": 0, "ep": 0, "halo": 0, "dp_halo": None, "pp": 0, "pp_micro": 0,
-                  "tp": 0, "coordinator": None, "num_processes": None, "process_id": None}
+# flags of the repository's train.py this driver refuses, with their "unset"
+# value and the module of the JAX package a later slice ports for them
+UNPORTED_FLAGS = {"dp_halo": (None, "parallel/hybrid.py"), "ep": (0, "parallel/ep.py"),
+                  "pp": (0, "parallel/pp.py"), "pp_micro": (0, "parallel/pp.py"),
+                  "tp": (0, "parallel/tp.py")}
 # the loop's 10-step logging boundary (train.py:397)
 LOG_INTERVAL = 10
 OVERRIDES = ("num_steps", "dataset", "batch_size", "logdir", "restart",
@@ -84,22 +112,30 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="up to K train steps per host call (Trainer.multi_step_fn)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag, unset in UNPORTED_FLAGS.items():
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel over N processes, one a device (parallel/dp.py)")
+    p.add_argument("--halo", type=int, default=0,
+                   help="halo edge-partitioned over N processes, one a device "
+                   "(parallel/halo.py)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (multi-process without torchrun)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    for flag, (unset, module) in UNPORTED_FLAGS.items():
         p.add_argument("--" + flag.replace("_", "-"), default=unset,
-                       nargs=2 if flag == "dp_halo" else None,
-                       type=None if flag == "coordinator" else int,
-                       help="not ported (the repository's train.py runs it on the TPU)")
+                       nargs=2 if flag == "dp_halo" else None, type=int,
+                       help=f"not ported yet ({module} of the JAX package)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    asked = [f"--{k.replace('_', '-')}" for k, unset in UNPORTED_FLAGS.items()
+    asked = [f"--{k.replace('_', '-')} ({module})" for k, (unset, module) in UNPORTED_FLAGS.items()
              if getattr(args, k) != unset]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: the parallel modes are not ported to the PyTorch driver; it "
-            "trains on one device")
+            f"{', '.join(asked)}: not ported to the PyTorch driver yet; later slices bring "
+            "them in the order --dp-halo, --ep, --pp, --tp. --dp and --halo run")
     if os.environ.get("GEMNET_SWEEP_OVERRIDES"):
         raise NotImplementedError(
             "GEMNET_SWEEP_OVERRIDES is not read by the PyTorch driver: pass the overrides in "
@@ -115,8 +151,25 @@ def main(argv=None) -> dict:
         val = getattr(args, key)
         if val is not None:
             config[key] = val
-    return run(config, device=args.device, synthetic_molecules=args.synthetic_molecules,
-               export_torch=args.export_torch, steps_per_call=args.steps_per_call)
+    if args.dp and args.halo:
+        raise ValueError("pick one of --dp / --halo")
+    device, group = args.device, None
+    if args.dp or args.halo or args.coordinator:
+        group = mesh.initialize_distributed(args.coordinator, args.num_processes,
+                                            args.process_id, device=args.device)
+        device = mesh.local_device(args.device)
+        if not (args.dp or args.halo):
+            args.dp = mesh.world_size(group)  # train.py:108-113
+    try:
+        best = run(config, device=device, synthetic_molecules=args.synthetic_molecules,
+                   export_torch=args.export_torch, steps_per_call=args.steps_per_call,
+                   dp=args.dp, halo=args.halo, group=group)
+        if group is not None:
+            torch.distributed.barrier(group)  # rank 0's checkpoint is written
+        return best
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 def chunk_steps(step: int, num_steps: int, steps_per_call: int, intervals, lr_changed: bool) -> int:
@@ -130,27 +183,47 @@ def chunk_steps(step: int, num_steps: int, steps_per_call: int, intervals, lr_ch
     return 1 if lr_changed else k
 
 
-def run_directory(tcfg) -> str:
+def run_directory(tcfg, group=None) -> str:
     """A new run directory under logdir, or the one to restart
-    (train.py:158-184, reference train_seml.py:116-137)."""
+    (train.py:158-184, reference train_seml.py:116-137); over a process
+    group every rank takes rank 0's."""
     if tcfg.restart not in (None, "None"):
         return tcfg.restart
     uid = "".join(random.SystemRandom().choice(string.ascii_letters + string.digits)
                   for _ in range(6))
     stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    return os.path.join(tcfg.logdir,
-                        f"{stamp}_{uid}_{os.path.basename(tcfg.dataset or 'synthetic')}_"
-                        f"{tcfg.comment}")
+    name = [os.path.join(tcfg.logdir,
+                         f"{stamp}_{uid}_{os.path.basename(tcfg.dataset or 'synthetic')}_"
+                         f"{tcfg.comment}")]
+    if group is not None:
+        torch.distributed.broadcast_object_list(name, src=0, group=group)
+    return name[0]
 
 
 def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
-        export_torch: Optional[str] = None, steps_per_call: int = 1) -> dict:
+        export_torch: Optional[str] = None, steps_per_call: int = 1, dp: int = 0,
+        halo: int = 0, group=None) -> dict:
     """Train from a flat config dict (config.yaml's keys; missing keys take
     the ModelConfig/TrainConfig defaults), up to `steps_per_call` steps per
-    host call. Returns the best validation metrics as {f"{key}_best":
-    value}, as the repository's train.py does."""
+    host call (one device), or data-parallel (`dp`) or halo-partitioned
+    (`halo`) over `group`, whose world size they must equal. Returns the
+    best validation metrics as {f"{key}_best": value}, as the repository's
+    train.py does."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call {steps_per_call} < 1")
+    if dp and halo:
+        raise ValueError("pick one of dp / halo")
+    n_par = dp or halo
+    if n_par:
+        if group is None:
+            raise ValueError("dp and halo run over a process group: pass the one "
+                             "parallel.initialize_distributed returned")
+        if mesh.world_size(group) != n_par:
+            raise ValueError(f"{'dp' if dp else 'halo'}={n_par} needs a group of {n_par} "
+                             f"processes, this one has {mesh.world_size(group)}")
+    elif group is not None:
+        raise ValueError("a process group without dp or halo")
+    rank, is_main = (mesh.rank(group), mesh.is_main(group)) if n_par else (0, True)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA was asked for and no CUDA device is available; "
@@ -160,7 +233,7 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     np.random.seed(tcfg.data_seed)
 
     # ---- run directory ----
-    directory = run_directory(tcfg)
+    directory = run_directory(tcfg, group if n_par else None)
     best_dir = os.path.join(directory, "best")
     log_dir = os.path.join(directory, "logs")
     for d in (directory, best_dir, log_dir):
@@ -172,7 +245,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     # ---- data (train.py:186-207) ----
     dataset = tcfg.dataset
     if not dataset or not os.path.exists(dataset):
-        dataset = os.path.join(directory, "synthetic_train.npz")
+        # one file a process: the seeded content is the same, concurrent
+        # writes to one path would race (train.py:188-193)
+        dataset = os.path.join(directory, f"synthetic_train{f'_p{rank}' if n_par else ''}.npz")
         logging.warning("dataset missing; generating synthetic data at %s", dataset)
         make_dataset(dataset, n_molecules=synthetic_molecules, seed=tcfg.data_seed)
     container = DataContainer(dataset, cutoff=mcfg.cutoff, int_cutoff=mcfg.int_cutoff,
@@ -193,10 +268,15 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     state = trainer.init_state()
     plateau = PlateauState(factor=tcfg.decay_factor, patience=tcfg.decay_patience,
                            cooldown=tcfg.decay_cooldown)
-    writer = make_writer(log_dir)
+    # the other ranks log to sidecar directories: they compute the same
+    # metrics (the plateau and early stopping stay in lockstep), rank 0's
+    # are the record (train.py:353-366)
+    writer = make_writer(log_dir if is_main else os.path.join(directory, f"logs_p{rank}"))
     train_metrics = Metrics("train", trainer.tracked_metrics)
     val_metrics = Metrics("val", trainer.tracked_metrics)
-    best_metrics = BestMetrics(best_dir, val_metrics, assert_exist=False)
+    best_state_dir = best_dir if is_main else os.path.join(directory, f"best_p{rank}")
+    os.makedirs(best_state_dir, exist_ok=True)
+    best_metrics = BestMetrics(best_state_dir, val_metrics, assert_exist=False)
 
     # ---- restore (train.py:375-382) ----
     step_init = 0
@@ -208,9 +288,22 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     else:
         best_metrics.initialize()
 
-    # ---- loop (train.py:384-608, one device) ----
-    train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
-    val_iter = provider.get_dataset("val", transform=trainer.packer.pack)
+    # ---- the step of each mode (train.py:230-345) ----
+    step_fn, val_iter = None, None
+    if dp:
+        from .parallel import dp as dp_mod
+
+        train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
+        step_fn = dp_mod.make_dp_train_step(trainer, group)
+        val_step = dp_mod.make_dp_eval_step(trainer, group)
+        logging.info("data parallel over %d processes, rank %d", dp, rank)
+    elif halo:
+        train_iter, val_iter, step_fn, val_step = _halo_mode(
+            trainer, provider, container, mcfg, tcfg, group, rank)
+    else:
+        train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
+    if val_iter is None:
+        val_iter = provider.get_dataset("val", transform=trainer.packer.pack)
     try:
         steps_per_epoch = int(np.ceil(num_train / tcfg.batch_size))
         n_val_batches = int(np.ceil(num_val / tcfg.batch_size))
@@ -223,12 +316,17 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         # to reproduce that (train.py:388-393).
         lr_eff = plateau.lr_scale
         while step < tcfg.num_steps:
-            k = chunk_steps(step, tcfg.num_steps, steps_per_call,
+            k = chunk_steps(step, tcfg.num_steps, 1 if n_par else steps_per_call,
                             (LOG_INTERVAL, tcfg.save_interval, tcfg.evaluation_interval),
                             lr_eff != plateau.lr_scale)
             step += k
             # metrics accumulate on the device, drained at eval intervals
-            if k > 1:
+            if dp:
+                # every process draws the same dp batches and steps on its own
+                state, _, _ = step_fn(state, [next(train_iter) for _ in range(dp)][rank], lr_eff)
+            elif halo:
+                state, _ = step_fn(state, next(train_iter), lr_eff)
+            elif k > 1:
                 state, _ = trainer.train_on_batches(state, [next(train_iter) for _ in range(k)],
                                                     lr_eff)
             else:
@@ -240,7 +338,7 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
 
             if step % LOG_INTERVAL == 0:
                 writer.add_scalar("lr_scale", plateau.lr_scale, step)
-            if step % tcfg.save_interval == 0:
+            if step % tcfg.save_interval == 0 and is_main:
                 save_checkpoint(ckpt_path, state, plateau)
             if step % tcfg.evaluation_interval != 0:
                 continue
@@ -252,13 +350,23 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
                              sps * steps_per_epoch / 60)
             t_start, t_steps = None, step
             state = trainer.drain_metrics(state, train_metrics)
-            # validation on the EMA weights (reference train_seml.py:345-356)
-            for _ in range(n_val_batches):
-                trainer.test_on_batch(state, next(val_iter), val_metrics, use_ema=True)
+            # validation on the EMA weights (reference train_seml.py:345-356),
+            # over the same group in the parallel modes
+            if dp:
+                _dp_validation(trainer, state, val_step, val_iter, val_metrics, n_val_batches,
+                               dp, rank)
+            elif halo:
+                for _ in range(n_val_batches):
+                    m, c = val_step(state, next(val_iter), use_ema=True)
+                    trainer._update_metrics(val_metrics, m, c)
+            else:
+                for _ in range(n_val_batches):
+                    trainer.test_on_batch(state, next(val_iter), val_metrics, use_ema=True)
             if val_metrics.loss < best_metrics.loss:
                 best_metrics.update(step, val_metrics)
-                with trainer.weights(state, use_ema=True):
-                    save_params(best_path, trainer.model)
+                if is_main:
+                    with trainer.weights(state, use_ema=True):
+                        save_params(best_path, trainer.model)
             best_metrics.write(writer, step)
             logging.info("%d/%d (epoch %d): %s", step, tcfg.num_steps, step // steps_per_epoch,
                          "; ".join(f"{k}: train={train_metrics.result(False)[k]:.6f}, "
@@ -277,14 +385,108 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         val_iter.close()
 
     # ---- final checkpoint and export (train.py:610-623) ----
-    save_checkpoint(ckpt_path, state, plateau)
-    if export_torch:
-        with trainer.weights(state, use_ema=True):
-            save_reference_checkpoint(export_torch, model, mcfg)
-        logging.info("exported reference .pth to %s", export_torch)
+    if is_main:
+        save_checkpoint(ckpt_path, state, plateau)
+        if export_torch:
+            with trainer.weights(state, use_ema=True):
+                save_reference_checkpoint(export_torch, model, mcfg)
+            logging.info("exported reference .pth to %s", export_torch)
     writer.close()
     logging.info("done; best: %s", dict(best_metrics.items()))
     return {f"{k}_best": v for k, v in best_metrics.items()}
+
+
+def _dp_validation(trainer, state, val_step, val_iter, val_metrics, n_batches: int, dp: int,
+                   rank: int) -> None:
+    """The data-parallel EMA validation (train.py:514-536): dp batches a
+    call, the remainder group padded with `zero_masks` rows, which add
+    nothing to any num/den pair."""
+    done = 0
+    while done < n_batches:
+        take = min(dp, n_batches - done)
+        rows = [next(val_iter) for _ in range(take)]
+        done += take
+        rows += [trainer.packer.zero_masks(rows[0])] * (dp - take)
+        m, c = val_step(state, rows[rank], use_ema=True)
+        trainer._update_metrics(val_metrics, m, c)
+
+
+class HaloBatches:
+    """--halo's batches (train.py:286-330). `partition(g, Z, R, E, F)` runs
+    in the provider's threads: it builds the batch's halo partition at the
+    current pads, grown (headroom 1.25) and built again where an outlier
+    batch outgrows them. `row(item)` runs on the main thread before each
+    step and eval batch: the ranks agree on the partition's pads
+    (`halo.agree_halo_pads`), a rank behind the agreed pads builds the
+    partition again at them, and the rank's shard is packed. The agreement
+    is needed because each rank grows its pads in its own threads, in
+    whatever order they reach the batches: the same batch may meet old
+    pads on one rank and grown pads on another."""
+
+    def __init__(self, trainer, group, pads, triplets_only: bool):
+        self._trainer, self._group = trainer, group
+        self._rank, self._n_shards = mesh.rank(group), mesh.world_size(group)
+        self._triplets_only = triplets_only
+        self.pads = pads
+        self._lock = threading.Lock()
+
+    def _build(self, raw, pads):
+        g, Z, R, E, F = raw
+        return halo_mod.build_halo_partition(g, Z, R, self._n_shards, E=E, F=F,
+                                            triplets_only=self._triplets_only, pads=pads)
+
+    def _grow(self, used, headroom: float = 1.0):
+        with self._lock:
+            self.pads = self.pads.grow_to(used, headroom=headroom)
+            return self.pads
+
+    def partition(self, g, Z, R, E, F):
+        raw, pads = (g, Z, R, E, F), self.pads
+        part = self._build(raw, pads)
+        if not pads.covers(part["halo_pads"]):  # outlier: grow and build again
+            pads = self._grow(part["halo_pads"], headroom=1.25)
+            logging.info("halo pads grown: %s", pads)
+            part = self._build(raw, pads)
+        return raw, part
+
+    def row(self, item) -> np.ndarray:
+        raw, part = item
+        agreed = halo_mod.agree_halo_pads(part["halo_pads"], self._group)
+        if agreed != part["halo_pads"]:
+            self._grow(agreed)
+            logging.info("halo pads agreed across ranks: %s", agreed)
+            part = self._build(raw, agreed)
+            if part["halo_pads"] != agreed:
+                raise RuntimeError(f"a partition built at {agreed} used {part['halo_pads']}")
+        return self._trainer.packer.pack(halo_mod.local_halo_batch(part, self._rank))
+
+
+def _halo_mode(trainer, provider, container, mcfg, tcfg, group, rank):
+    """(train iterator, val iterator, train step, eval step) of --halo
+    (train.py:286-330): the partitioner replaces the padding and runs in
+    the prefetch threads; HaloPads are estimated from 8 sample batches and
+    grown on an outlier batch (the packer's layout then changes and the
+    captured step captures again); before each step and eval batch the
+    ranks agree on the pads and each packs its own shard (`HaloBatches`).
+    The validation partitions are built inline, so none is stale after a
+    train batch grew the pads."""
+    rng = np.random.RandomState(0)
+    train_idx = provider.idx["train"]
+    samples = (container.build(rng.choice(train_idx, size=min(tcfg.batch_size, len(train_idx)),
+                                          replace=False)) for _ in range(8))
+    pads = halo_mod.estimate_halo_pads(samples, mesh.world_size(group),
+                                       triplets_only=mcfg.triplets_only, headroom=1.25,
+                                       n_mol=tcfg.batch_size)
+    logging.info("halo pads: %s", pads)
+    batches = HaloBatches(trainer, group, pads, mcfg.triplets_only)
+    train_iter = provider.get_dataset("train", raw_transform=batches.partition)
+    val_iter = provider.get_dataset("val", raw_transform=batches.partition, prefetch_workers=0)
+    logging.info("halo-partitioned over %d processes, rank %d", mesh.world_size(group), rank)
+    train_step = halo_mod.make_halo_train_step(trainer, group)
+    eval_step = halo_mod.make_halo_eval_step(trainer, group)
+    return (train_iter, val_iter,
+            lambda state, item, lr_scale: train_step(state, batches.row(item), lr_scale),
+            lambda state, item, use_ema=False: eval_step(state, batches.row(item), use_ema))
 
 
 if __name__ == "__main__":

@@ -44,6 +44,19 @@ buffer the parameter views are bound to (`weights(use_ema=True)` binds them
 to the EMA buffer), so a graph never replays against the other weights.
 `test_on_batch`, which `train.py`'s validation calls, goes through it;
 `eval_step` and `predict` are the eager versions.
+
+The parallel modes (`parallel/dp.py`, `parallel/halo.py`) run the same
+steps with two more arguments. `group`, data parallelism's process group:
+each loss term is the rank's LOCAL numerator over the GLOBAL denominator
+and each reported metric the all-reduced numerator over it (`_ratios`,
+trainer.py:359-378), the counts are global, and the flat gradient is
+all-reduced once (the per-tensor gradients as one coalesced buffer).
+`model`, a halo view of the trainer's model (`parallel.halo.halo_model`,
+sharing its parameters): E and F come out replicated, the loss is the
+single-device loss, seeded with 1/P, and the gradient is all-reduced over
+the halo model's group. A step whose collectives run on an NCCL group is
+captured with them in the graph; on a gloo group (collectives on the host)
+`train_step_fn()` and `eval_step_fn()` run the eager step.
 """
 
 from __future__ import annotations
@@ -59,6 +72,8 @@ from ..config import TrainConfig
 from ..data.batch import to_torch
 from ..data.packer import BatchPacker
 from ..models.gemnet import GemNet, energy_and_forces
+from ..parallel import mesh
+from ..parallel.collectives import all_reduce_
 from . import flat_opt, tree_opt
 from .schedules import linear_warmup_exponential_decay
 
@@ -98,12 +113,27 @@ def _rmse_parts(pred, target, mask):
     return torch.sum(norms * m), torch.sum(m)
 
 
-def _ratio(parts):
-    """Mean from a (num, den) pair. On one device the loss term and the
-    reported metric are this same ratio (the JAX package's `_ratios` splits
-    them only under data parallelism, which is not ported)."""
+def _ratios(parts, group=None):
+    """(loss term, metric) from a (num, den) pair (trainer.py:359-378).
+
+    On one device (`group` None) both are num/den. Under data parallelism
+    the differentiated loss term is the LOCAL numerator over the GLOBAL
+    denominator: the ranks' gradients, all-reduced, are then the exact
+    gradient of the global masked mean (an all-reduced numerator would
+    count every rank's gradient P times). The reported metric is the
+    all-reduced numerator over the global denominator; no gradient flows
+    through it (the denominators are mask counts)."""
     num, den = parts
-    return num / torch.clamp_min(den, 1.0)
+    if group is None:
+        local = num / torch.clamp_min(den, 1.0)
+        return local, local
+    den_global = torch.clamp_min(all_reduce_(den.detach().clone(), group), 1.0)
+    return num / den_global, all_reduce_(num.detach().clone(), group) / den_global
+
+
+def _ratio(parts):
+    """Mean from a (num, den) pair on one device."""
+    return _ratios(parts)[1]
 
 
 def masked_mae(pred, target, mask):
@@ -136,6 +166,30 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
     else:
         opt = [st.count, st.mu, st.nu, st.nu_max]
     return [state.step, state.params, state.ema_params, state.metric_acc, *opt]
+
+
+def flat_gradient(loss, params, group=None, replicated: bool = False) -> torch.Tensor:
+    """The gradient of `loss` over `params` as one flat buffer, all-reduced
+    over `group` in one collective (dp.py:62). `replicated`: every rank
+    holds the same `loss` (a halo model's) and its program computes one
+    part of the gradient; the loss is seeded with 1/P on each of the P
+    ranks, so the all-reduce sums the parts to the exact gradient.
+    `Trainer.train_step` and `parallel.halo.make_halo_loss_and_grad` both
+    take their gradient here."""
+    if replicated:
+        loss = loss * (1.0 / mesh.world_size(group))
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    return all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+
+
+def _reduce_group(group, model):
+    """The group a step's gradient is all-reduced over: data parallelism's,
+    or a halo model's."""
+    if group is not None:
+        return group
+    if model is not None and model.cfg.ep_halo:
+        return model.group
+    return None
 
 
 # ------------------------------------------------------------------- trainer
@@ -237,28 +291,39 @@ class Trainer:
                     torch.nn.functional.softplus(F[:, 1, :]))
         return E, None, F[:, 0, :], None
 
-    def _predict(self, batch, create_graph: bool = False):
-        E, F = energy_and_forces(self.model, batch, create_graph=create_graph)
+    def _predict(self, batch, create_graph: bool = False, model=None):
+        E, F = energy_and_forces(model or self.model, batch, create_graph=create_graph)
         return self._split_outputs(E, F)
 
-    def loss_metrics_from_outputs(self, mean_E, var_E, mean_F, var_F, batch):
+    def _loss_and_metrics(self, batch, group=None, model=None, create_graph: bool = False):
+        """(loss, (metrics, counts)) of `model` (default the trainer's) on a
+        batch of tensors, under data parallelism over `group` where given
+        (trainer.py:502-506)."""
+        outputs = self._predict(batch, create_graph=create_graph, model=model)
+        return self.loss_metrics_from_outputs(*outputs, batch, group=group)
+
+    def loss_metrics_from_outputs(self, mean_E, var_E, mean_F, var_F, batch, group=None):
         """(loss, (metrics, counts)) from split model outputs + a batch dict
-        carrying E/F targets and mol/atom masks (trainer.py:508-566)."""
+        carrying E/F targets and mol/atom masks (trainer.py:508-566). With a
+        data-parallel `group`: the loss from local numerators over global
+        denominators, every metric (MVE's variances too) and count global
+        (`_ratios`)."""
         tE, tF = batch["E"], batch["F"]
         mol_mask, atom_mask = batch["mol_mask"], batch["atom_mask"]
-        energy_mae = _ratio(_mae_parts(mean_E, tE, mol_mask))
-        force_mae = _ratio(_mae_parts(mean_F, tF, atom_mask))
-        force_rmse = _ratio(_rmse_parts(mean_F, tF, atom_mask))
+        e_mae_loc, energy_mae = _ratios(_mae_parts(mean_E, tE, mol_mask), group)
+        f_mae_loc, force_mae = _ratios(_mae_parts(mean_F, tF, atom_mask), group)
+        f_rmse_loc, force_rmse = _ratios(_rmse_parts(mean_F, tF, atom_mask), group)
         if self.mve:
-            energy_nll = masked_nll(mean_E, var_E, tE, mol_mask)
-            force_nll = masked_nll(mean_F, var_F, tF, atom_mask)
-            loss = (1 - self.rho_force) * energy_nll + self.rho_force * force_nll
+            e_nll_loc, energy_nll = _ratios(_nll_parts(mean_E, var_E, tE, mol_mask), group)
+            f_nll_loc, force_nll = _ratios(_nll_parts(mean_F, var_F, tF, atom_mask), group)
+            loss = (1 - self.rho_force) * e_nll_loc + self.rho_force * f_nll_loc
             # the mean variances, as num/den ratios (trainer.py:528-536)
             mm, am = mol_mask.to(var_E.dtype), atom_mask.to(var_F.dtype)
-            energy_var = _ratio((torch.sum(var_E * mm[:, None]), torch.sum(mm)))
-            force_var = _ratio((torch.sum(var_F * am[:, None]), 3 * torch.sum(am)))
+            _, energy_var = _ratios((torch.sum(var_E * mm[:, None]), torch.sum(mm)), group)
+            _, force_var = _ratios((torch.sum(var_F * am[:, None]), 3 * torch.sum(am)), group)
             metrics = {
-                "loss": loss,
+                "loss": (loss if group is None else
+                         (1 - self.rho_force) * energy_nll + self.rho_force * force_nll),
                 "energy_mae": energy_mae,
                 "energy_nll": energy_nll,
                 "energy_var": energy_var,
@@ -268,10 +333,12 @@ class Trainer:
                 "force_var": force_var,
             }
         else:
-            force_loss = force_mae if self.cfg.loss == "mae" else force_rmse
-            loss = (1 - self.rho_force) * energy_mae + self.rho_force * force_loss
+            f_loc = f_mae_loc if self.cfg.loss == "mae" else f_rmse_loc
+            f_glob = force_mae if self.cfg.loss == "mae" else force_rmse
+            loss = (1 - self.rho_force) * e_mae_loc + self.rho_force * f_loc
             metrics = {
-                "loss": loss,
+                "loss": (loss if group is None else
+                         (1 - self.rho_force) * energy_mae + self.rho_force * f_glob),
                 "energy_mae": energy_mae,
                 "force_mae": force_mae,
                 "force_rmse": force_rmse,
@@ -280,6 +347,8 @@ class Trainer:
             "n_mol": torch.sum(mol_mask.float()),
             "n_atoms": torch.sum(atom_mask.float()),
         }
+        if group is not None:
+            counts = {k: all_reduce_(v, group) for k, v in counts.items()}
         return loss, (metrics, counts)
 
     # -- optimizer/EMA/metric-accumulator application --
@@ -310,20 +379,28 @@ class Trainer:
         return state
 
     # -- steps --
-    def train_step(self, state: TrainState, batch, lr_scale):
+    def train_step(self, state: TrainState, batch, lr_scale, group=None, model=None):
         """The eager step on a batch of tensors (`data.to_torch`, or unpacked):
         loss, its gradient through the force graph, update. `lr_scale` is a
-        float or a device scalar. Returns (state, metrics, counts) with the
-        metrics still on the device."""
+        float or a device scalar. `group` (data parallelism) and `model` (a
+        halo view) as the module docstring says. Returns (state, metrics,
+        counts) with the metrics still on the device."""
         if not isinstance(lr_scale, torch.Tensor):
             self._lr_scale.fill_(lr_scale)
             lr_scale = self._lr_scale
         params = list(self.model.parameters())
-        outputs = self._predict(batch, create_graph=True)
-        loss, (metrics, counts) = self.loss_metrics_from_outputs(*outputs, batch)
-        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
-        if self.flat:
-            grads = torch.cat([g.reshape(-1) for g in grads])
+        reduce_group = _reduce_group(group, model)
+        loss, (metrics, counts) = self._loss_and_metrics(batch, group, model, create_graph=True)
+        if self.flat or reduce_group is not None:
+            # one collective for the whole gradient (dp.py:62); the halo
+            # model's loss is replicated on every rank
+            grads = flat_gradient(loss, params, reduce_group,
+                                  replicated=reduce_group is not None and group is None)
+            if not self.flat:  # the per-tensor gradients, split again
+                grads = [v.view_as(p) for v, p in zip(grads.split([p.numel() for p in params]),
+                                                      params)]
+        else:
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
         # detached: a caller holding the metrics holds no autograd graph
         metrics = {k: v.detach() for k, v in metrics.items()}
         return self.apply_update(state, grads, metrics, counts, lr_scale), metrics, counts
@@ -332,14 +409,17 @@ class Trainer:
         """A host batch (numpy dict) packed, or a packed row as it is."""
         return batch if isinstance(batch, np.ndarray) else self.packer.pack(batch)
 
-    def _state_key(self, state: TrainState):
-        return (self.packer.version,) + tuple(t.data_ptr() for t in _state_tensors(state))
+    def _state_key(self, state: TrainState, group=None, model=None):
+        extra = () if group is None and model is None else (id(group), id(model))
+        return ((self.packer.version, *extra)
+                + tuple(t.data_ptr() for t in _state_tensors(state)))
 
-    def _step_graph(self, state: TrainState, fill):
-        """The captured step for `state`, capturing it where there is none
-        for the packer's version and the state's buffers. `fill(buf)` puts
-        the call's first input row into the static buffer first."""
-        key = self._state_key(state)
+    def _step_graph(self, state: TrainState, fill, group=None, model=None):
+        """The captured step for `state` (and `group`, `model`), capturing it
+        where there is none for the packer's version and the state's
+        buffers. `fill(buf)` puts the call's first input row into the static
+        buffer first."""
+        key = self._state_key(state, group, model)
         if self._captured is not None and self._captured[0] == key:
             fill(self._captured[2])
             return self._captured[1]
@@ -354,30 +434,33 @@ class Trainer:
             for t, v in zip(snapshot, saved):
                 t.copy_(v)
 
-        cap = graphs.capture(lambda: self.train_step(state, batch, self._lr_scale)[1:],
-                             self.device, before_capture=restore, debug=self.graph_debug)
+        cap = graphs.capture(
+            lambda: self.train_step(state, batch, self._lr_scale, group, model)[1:],
+            self.device, before_capture=restore, debug=self.graph_debug)
         self._captured = (key, cap, buf)
         return cap
 
-    def train_step_fn(self):
+    def train_step_fn(self, group=None, model=None):
         """The counterpart of the jitted step (trainer.py:615-636): a callable
         (state, batch, lr_scale) -> (state, metrics, counts), `batch` a host
         batch (numpy dict), its packed row, or packed words already on the
         trainer's device. On a CUDA trainer it copies the row into the static
         buffer and replays the captured step (the metrics are the graph's
-        outputs, overwritten by the next call); on a CPU trainer it runs the
-        eager step on the unpacked batch."""
-        if self.device.type != "cuda":
+        outputs, overwritten by the next call); on a CPU trainer, or where
+        the step's collectives run on a gloo group (`group`, or a halo
+        `model`'s), it runs the eager step on the unpacked batch."""
+        if self.device.type != "cuda" or not mesh.capturable(_reduce_group(group, model)):
             return lambda state, batch, lr_scale: self.train_step(
-                state, self._device_batch(batch), lr_scale)
+                state, self._device_batch(batch), lr_scale, group, model)
 
         def step(state, batch, lr_scale):
             if isinstance(batch, torch.Tensor):
-                cap = self._step_graph(state, lambda buf: buf.copy_(batch))
+                cap = self._step_graph(state, lambda buf: buf.copy_(batch), group, model)
             else:
                 row = self._host_row(batch)
                 cap = self._step_graph(
-                    state, lambda buf: self.packer.to_device(row, self.device, out=buf))
+                    state, lambda buf: self.packer.to_device(row, self.device, out=buf),
+                    group, model)
             self._lr_scale.fill_(lr_scale)
             cap.graph.replay()
             return (state, *cap.outputs)
@@ -425,17 +508,16 @@ class Trainer:
         state, metrics, _ = self.multi_step_fn()(state, packed, lr_scale)
         return state, metrics["loss"].clone()
 
-    def _eval_outputs(self, batch):
-        outputs = self._predict(batch)
-        _, (metrics, counts) = self.loss_metrics_from_outputs(*outputs, batch)
+    def _eval_outputs(self, batch, group=None, model=None):
+        _, (metrics, counts) = self._loss_and_metrics(batch, group, model)
         return {k: v.detach() for k, v in metrics.items()}, counts
 
-    def eval_step(self, state: TrainState, batch, use_ema: bool = False):
+    def eval_step(self, state: TrainState, batch, use_ema: bool = False, group=None, model=None):
         """(metrics, counts) of the current or the EMA weights on a batch of
         tensors; no update. The eager eval step (`eval_step_fn()` captures
-        it)."""
+        it). `group`, `model` as `train_step` takes them."""
         with self.weights(state, use_ema):
-            return self._eval_outputs(batch)
+            return self._eval_outputs(batch, group, model)
 
     def predict(self, state: TrainState, batch, use_ema: bool = False):
         """(mean_E, var_E, mean_F, var_F) of the current or the EMA weights,
@@ -444,12 +526,12 @@ class Trainer:
             outputs = self._predict(self._device_batch(batch))
         return tuple(None if o is None else o.detach() for o in outputs)
 
-    def _forward_graph(self, kind: str, fn, batch):
+    def _forward_graph(self, kind: str, fn, batch, key_extra=()):
         """The captured `fn(unpacked batch)` of `kind` for the packer's
-        version and the buffer the parameter views are bound to now,
-        capturing it where there is none; `batch` (a host batch, its packed
-        row, or packed words on the card) is first put into its static
-        buffer."""
+        version, the buffer the parameter views are bound to now and
+        `key_extra`, capturing it where there is none; `batch` (a host
+        batch, its packed row, or packed words on the card) is first put
+        into its static buffer."""
         if isinstance(batch, torch.Tensor):
             def fill(buf):
                 buf.copy_(batch)
@@ -459,7 +541,7 @@ class Trainer:
             def fill(buf):
                 self.packer.to_device(row, self.device, out=buf)
         graphs_of = self._forward_captured[kind]
-        key = (self.packer.version, next(self.model.parameters()).data_ptr())
+        key = (self.packer.version, next(self.model.parameters()).data_ptr(), *key_extra)
         if key in graphs_of:
             cap, buf = graphs_of[key]
             fill(buf)
@@ -475,20 +557,23 @@ class Trainer:
         graphs_of[key] = (cap, buf)
         return cap
 
-    def eval_step_fn(self):
+    def eval_step_fn(self, group=None, model=None):
         """The counterpart of the jitted eval step (trainer.py:701-715): a
         callable (state, batch, use_ema=False) -> (metrics, counts), `batch`
         a host batch, its packed row or packed words on the trainer's
         device. On a CUDA trainer it replays the captured eval of the
         weights `use_ema` selects (the outputs are the graph's, overwritten
-        by its next replay); on a CPU trainer it runs `eval_step`."""
-        if self.device.type != "cuda":
+        by its next replay); on a CPU trainer, or over a gloo group (as
+        `train_step_fn`), it runs `eval_step`."""
+        if self.device.type != "cuda" or not mesh.capturable(_reduce_group(group, model)):
             return lambda state, batch, use_ema=False: self.eval_step(
-                state, self._device_batch(batch), use_ema)
+                state, self._device_batch(batch), use_ema, group, model)
 
         def step(state, batch, use_ema=False):
             with self.weights(state, use_ema):
-                cap = self._forward_graph("eval", self._eval_outputs, batch)
+                cap = self._forward_graph(
+                    "eval", lambda b: self._eval_outputs(b, group, model), batch,
+                    () if group is None and model is None else (id(group), id(model)))
                 cap.graph.replay()
             return cap.outputs
 

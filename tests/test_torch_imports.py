@@ -123,3 +123,14 @@ def test_package_imports_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_parallel_modules_are_checked():
+    """The parallel package (process groups, the collectives, data
+    parallelism, the halo partition) is among the files checked above, and
+    imports without JAX in the fresh interpreter of
+    `test_package_imports_without_jax`."""
+    rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
+    for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+                 "parallel/dp.py", "parallel/halo.py"):
+        assert name in rel, name
