@@ -130,13 +130,35 @@ Phases:
      training entry point, `train.run` with dp=1 on the NCCL group and with
      halo=2 on the gloo ranks (4 steps, eval and checkpoint every 2, rank
      0's checkpoint at step 4). Phase 3 also holds K1/K2 at the halo shard's
-     shapes against their plain versions.
+     shapes against their plain versions;
+ 15. the rest of the edge partition (`parallel/ep.py`, rung 2a, and
+     `parallel/hybrid.py`'s 2-D meshes), with deterministic algorithms for
+     the gates: (b) K1, K2 and K4 (fp32, bf16, split3) at the ep shard's
+     shapes (rank 0's chunk of bench-small over 2 ranks, global edge ids,
+     full-width outputs) against their plain versions with phase 3's
+     checks, each K1 output zero outside the chunk's band, timed as phase
+     4 times the others; then, the counters at 0, (a) on an NCCL group of
+     one, the captured ep step and the captured 1x1 dp x halo step
+     (`make_hybrid_mesh(1, 1)`), each against its eager run (bit-equal
+     where two eager runs are) and the captured single-device step (phase
+     14's 1-shard gates), and their collectives and bytes a step; (c) 2
+     gloo ranks on cuda:0: ep E/F in fp32 (tests/test_halo.py's gates),
+     bf16 and "high" against the single-device predict, the gradient of
+     tests/test_edge_partition.py's loss (1e-4 + 1e-3 max|g|), one step
+     (phase 14's halo gates) with its launches pinned (EP_LAUNCHES) and its
+     35 all-reduces counted, and one bench-large eager fp32 step's peak MiB
+     and ms a rank beside the single device's; (d) 4 gloo ranks as a 2x2
+     mesh: each rank's place, the dp x ep loss and gradient over
+     bench-small's two halves, 2 dp x halo train steps and the eval of the
+     EMA weights against the single device on all of bench-small; (e)
+     `train.run(ep=2)` on (c)'s ranks and `train.run(dp_halo=(2, 2))` on
+     (d)'s.
 
 The last lines are the `{"kernels": [...]}` record (every kernel at both
 batches' shapes, its launches on each path: serving, training, probe,
 bench and graph, the launches the captured graphs of phase 11 hold,
-rest, phase 12's, stack, phase 13's, and parallel, phase 14's, its
-gloo ranks' included), the
+rest, phase 12's, stack, phase 13's, parallel, phase 14's, and ep, phase
+15's, their gloo ranks' included), the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero before those lines. Without a CUDA device
 it fails at once.
@@ -328,6 +350,18 @@ HALO_TRAIN = dict(weight_decay=1e-6, loss="mae", rho_force=0.5, learning_rate=3e
                   warmup_steps=3750)
 LARGE_HALO_STEPS = 3
 PARALLEL_TIMEOUT_S = 400
+
+# phase 15: launches of one fp32 ep train step (rung 2a) on each rank, on
+# its chunk of the rows with full-width K1 outputs: the halo step's K1 and
+# K2 (HALO_LAUNCHES) and no K3, the chunk carrying no sort metadata
+EP_LAUNCHES = HALO_LAUNCHES
+# phase 15 (d): the 2-D mesh of gloo ranks on cuda:0 (n_dp, n_ep), its dp
+# shards bench-small's two padded halves (padded_halves); dp x halo train
+# steps from one state
+HYBRID_MESH = (2, 2)
+DP_HALO_STEPS = 2
+# phase 15 (c): one eager ep step at bench-large a rank, after a warm-up
+LARGE_EP_STEPS = 1
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -2428,18 +2462,20 @@ def parallel_rank(rank: int, world: int, workdir: str) -> None:
     dist.destroy_process_group()
 
 
-def spawn_ranks(workdir: str, spec: dict) -> list:
-    """Phase 14's gloo group: PARALLEL_RANKS spawned processes on cuda:0
-    running `parallel_rank` on `spec`; a rank that fails stops the others;
-    every wait is bounded by PARALLEL_TIMEOUT_S."""
+def spawn_ranks(workdir: str, spec: dict, target=None, world: int = PARALLEL_RANKS) -> list:
+    """Phase 14's gloo group (phase 15's too): `world` spawned processes on
+    cuda:0 running `target` (default `parallel_rank`) on `spec`; a rank
+    that fails stops the others; every wait is bounded by
+    PARALLEL_TIMEOUT_S."""
     import multiprocessing
 
     import torch
 
+    os.makedirs(workdir, exist_ok=True)
     torch.save(spec, os.path.join(workdir, "spec.pt"))
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=parallel_rank, args=(r, PARALLEL_RANKS, workdir))
-             for r in range(PARALLEL_RANKS)]
+    procs = [ctx.Process(target=target or parallel_rank, args=(r, world, workdir))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + PARALLEL_TIMEOUT_S
@@ -2454,9 +2490,9 @@ def spawn_ranks(workdir: str, spec: dict) -> list:
                 p.terminate()
             p.join(30)
     codes = [p.exitcode for p in procs]
-    check(codes == [0] * PARALLEL_RANKS, f"phase 14's gloo ranks exited {codes}")
+    check(codes == [0] * world, f"the gloo ranks of {workdir} exited {codes}")
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
-            for r in range(PARALLEL_RANKS)]
+            for r in range(world)]
 
 
 def single_device_references(cfg, mols, large_mols, device) -> dict:
@@ -2608,6 +2644,581 @@ def parallel_phase(cfg, mols, device, workdir: str, power: str, large_mols=None)
     launches, timing["large"] = gloo_ranks(cfg, mols, large_mols or bench.molecules("large"),
                                            device, workdir, power)
     return timing, launches
+
+
+# ---------------------------------------------------------------- phase 15
+
+def ef_parts(E, F, batch):
+    """tests/test_edge_partition.py's and tests/test_hybrid.py's loss as
+    (numerator, denominator): |E - E_t| over the molecules plus |F - F_t|
+    over the atoms, each masked."""
+    import torch
+
+    m = batch["mol_mask"].float()[:, None]
+    am = batch["atom_mask"].float()[:, None]
+    num = torch.sum(torch.abs(E - batch["E"]) * m) + torch.sum(
+        torch.abs(F[:, 0, :] - batch["F"]) * am)
+    return num, torch.sum(m) + torch.sum(am)
+
+
+def ef_loss(E, F, batch):
+    return ef_parts(E, F, batch)[0]
+
+
+def graph_tuple(cfg, mols):
+    """(g, Z, R, E, F) of `mols`, the toy targets included, as the halo
+    partitioner takes them."""
+    from gemnet_pytorch_tpu_torch.data.synthetic import toy_energy_forces
+
+    _, g, _ = bench.padded_batch(cfg, mols)
+    EF = [toy_energy_forces(z, r) for z, r in mols]
+    return (g, np.concatenate([z for z, _ in mols]), np.concatenate([r for _, r in mols]),
+            np.array([e for e, _ in EF], np.float32), np.concatenate([f for _, f in EF]))
+
+
+def half_molecules(mols):
+    half = len(mols) // HYBRID_MESH[0]
+    return [mols[i * half:(i + 1) * half] for i in range(HYBRID_MESH[0])]
+
+
+def collectives_and_bytes(fn) -> tuple:
+    """(result of fn(), the collectives it issued, their bytes), by (kind,
+    backend)."""
+    from gemnet_pytorch_tpu_torch.parallel.collectives import BYTES, CALLS
+
+    calls, nbytes = collections.Counter(CALLS), collections.Counter(BYTES)
+    out = fn()
+    c, b = collections.Counter(CALLS), collections.Counter(BYTES)
+    c.subtract(calls)
+    b.subtract(nbytes)
+    return out, dict(+c), dict(+b)
+
+
+def flat_grad(model, loss):
+    import torch
+
+    grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    return torch.cat([g.reshape(-1) for g in grads])
+
+
+def grad_gates(label: str, got, ref, model) -> None:
+    """Each parameter's gradient within 1e-4 + 1e-3 max|g| of the reference
+    (tests/test_edge_partition.py:101-168, tests/test_hybrid.py:27-90); `got`
+    and `ref` are flat, in `model.parameters()` order."""
+    worst, off = 0.0, 0
+    for p in model.parameters():
+        a, b = got[off:off + p.numel()], ref[off:off + p.numel()]
+        off += p.numel()
+        worst = max(worst, float(np.abs(a - b).max() / (1e-4 + 1e-3 * np.abs(b).max())))
+    log(f"  {label}: largest share of the 1e-4 + 1e-3 max|g| bound {worst:.3f}, rel L2 "
+        f"{rel_l2(got, ref):.3e}")
+    check(worst <= 1.0, f"{label}: the gradients disagree with the single device")
+
+
+def one_shard_step(label: str, trainer, state, local, eager, captured_fn, batch_np, device):
+    """Phase 15 (a): CAPTURED_STEPS captured steps of a partitioned model at
+    one shard under NCCL against its eager steps from one state (bit-equal
+    where two eager runs are, else phase 11's gates) and one against the
+    captured single-device step (phase 14's 1-shard gates). Returns the
+    collectives and bytes of one eager step."""
+    import torch
+
+    start, p0 = state_copy(state), state.params.clone()
+    words = trainer.packer.to_device(trainer.packer.pack(local), device)
+    captured = lambda: captured_fn(state, words, 1.0)[1]  # noqa: E731
+    a, b, c = (five_steps(trainer, state, start, p0, fn) for fn in (eager, eager, captured))
+    (ab, ab_equal), (ca, ca_equal) = run_diffs(b, a, p0), run_diffs(c, a, p0)
+    check(trainer._captured is not None, f"(a) the {label} step was not captured")
+    log(f"  (a) {label} at 1 shard, NCCL: {CAPTURED_STEPS} captured steps vs eager: bit-equal "
+        f"{ca_equal} (two eager runs bit-equal {ab_equal}); max loss rel {ca[0]:.3e}, update "
+        f"rel L2 {ca[1]:.3e} (the second eager run vs the first: {ab[0]:.3e}, {ab[1]:.3e}; the "
+        f"captured vs the second: bit-equal {run_diffs(c, b, p0)[1]})"
+        + (f"; captured in {trainer._captured[1].seconds:.2f} s" if trainer._captured else ""))
+    if ab_equal:
+        check(ca_equal, f"(a) two eager {label} runs are bit-equal and the captured one is not")
+    check(ca[0] <= CAPTURED_LOSS_RTOL and ca[1] <= CAPTURED_UPDATE_REL_L2,
+          f"(a) the captured {label} step disagrees with its eager run")
+    state_restore(state, start)
+    _, calls, nbytes = collectives_and_bytes(eager)
+    state_restore(state, start)
+    got = step_outputs(state, captured())
+    strainer, sstate = make_trainer(trainer.model.cfg, "float32", device, train_kw=HALO_TRAIN)
+    ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
+    halo_step_gates(f"(a) captured {label} step (1 shard) vs the captured single-device step",
+                    got, ref, host(p0))
+    del strainer, sstate, words
+    torch.cuda.empty_cache()
+    return calls, nbytes
+
+
+def ep_nccl(cfg, mols, device, group) -> dict:
+    """Phase 15 (a): the ep step (rung 2a) at one shard and the 1x1 dp x
+    halo step (`make_hybrid_mesh(1, 1)` of the NCCL group), each captured
+    against its eager run and against the single-device step, fp32,
+    tests/test_halo.py's optimizer settings. Returns each one's collectives
+    and bytes a step."""
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.parallel import ep, halo, hybrid, mesh
+
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    out = {}
+    local = ep.local_ep_batch(ep.partition_batch(batch_np, 1), 0)
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    em, tensors = ep.ep_model(trainer.model, group), to_torch(local, device)
+    out["ep"] = one_shard_step(
+        "ep", trainer, state, local,
+        lambda: trainer.train_step(state, tensors, 1.0, model=em)[1],
+        ep.make_ep_train_step(trainer, group), batch_np, device)
+    del trainer, state, em, tensors
+    hmesh = mesh.make_hybrid_mesh(1, 1, group)
+    check(mesh.backend(hmesh.dp) == "nccl" and mesh.backend(hmesh.ep) == "nccl",
+          "(a) the 1x1 mesh's sub-groups are not NCCL")
+    stacked, _ = hybrid.build_dp_halo_batch([graph_tuple(cfg, mols)], 1)
+    local = hybrid.local_dp_halo_batch(stacked, 0, 0)
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    hm, tensors = halo.halo_model(trainer.model, hmesh.ep), to_torch(local, device)
+    out["dp_halo"] = one_shard_step(
+        "1x1 dp x halo", trainer, state, local,
+        lambda: trainer.train_step(state, tensors, 1.0, group=hmesh.dp, model=hm,
+                                   grad_group=hmesh.world)[1],
+        hybrid.make_dp_halo_train_step(trainer, hmesh), batch_np, device)
+    for kind, (calls, nbytes) in out.items():
+        log(f"  (a) collectives of one eager {kind} step at 1 shard: {calls}, "
+            f"{sum(nbytes.values()) / 1e6:.2f} MB")
+    return out
+
+
+def ep_kernel_cases(cfg, mols, device, power: str):
+    """Phase 15 (b): K1, K2 and K4 (fp32, bf16, split3) at the ep shard's
+    shapes: rank 0's chunk of bench-small over PARALLEL_RANKS, its global
+    edge ids and plans over every edge; each against its plain version with
+    phase 3's checks, each K1 output's segments without a row of the chunk
+    (the other rank's band) exactly zero, and each timed as phase 4 times
+    the others. Returns (the cases without their tensors, the errors, the
+    timings)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.parallel import ep
+
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    shard = to_torch(ep.local_ep_batch(ep.partition_batch(batch_np, PARALLEL_RANKS), 0), device)
+    cases = kernel_cases(cfg, shard, device, tags=("triplet", "quadruplet"))
+    for case in cases:
+        case["tag"] += "@ep"
+    errors = compare_kernels(cases)
+    for case in cases:
+        if case["kernel"] != "K1":
+            continue
+        (out,) = case_functions(case)[0]()
+        n_seg = case["plan"].n_segments
+        empty = torch.bincount(case["ids"], minlength=n_seg) == 0
+        band = out[:, empty, :]
+        log(f"  {case_label(case)}: {int(empty.sum())} of {n_seg} segments hold no row of the "
+            f"chunk; max |out| there {float(band.abs().max()):.1e}")
+        check(int(empty.sum()) > n_seg // 3 and bool((band == 0).all()),
+              f"{case_label(case)}: the full-width output is not zero outside the chunk's band")
+    timings = time_kernels(cases, power)
+    for case in cases:  # keep what the kernels line needs, free the rest
+        for key in [k for k in case if k not in ("kernel", "tag", "dtype", "shape")]:
+            del case[key]
+    torch.cuda.empty_cache()
+    return cases, errors, timings
+
+
+def ep_references(cfg, mols, large_mols, device) -> dict:
+    """Phase 15 (c)'s single-device card runs: the predict of bench-small
+    in fp32, bf16 and "high", the gradient of `ef_loss`, one step at
+    test_halo.py's settings; the peak MiB and ms of an eager fp32 step at
+    bench-large."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet, energy_and_forces
+
+    ref = {}
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    batch = to_torch(batch_np, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, c in (("float32", cfg), ("bfloat16", dataclasses.replace(
+                cfg, compute_dtype="bfloat16")), ("high", dataclasses.replace(
+                cfg, matmul_precision="high"))):
+            ref[f"predict_{name}"] = tuple(host(t) for t in predict(make_model(c, device), batch))
+        trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        ref["p0"] = host(state.params)
+        metrics = trainer.train_step_fn()(state, batch_np, 1.0)[1]
+        ref["step"] = step_outputs(state, metrics)
+        del trainer, state
+        # the gradient on a model of its own, after the capture: an eager
+        # grad-of-grad on the trainer's model before its capture made the
+        # capture's backward touch the legacy stream (first chip call)
+        model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        E, F = energy_and_forces(model, batch, create_graph=True)
+        ref["grad"] = host(flat_grad(model, ef_loss(E, F, batch)))
+        del model, E, F
+    finally:
+        torch.use_deterministic_algorithms(False)
+    large = to_torch(bench.padded_batch(cfg, large_mols)[0], device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    trainer, state = make_trainer(cfg, "float32", device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, large, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LARGE_EP_STEPS):
+        trainer.train_step(state, large, 1.0)
+    torch.cuda.synchronize()
+    ref["large"] = dict(ms=(time.perf_counter() - t0) / LARGE_EP_STEPS * 1e3,
+                        peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    del trainer, state, large
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _gloo_rank(workdir: str, world: int, rank: int):
+    """(spec, device, group, cfg) of a spawned phase-15 rank: gloo on the
+    card, named (NCCL cannot put two ranks on one GPU)."""
+    import datetime
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.config import ModelConfig
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
+    device = torch.device(spec["device"])
+    group = mesh.initialize_distributed(
+        f"file://{workdir}/store", world, rank, "gloo", device=device,
+        timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT_S))
+    return spec, device, group, ModelConfig(**spec["cfg"])
+
+
+def ep_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 15 (c) and (e) on one rank of a gloo group whose ranks share
+    cuda:0: ep at bench-small (E/F in fp32, bf16 and "high", the gradient
+    of `ef_loss`, one step with its launches, collectives and bytes), one
+    eager step at bench-large (peak MiB, ms), and `train.run(ep=world)`."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import ep
+
+    spec, device, group, cfg = _gloo_rank(workdir, world, rank)
+    out = {}
+    _cuda.reset_launches()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    batch_np, _, _ = bench.padded_batch(cfg, spec["mols"])
+    local = ep.local_ep_batch(ep.partition_batch(batch_np, world), rank)
+    tensors = to_torch(local, device)
+    for name, c in (("float32", cfg), ("bfloat16", dataclasses.replace(
+            cfg, compute_dtype="bfloat16")), ("high", dataclasses.replace(
+            cfg, matmul_precision="high"))):
+        out[f"predict_{name}"] = tuple(host(t) for t in ep.make_ep_apply(
+            make_model(c, device), group)(tensors))
+    model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    _, grads = ep.make_ep_loss_and_grad(model, group, ef_loss)(tensors)
+    out["grad"] = host(torch.cat([g.reshape(-1) for g in grads]))
+    del model, grads
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    step = ep.make_ep_train_step(trainer, group)
+    torch.cuda.synchronize()
+    before = collections.Counter(_cuda.kernel_launches())
+    (state, metrics), calls, nbytes = collectives_and_bytes(lambda: step(state, local, 1.0))
+    torch.cuda.synchronize()
+    census = collections.Counter(_cuda.kernel_launches())
+    census.subtract(before)
+    out["census"], out["collectives"] = dict(+census), (calls, nbytes)
+    out["step"] = step_outputs(state, metrics)
+    out["shapes"] = {k: tuple(v.shape) for k, v in local.items()
+                     if k in ("id_c", "id3_reduce_ca", "id4_reduce_ca")}
+    del trainer, state, step, tensors
+    torch.use_deterministic_algorithms(False)
+    # bench-large: one eager fp32 step's peak and ms
+    local = ep.local_ep_batch(ep.partition_batch(
+        bench.padded_batch(cfg, spec["large_mols"])[0], world), rank)
+    torch.cuda.empty_cache()
+    trainer, state = make_trainer(cfg, "float32", device)
+    step = ep.make_ep_train_step(trainer, group)
+    batch = to_torch(local, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batch, 1.0)  # warm-up
+    dist.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LARGE_EP_STEPS):
+        state, metrics = step(state, batch, 1.0)
+    torch.cuda.synchronize()
+    out["large"] = dict(ms=(time.perf_counter() - t0) / LARGE_EP_STEPS * 1e3,
+                        peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                        loss=float(metrics["loss"]), chunks=(local["id3_reduce_ca"].shape[0],
+                                                             local["id4_reduce_ca"].shape[0]))
+    del trainer, state, step, batch
+    torch.cuda.empty_cache()
+    # (e) the training entry point
+    t0 = time.perf_counter()
+    out["run"] = (driver_run(device, workdir, group, ep=world), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["launches"] = collections.Counter(_cuda.LAUNCHES)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def hybrid_references(cfg, mols, device) -> dict:
+    """Phase 15 (d)'s single-device card runs: the gradient of the global
+    `ef_parts` loss over bench-small's two halves (each its own batch, as
+    the dp x ep rows hold them), and DP_HALO_STEPS steps at test_halo.py's
+    settings on all of bench-small."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet, energy_and_forces
+
+    ref = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        ref["p0"] = host(state.params)
+        batch_np, _, _ = bench.padded_batch(cfg, mols)
+        step = trainer.train_step_fn()
+        for _ in range(DP_HALO_STEPS):
+            state, metrics, _ = step(state, batch_np, 1.0)
+        ref["step"] = step_outputs(state, metrics)
+        del trainer, state, step
+        # the gradient on a model of its own, after the capture (ep_references)
+        model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        num = den = 0.0
+        for half in padded_halves(cfg, mols):
+            b = to_torch(half, device)
+            E, F = energy_and_forces(model, b, create_graph=True)
+            n, d = ef_parts(E, F, b)
+            num, den = num + n, den + d
+        ref["grad"] = host(flat_grad(model, num / den))
+        del model, E, F, num
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    return ref
+
+
+def hybrid_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 15 (d) and (e) on one rank of a gloo group of HYBRID_MESH's
+    ranks sharing cuda:0, as a 2-D mesh: the dp x ep loss and gradient on
+    bench-small's halves, DP_HALO_STEPS dp x halo steps and an eval of the
+    EMA weights, then `train.run(dp_halo=HYBRID_MESH)`."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import hybrid, mesh
+
+    spec, device, group, cfg = _gloo_rank(workdir, world, rank)
+    out = {}
+    _cuda.reset_launches()
+    hmesh = mesh.make_hybrid_mesh(*HYBRID_MESH, group)
+    out["place"] = (hmesh.dp_index, hmesh.ep_index, dist.get_process_group_ranks(hmesh.dp),
+                    dist.get_process_group_ranks(hmesh.ep))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mols = spec["mols"]
+    model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    local = hybrid.shard_hybrid_batch(
+        hybrid.build_hybrid_batch(padded_halves(cfg, mols), hmesh.n_ep), hmesh, device)
+    (loss, grads), calls, nbytes = collectives_and_bytes(
+        lambda: hybrid.make_hybrid_loss_and_grad(model, hmesh, ef_parts)(local))
+    out["dp_ep"] = (float(loss), host(torch.cat([g.reshape(-1) for g in grads])), calls, nbytes)
+    del model, local, grads
+    stacked, pads = hybrid.build_dp_halo_batch([graph_tuple(cfg, m) for m in half_molecules(mols)],
+                                               hmesh.n_ep)
+    host_batch = hybrid.local_dp_halo_batch(stacked, hmesh.dp_index, hmesh.ep_index)
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    step = hybrid.make_dp_halo_train_step(trainer, hmesh)
+    for _ in range(DP_HALO_STEPS):
+        (state, metrics), calls, nbytes = collectives_and_bytes(
+            lambda: step(state, host_batch, 1.0))
+    out["dp_halo"] = (step_outputs(state, metrics), calls, nbytes)
+    metrics, counts = hybrid.make_dp_halo_eval_step(trainer, hmesh)(state, host_batch,
+                                                                    use_ema=True)
+    out["eval"] = ({k: float(v) for k, v in metrics.items()},
+                   {k: float(v) for k, v in counts.items()})
+    del trainer, state, step
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["run"] = (driver_run(device, workdir, group, dp_halo=HYBRID_MESH),
+                  time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["launches"] = collections.Counter(_cuda.LAUNCHES)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def ep_gloo(cfg, mols, large_mols, device, workdir: str, power: str) -> tuple:
+    """Phase 15 (c) and (e): PARALLEL_RANKS gloo ranks running `ep_rank`,
+    held against the single-device card. Returns (their launches, the
+    bench-large numbers, the collectives of a step)."""
+    import dataclasses
+
+    from gemnet_pytorch_tpu_torch.models import GemNet
+
+    ref = ep_references(cfg, mols, large_mols, device)
+    t0 = time.perf_counter()
+    results = spawn_ranks(os.path.join(workdir, "ep"), dict(
+        device=str(device), cfg=dataclasses.asdict(cfg), mols=mols, large_mols=large_mols),
+        target=ep_rank)
+    log(f"  {PARALLEL_RANKS} gloo ranks on cuda:0 ran (c) and (e) in "
+        f"{time.perf_counter() - t0:.1f} s (spawn and CUDA start included)")
+    import torch
+
+    names = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    for r, res in enumerate(results):
+        ef_gates(f"(c) ep predict, bench-small, rank {r}", *res["predict_float32"],
+                 *ref["predict_float32"])
+        for name, (rel_e, rel_f) in (("bfloat16", (BF16_E_REL, BF16_F_REL)),
+                                     ("high", (SERVE_RTOL, SERVE_RTOL))):
+            for t, got, want, rel in zip("EF", res[f"predict_{name}"], ref[f"predict_{name}"],
+                                         (rel_e, rel_f)):
+                ok, err = close(got, want, rel)
+                log(f"  (c) ep predict {name}, rank {r}, {t}: max |diff| {err:.3e} vs the "
+                    f"single-device {name} predict (rtol {rel} of max |{t}|)")
+                check(ok, f"(c) rank {r}'s {name} ep predict {t} disagrees with the single device")
+        grad_gates(f"(c) ep gradient of the E/F loss, rank {r}", res["grad"], ref["grad"], names)
+        check(np.array_equal(res["grad"], results[0]["grad"]), "(c) the ranks' ep gradients differ")
+        halo_step_gates(f"(c) ep fp32 step, bench-small, rank {r}", res["step"], ref["step"],
+                        ref["p0"])
+        calls, nbytes = res["collectives"]
+        log(f"  (c) rank {r}'s chunk: {res['shapes']}; one step launched {res['census']}, "
+            f"issued {calls} ({sum(nbytes.values()) / 1e6:.2f} MB)")
+        check(res["census"] == EP_LAUNCHES,
+              f"(c) rank {r}'s ep step launched {res['census']}, expected {EP_LAUNCHES}")
+    n_psum = 8 * cfg.num_blocks + 3
+    check(results[0]["collectives"][0] == {("all_reduce", "gloo"): n_psum},
+          f"(c) an ep step issued {results[0]['collectives'][0]}, expected {n_psum} all-reduces")
+    large = dict(single=ref["large"], ranks=[res["large"] for res in results])
+    log(f"  (c) bench-large eager fp32 ep step [{power}]: chunks {results[0]['large']['chunks']} "
+        f"rows a rank; peak MiB a rank " + ", ".join(
+            f"{x['peak_mib']:.1f}" for x in large["ranks"]) + f" vs single-device "
+        f"{ref['large']['peak_mib']:.1f}; ms " + ", ".join(
+            f"{x['ms']:.1f}" for x in large["ranks"]) + f" (gloo through the host, 2 ranks "
+        f"sharing one card: not a scaling number) vs single-device eager "
+        f"{ref['large']['ms']:.1f}")
+    best = [res["run"][0] for res in results]
+    log(f"  (e) train.run(ep={PARALLEL_RANKS}) over the gloo ranks, {PARALLEL_RUN['num_steps']} "
+        f"steps in {max(res['run'][1] for res in results):.1f} s: best {best[0]}")
+    check(all(b == best[0] for b in best), "(e) the ranks' train.run(ep) disagree")
+    launches = collections.Counter()
+    for res in results:
+        launches.update(res["launches"])
+    return launches, large, results[0]["collectives"]
+
+
+def hybrid_gloo(cfg, mols, device, workdir: str) -> tuple:
+    """Phase 15 (d) and (e): a 2x2 mesh of gloo ranks running `hybrid_rank`,
+    held against the single-device card. Returns (their launches, the
+    collectives of the dp x ep loss-and-grad and of a dp x halo step)."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.models import GemNet
+
+    ref = hybrid_references(cfg, mols, device)
+    world = HYBRID_MESH[0] * HYBRID_MESH[1]
+    t0 = time.perf_counter()
+    results = spawn_ranks(os.path.join(workdir, "hybrid"), dict(
+        device=str(device), cfg=dataclasses.asdict(cfg), mols=mols), target=hybrid_rank,
+        world=world)
+    log(f"  {world} gloo ranks on cuda:0 ran (d) and (e) in {time.perf_counter() - t0:.1f} s")
+    names = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    for r, res in enumerate(results):
+        d, e, dp_ranks, ep_ranks = res["place"]
+        check((d, e) == divmod(r, HYBRID_MESH[1]) and ep_ranks == [d * HYBRID_MESH[1] + x for x in
+                                                                 range(HYBRID_MESH[1])]
+              and dp_ranks == [x * HYBRID_MESH[1] + e for x in range(HYBRID_MESH[0])],
+              f"(d) rank {r}'s place in the mesh: {res['place']}")
+        grad_gates(f"(d) dp x ep gradient over the two halves, rank {r}", res["dp_ep"][1],
+                   ref["grad"], names)
+        check(np.array_equal(res["dp_ep"][1], results[0]["dp_ep"][1]),
+              "(d) the ranks' dp x ep gradients differ")
+        halo_step_gates(f"(d) {DP_HALO_STEPS} dp x halo fp32 steps, rank {r}", res["dp_halo"][0],
+                        ref["step"], ref["p0"])
+        check(all(np.array_equal(a, b) for a, b in zip(res["dp_halo"][0][1:],
+                                                       results[0]["dp_halo"][0][1:])),
+              "(d) the ranks' dp x halo states differ")
+        check(res["eval"] == results[0]["eval"], "(d) the ranks' dp x halo evals differ")
+    # the eval against the single-device eval of the same (rank 0's) weights
+    (loss, params, ema, _), _, _ = results[0]["dp_halo"]
+    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    state.params.copy_(torch.from_numpy(params))
+    state.ema_params.copy_(torch.from_numpy(ema))
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    want, counts = trainer.eval_step_fn()(state, batch_np, use_ema=True)
+    got, got_counts = results[0]["eval"]
+    rel = max(abs(got[k] - float(want[k])) / abs(float(want[k])) for k in want)
+    log(f"  (d) dp x halo eval of the EMA weights vs the single-device eval of them: max rel "
+        f"{rel:.3e} (limit {SERVE_RTOL}); counts {got_counts}")
+    check(rel <= SERVE_RTOL and got_counts == {k: float(v) for k, v in counts.items()},
+          "(d) the dp x halo eval disagrees with the single-device eval")
+    del trainer, state
+    for key, label in (("dp_ep", "dp x ep loss and gradient"), ("dp_halo", "dp x halo step")):
+        calls, nbytes = results[0][key][-2:]
+        log(f"  (d) collectives of one {label} on a rank: {calls}, "
+            f"{sum(nbytes.values()) / 1e6:.2f} MB")
+    best = [res["run"][0] for res in results]
+    log(f"  (e) train.run(dp_halo={HYBRID_MESH}) over the gloo ranks, "
+        f"{PARALLEL_RUN['num_steps']} steps in {max(res['run'][1] for res in results):.1f} s: "
+        f"best {best[0]}")
+    check(all(b == best[0] for b in best), "(e) the ranks' train.run(dp_halo) disagree")
+    launches = collections.Counter()
+    for res in results:
+        launches.update(res["launches"])
+    return launches, {k: results[0][k][-2:] for k in ("dp_ep", "dp_halo")}
+
+
+def ep_hybrid_phase(cfg, mols, device, workdir: str, power: str, large_mols=None) -> dict:
+    """Phase 15: (b) the ep kernels against their plain versions; then, the
+    launch counters set to 0, (a) on an NCCL group of one with
+    deterministic algorithms, (c) and (e) on PARALLEL_RANKS gloo ranks, (d)
+    and (e) on a 2x2 mesh of gloo ranks. Returns the ep kernel cases, their
+    errors and timings, and the numbers and launches of the phase (this
+    process's and its ranks')."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    out = {}
+    log("  (b) K1, K2 and K4 at the ep shard's shapes")
+    out["cases"], out["errors"], out["timings"] = ep_kernel_cases(cfg, mols, device, power)
+    _cuda.reset_launches()
+    group = mesh.initialize_distributed(f"localhost:{free_port()}", 1, 0, device=device)
+    check(mesh.backend(group) == "nccl", f"phase 15's group is {mesh.backend(group)}, not NCCL")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["one_shard"] = ep_nccl(cfg, mols, device, group)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    launches, out["large"], out["ep_collectives"] = ep_gloo(
+        cfg, mols, large_mols or bench.molecules("large"), device, workdir, power)
+    hybrid_launches, out["hybrid_collectives"] = hybrid_gloo(cfg, mols, device, workdir)
+    launches.update(hybrid_launches)
+    torch.cuda.synchronize()
+    launches.update(_cuda.LAUNCHES)
+    out["launches"] = launches
+    return out
 
 
 # ---------------------------------------------------------------- bench
@@ -2807,11 +3418,22 @@ def main() -> int:
         parallel_census.update(rank_launches)
         log(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
 
+    log(f"== 15. the rest of the edge partition: ep (rung 2a) and the 2-D meshes (dp x ep, "
+        f"dp x halo): NCCL at world size 1 (captured ep and 1x1 dp x halo steps), the ep "
+        f"kernels, {PARALLEL_RANKS} and {HYBRID_MESH[0] * HYBRID_MESH[1]} gloo ranks sharing "
+        f"cuda:0 [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_ep_") as workdir:
+        t0 = time.perf_counter()
+        ep_out = ep_hybrid_phase(cfg, mols, device, workdir, power)
+        log(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
+    errors.update(ep_out["errors"])
+    timings.update(ep_out["timings"])
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
              "train_high": high_census, "probe": probe_census, "bench": bench_census,
              "graph": graph_census, "rest": rest_census, "stack": stack_census,
-             "parallel": dict(parallel_census)}
+             "parallel": dict(parallel_census), "ep": dict(ep_out["launches"])}
     # each row's own paths, where it must have launched (at the large
     # shapes only the bench's steps and phase 12's timed MVE steps run, in
     # fp32 and bf16: no path runs split3 there); "graph": the launches the
@@ -2823,9 +3445,11 @@ def main() -> int:
            "bf16": ("train_bf16", "graph", "rest", "parallel"),
            "split3": ("serve_high", "train_high", "graph", "rest")}
     own_large = {"f32": ("bench", "rest"), "bf16": ("bench", "rest"), "split3": ()}
-    # at the halo shard's shapes: phase 14's gloo ranks
+    # at the halo shard's shapes: phase 14's gloo ranks; at the ep shard's:
+    # phase 15's ep ranks (a step in fp32, a predict in bf16 and "high")
     own_halo = {"f32": ("parallel",)}
-    cases += large
+    own_ep = {"f32": ("ep",), "bf16": ("ep",), "split3": ("ep",)}
+    cases += large + ep_out["cases"]
     kernels = []
     for case in cases:
         key = (case["kernel"], case["tag"], case["dtype"])
@@ -2846,7 +3470,8 @@ def main() -> int:
             must = ("probe",)
         else:
             must = (own_large if case["tag"].endswith("@large") else
-                    own_halo if case["tag"].endswith("@halo") else own)[row["dtype"]]
+                    own_halo if case["tag"].endswith("@halo") else
+                    own_ep if case["tag"].endswith("@ep") else own)[row["dtype"]]
         for p in must:
             check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
         lib = [f"{row[k]:.4f}" if row[k] is not None else "null"
@@ -2896,7 +3521,12 @@ def main() -> int:
         "device: " + ", ".join(
             f"{dt} {parallel_timing['large'][dt]['ranks'][0]['peak_mib']:.1f} vs "
             f"{parallel_timing['large'][dt]['single']['peak_mib']:.1f}"
-            for dt in ("float32", "bfloat16")))
+            for dt in ("float32", "bfloat16"))
+        + f"; ep over 2 gloo ranks, bench-large eager fp32 step peak MiB a rank "
+        f"{ep_out['large']['ranks'][0]['peak_mib']:.1f} vs one device "
+        f"{ep_out['large']['single']['peak_mib']:.1f}; an ep step's collectives "
+        f"{ep_out['ep_collectives'][0]} ({sum(ep_out['ep_collectives'][1].values()) / 1e6:.2f} "
+        "MB)")
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

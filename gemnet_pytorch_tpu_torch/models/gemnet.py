@@ -61,8 +61,18 @@ a halo partition, over the process group `group` (`parallel.halo.halo_model`
 makes such a view of a model, sharing its parameters). The geometry takes
 the partitioner's per-row atom indices, the blocks exchange halo rows and
 psum the per-atom accumulators, the direct-force F_atom is psum'd, and E
-and F come out replicated on every rank. ep_axis without ep_halo (the JAX
-package's "rung 2a", `parallel/ep.py`) is not ported and raises.
+and F come out replicated on every rank.
+
+ep_axis without ep_halo is the JAX package's "rung 2a" (`parallel/ep.py`,
+JAX `models/gemnet.py:159-170`, `models/interaction.py:72`, `:97`, `:117-120`,
+`:173`, `:192-195`): the model runs on one rank's chunk of the triplet and
+quadruplet rows (`parallel.ep.ep_model` makes such a view over `group`),
+with every other space replicated. The chunk carries no sort metadata, so
+its expand gathers are plain gathers; each block psums its bilinear
+outputs; everything after them computes replicated, so E and the direct F
+come out replicated with no further collective (-dE/dR as the halo mode's).
+A single-device batch must carry the sort metadata: only a partitioned
+model gathers without it.
 """
 
 from __future__ import annotations
@@ -99,11 +109,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{knob}={getattr(cfg, knob)!r} is not supported by the PyTorch port yet")
-    if cfg.ep_axis is not None and not cfg.ep_halo:
-        raise NotImplementedError(
-            f"ep_axis={cfg.ep_axis!r} without ep_halo is the JAX package's rung 2a "
-            "(parallel/ep.py), not ported yet: a later slice brings it; the halo mode "
-            "(ep_halo=True) runs")
     if cfg.ep_halo and cfg.ep_axis is None:
         raise ValueError("ep_halo needs ep_axis (the axis name; parallel.halo.halo_model sets "
                          "both)")
@@ -127,7 +132,7 @@ HALO_QUAD_KEYS = ("intm_ext_a_atom", "intm_ext_b_atom", "intm_ext_d_atom", "intm
 class GemNet(nn.Module):
     """GemNet-(d)T/(d)Q. Weights are drawn from `generator` on the CPU and
     the module is then moved to `device`. `group`: the process group of a
-    halo model (cfg.ep_halo)."""
+    partitioned model (cfg.ep_axis: halo or rung 2a)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator, device="cuda",
                  group=None):
@@ -183,11 +188,21 @@ class GemNet(nn.Module):
         `R` overrides batch["R"] so the caller can differentiate w.r.t. it."""
         cfg, cdt = self.cfg, self.cdt
         halo = cfg.ep_halo
+        # rung 2a: the rows are a shard's, the rest replicated (parallel/ep.py)
+        ep = cfg.ep_axis is not None and not halo
+        if cfg.ep_axis is not None and self.group is None:
+            kind, make = ("halo", "halo.halo_model") if halo else ("ep", "ep.ep_model")
+            raise ValueError(f"a{'n' if ep else ''} {kind} model runs over a process group: "
+                             f"make it with parallel.{make}(model, group)")
         if halo:
-            if self.group is None:
-                raise ValueError("a halo model runs over a process group: make it with "
-                                 "parallel.halo.halo_model(model, group)")
             _required(batch, HALO_KEYS + (() if cfg.triplets_only else HALO_QUAD_KEYS))
+        elif ep:
+            _required(batch, ("id3_reduce_ca_plan",)
+                      + (() if cfg.triplets_only else ("id4_reduce_ca_plan",)))
+            stale = [k for k in SORT_META_KEYS if k in batch]
+            if stale:
+                raise ValueError(f"an ep shard carries no sort metadata ({stale}): build it "
+                                 "with parallel.ep.partition_batch")
         else:
             _required(batch, ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan",
                               "id3_reduce_ca_plan"))
@@ -235,10 +250,11 @@ class GemNet(nn.Module):
                     batch["id4_expand_abd"], batch["id4_reduce_cab"],
                     batch["id4_expand_intm_db"], batch["id4_reduce_intm_ca"],
                     batch["id4_expand_intm_ab"], batch["id4_reduce_intm_ab"],
-                    abd_sort=(batch["quad_abd_perm"], batch["quad_abd_sorted"],
-                              batch["quad_abd_plan"]),
-                    cab_sort=(batch["quad_cab_perm"], batch["quad_cab_sorted"],
-                              batch["quad_cab_plan"]),
+                    # an ep shard's gathers are plain (JAX ops/geometry.py:142)
+                    abd_sort=None if ep else (batch["quad_abd_perm"], batch["quad_abd_sorted"],
+                                              batch["quad_abd_plan"]),
+                    cab_sort=None if ep else (batch["quad_cab_perm"], batch["quad_cab_sorted"],
+                                              batch["quad_cab_plan"]),
                 )
             # dense circular basis on the intermediate d->b space
             # (reference gemnet.py:517, basis_layers.py:133-147)
@@ -276,12 +292,16 @@ class GemNet(nn.Module):
         if not cfg.triplets_only:
             ind.update({k: batch[k] for k in ("id4_reduce_ca", "id4_reduce_ca_plan",
                                               "id4_expand_intm_db", "id4_expand_abd")})
+        # the output blocks' psum: the halo mode's alone (JAX gemnet.py:276)
         group = self.group if halo else None
         if halo:
             ind["halo_group"] = group
             ind["edge_send"] = (batch["edge_halo_send_idx"], batch["edge_halo_send_mask"])
             if not cfg.triplets_only:
                 ind["intm_send"] = (batch["intm_halo_send_idx"], batch["intm_halo_send_mask"])
+        elif ep:
+            # the bilinear outputs' psum; plain expand gathers (no sort keys)
+            ind["ep_group"] = self.group
         else:
             ind["trip_ba_sort"] = (batch["trip_ba_perm"], batch["trip_ba_sorted"],
                                    batch["trip_ba_plan"])
@@ -350,14 +370,15 @@ def energy_and_forces(model: GemNet, batch: dict[str, torch.Tensor], create_grap
     require grad (`GemNetCalculator` freezes them), so no graph over the
     parameters is built; training (grad-of-grad) passes create_graph=True.
 
-    A halo model (cfg.ep_halo) returns E replicated and F exact and
-    replicated on every rank: each energy sum is seeded with 1/P on each of
-    the P ranks, and the ranks' R-gradients are psum'd (`parallel/halo.py`).
+    A partitioned model (cfg.ep_axis: halo or rung 2a) returns E replicated
+    and F exact and replicated on every rank: each energy sum is seeded with
+    1/P on each of the P ranks, and the ranks' R-gradients are psum'd
+    (`parallel/halo.py`, `parallel/ep.py`).
     """
     cfg = model.cfg
     if cfg.direct_forces:
         return model(batch)
-    group = model.group if cfg.ep_halo else None
+    group = model.group if cfg.ep_axis is not None else None
     seed = 1.0 / mesh.world_size(group) if group is not None else None
     R = batch["R"].detach().requires_grad_(True)
     n_targets = cfg.num_targets

@@ -21,6 +21,13 @@ exchange after the triplet prelude, then the quadruplet prelude and the
 intermediate exchange, then both finishes, in the JAX package's order. The
 expand gathers there are plain gathers: the sort metadata of a global
 batch is invalid for a shard's re-sliced rows (JAX `:64-70`, `:86-98`).
+
+Rung 2a (`parallel/ep.py`): `ind["ep_group"]` is set, the row columns are
+a shard's chunk with global edge ids, the gathers are plain for the same
+reason, and each path psums its bilinear output right after the bilinear,
+before `scale_*_sum`, as JAX does (`models/interaction.py:117-120`,
+`:192-195`): the factor's statistics (`scaling.collect_stats`) read the
+combined output.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from torch import nn
 
 from ..ops.expand_gather import expand_gather
+from ..parallel.collectives import psum
 from ..parallel.halo import halo_extend
 from .layers import (
     AtomUpdateBlock,
@@ -44,6 +52,15 @@ from .layers import (
 
 _INV_SQRT2 = 2.0**-0.5
 _INV_SQRT3 = 3.0**-0.5
+
+
+def _gather(x, idx, sort, implementation):
+    """x[idx]: the sorted expand gather where `sort` (its perm, sorted ids
+    and plan) is given, whose VJP is K3; a plain gather without it (the halo
+    and ep shards)."""
+    if sort is None:
+        return x[idx]
+    return expand_gather(x, idx, *sort, implementation=implementation)
 
 
 class QuadrupletInteraction(nn.Module):
@@ -69,7 +86,7 @@ class QuadrupletInteraction(nn.Module):
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
         self.up_projection_ac = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
 
-    def prelude(self, m, rbf, cbf, ind, masks, halo: bool = False):
+    def prelude(self, m, rbf, cbf, ind, masks):
         """Up to the intermediate-db activations (the halo payload)."""
         x_db = self.dense_db(m)
         x_db = self.scale_rbf(x_db * self.mlp_rbf(rbf), x_db, masks["edge"], masks["edge"])
@@ -77,24 +94,19 @@ class QuadrupletInteraction(nn.Module):
 
         # circular basis hadamard on the intermediate d->b space (halo: the
         # intm_db rows live with their d->b edge, so the gather is local)
-        if halo:
-            x_db = x_db[ind["id4_expand_intm_db"]]
-        else:
-            x_db = expand_gather(x_db, ind["id4_expand_intm_db"], *ind["intm_db_sort"],
-                                 implementation=self.implementation)
+        x_db = _gather(x_db, ind["id4_expand_intm_db"], ind.get("intm_db_sort"),
+                       self.implementation)
         return self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
 
-    def finish(self, x_db, sbf, ind, masks, halo: bool = False):
+    def finish(self, x_db, sbf, ind, masks):
         """From the (halo-extended) intermediate-db activations on."""
         # spherical basis bilinear over quadruplets -> edges
-        if halo:
-            x_db = x_db[ind["id4_expand_abd"]]
-        else:
-            x_db = expand_gather(x_db, ind["id4_expand_abd"], *ind["quad_abd_sort"],
-                                 implementation=self.implementation)
+        x_db = _gather(x_db, ind["id4_expand_abd"], ind.get("quad_abd_sort"),
+                       self.implementation)
         rbf_W1, sph_rows = sbf
         x = self.mlp_sbf(rbf_W1, sph_rows, x_db, ind["id4_reduce_ca"],
                          ind["id4_reduce_ca_plan"], mask=masks["quad"])
+        x = psum(x, ind.get("ep_group"))  # rung 2a: the shards' rows combine
         x = self.scale_sbf_sum(x, x_db, masks["quad"], masks["edge"])
 
         x_ca = self.up_projection_ca(x)
@@ -132,16 +144,13 @@ class TripletInteraction(nn.Module):
         x_ba = self.scale_rbf(x_ba * self.mlp_rbf(rbf3), x_ba, masks["edge"], masks["edge"])
         return self.down_projection(x_ba)
 
-    def finish(self, x_ba, cbf3, ind, masks, halo: bool = False):
+    def finish(self, x_ba, cbf3, ind, masks):
         """From the (halo-extended) edge activations on."""
-        if halo:
-            x_ba = x_ba[ind["id3_expand_ba"]]
-        else:
-            x_ba = expand_gather(x_ba, ind["id3_expand_ba"], *ind["trip_ba_sort"],
-                                 implementation=self.implementation)
+        x_ba = _gather(x_ba, ind["id3_expand_ba"], ind.get("trip_ba_sort"), self.implementation)
         rbf_W1, sph_rows = cbf3
         x = self.mlp_cbf(rbf_W1, sph_rows, x_ba, ind["id3_reduce_ca"],
                          ind["id3_reduce_ca_plan"], mask=masks["trip"])
+        x = psum(x, ind.get("ep_group"))  # rung 2a: the shards' rows combine
         x = self.scale_cbf_sum(x, x_ba, masks["trip"], masks["edge"])
 
         x_ca = self.up_projection_ca(x)
@@ -196,12 +205,11 @@ class InteractionBlock(nn.Module):
             x_ba = self.trip_interaction.prelude(m, basis["rbf3"], masks)
             x_ba = halo_extend(x_ba, *ind["edge_send"], group)
             if not self.triplets_only:
-                x_db = self.quad_interaction.prelude(m, basis["rbf4"], basis["cbf4"], ind, masks,
-                                                     halo=True)
+                x_db = self.quad_interaction.prelude(m, basis["rbf4"], basis["cbf4"], ind, masks)
                 x_db = halo_extend(x_db, *ind["intm_send"], group)
-            x3 = self.trip_interaction.finish(x_ba, basis["cbf3"], ind, masks, halo=True)
+            x3 = self.trip_interaction.finish(x_ba, basis["cbf3"], ind, masks)
             if not self.triplets_only:
-                x4 = self.quad_interaction.finish(x_db, basis["sbf4"], ind, masks, halo=True)
+                x4 = self.quad_interaction.finish(x_db, basis["sbf4"], ind, masks)
         else:
             x3 = self.trip_interaction(m, basis["rbf3"], basis["cbf3"], ind, masks)
             if not self.triplets_only:

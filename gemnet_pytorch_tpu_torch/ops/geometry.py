@@ -55,6 +55,11 @@ def triplet_angles(R, id_c, id_a, id3_reduce_ca, id3_expand_ba):
     return neighbor_angles(Rc - Ra, Rb - Ra)
 
 
+def _sorted_gather(x, idx, sort):
+    """x[idx], through the sorted expand gather where its metadata is given."""
+    return x[idx] if sort is None else expand_gather(x, idx, *sort)
+
+
 def quadruplet_angles(
     R, id_c, id_a, id4_int_b, id4_int_a, id4_expand_abd, id4_reduce_cab,
     id4_expand_intm_db, id4_reduce_intm_ca, id4_expand_intm_ab,
@@ -63,7 +68,8 @@ def quadruplet_angles(
     """(angle_cab, angle_abd, angle_cabd) for quadruplet message passing
     (reference gemnet.py:334-418). angle_abd lives on the intermediate-db
     space, the other two on the quadruplet space. `abd_sort`/`cab_sort` are
-    the (perm, sorted_ids, plan) metadata of the two expand gathers."""
+    the (perm, sorted_ids, plan) metadata of the two expand gathers, or
+    None for plain gathers (an ep shard's rows, JAX `ops/geometry.py:142`)."""
     # a - b <- d (intermediate db space)
     Ra = R[id4_int_a[id4_expand_intm_ab]]
     Rb = R[id4_int_b[id4_expand_intm_ab]]
@@ -71,8 +77,8 @@ def quadruplet_angles(
     R_ba = Ra - Rb
     R_bd = Rd - Rb
     angle_abd = neighbor_angles(R_ba, R_bd)
-    R_bd_proj = expand_gather(
-        vector_rejection(R_bd, R_ba), id4_expand_abd, *abd_sort)  # -> quad space
+    R_bd_proj = _sorted_gather(vector_rejection(R_bd, R_ba), id4_expand_abd,
+                               abd_sort)  # -> quad space
 
     # c -> a <- b (intermediate ca space); one (n_intm, 4) gather for
     # [angle_cab ; R_ac_proj], as the JAX package does
@@ -83,7 +89,7 @@ def quadruplet_angles(
     R_ab = Rb - Ra
     packed = torch.cat(
         [neighbor_angles(R_ab, R_ac)[:, None], vector_rejection(R_ac, R_ab)], dim=1)
-    packed = expand_gather(packed, id4_reduce_cab, *cab_sort)  # -> quad space
+    packed = _sorted_gather(packed, id4_reduce_cab, cab_sort)  # -> quad space
     angle_cab = packed[:, 0]
     R_ac_proj = packed[:, 1:]
 

@@ -25,7 +25,8 @@ single-device gradient (`parallel/halo.py`).
 (gradients, mask counts), `broadcast_` copies one rank's tensor to all,
 and `all_gather` stacks every rank's tensor.
 Every collective issued on a group is counted in `CALLS`, by kind and
-backend (a captured step's are issued at its capture).
+backend, and its tensor's bytes in `BYTES` (a captured step's are issued
+at its capture).
 
 The ranks must issue their collectives in one order. The forward's order
 is the program's; a backward's is the autograd engine's, which runs ready
@@ -49,8 +50,16 @@ import torch.distributed as dist
 
 from . import mesh
 
-# collectives issued, by (kind, backend)
+# collectives issued, by (kind, backend), and the bytes of the tensors
+# they were issued on
 CALLS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
+
+
+def _count(kind: str, group, t: torch.Tensor) -> None:
+    key = (kind, mesh.backend(group))
+    CALLS[key] += 1
+    BYTES[key] += t.numel() * t.element_size()
 
 
 def _gloo(group) -> bool:
@@ -70,7 +79,7 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
         return t
     if not t.is_contiguous():
         raise ValueError("all_reduce_ needs a contiguous tensor")
-    CALLS[("all_reduce", mesh.backend(group))] += 1
+    _count("all_reduce", group, t)
     if _gloo(group) and (t.is_cuda or t.dtype == torch.bfloat16):
         host = _host_copy(t, torch.float32 if t.dtype == torch.bfloat16 else None)
         dist.all_reduce(host, group=group)
@@ -81,12 +90,14 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def broadcast_(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
-    """Overwrite `t` with rank `src`'s in place (no gradient); returns `t`."""
+    """Overwrite `t` with that of the group's rank `src` in place (no
+    gradient); returns `t`."""
     if group is None:
         return t
     if not t.is_contiguous():
         raise ValueError("broadcast_ needs a contiguous tensor")
-    CALLS[("broadcast", mesh.backend(group))] += 1
+    _count("broadcast", group, t)
+    src = dist.get_global_rank(group, src)  # torch.distributed names the source globally
     if _gloo(group) and (t.is_cuda or t.dtype == torch.bfloat16):
         host = _host_copy(t, torch.float32 if t.dtype == torch.bfloat16 else None)
         dist.broadcast(host, src=src, group=group)
@@ -105,7 +116,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if x.shape[0] != mesh.world_size(group):
         raise ValueError(f"all_to_all of {x.shape[0]} blocks over {mesh.world_size(group)} "
                          "ranks")
-    CALLS[("all_to_all", mesh.backend(group))] += 1
+    _count("all_to_all", group, x)
     if not _gloo(group):
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=group)
@@ -163,7 +174,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x[None]
     x = x.contiguous()
-    CALLS[("all_gather", mesh.backend(group))] += 1
+    _count("all_gather", group, x)
     staged = _gloo(group) and x.is_cuda
     src = _host_copy(x) if staged else x
     parts = [torch.empty_like(src) for _ in range(mesh.world_size(group))]

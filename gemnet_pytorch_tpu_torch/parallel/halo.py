@@ -529,12 +529,7 @@ def agree_halo_pads(pads: HaloPads, group) -> HaloPads:
     its peers do not; shards of one batch at two HaloPads exchange blocks
     of two shapes, which hangs or corrupts the all-to-all. Agreeing on
     the pads before each step removes the dependence on thread timing."""
-    names = [f.name for f in dataclasses.fields(HaloPads)]
-    device = (mesh.local_device("cuda") if mesh.backend(group) == "nccl"
-              else torch.device("cpu"))
-    t = torch.tensor([getattr(pads, n) for n in names], dtype=torch.int64, device=device)
-    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX, group=group)
-    return HaloPads(**dict(zip(names, t.tolist())))
+    return mesh.agree_max(pads, group)
 
 
 # ======================================================================
@@ -646,7 +641,7 @@ def make_halo_loss_and_grad(model, group, loss_fn):
         params = list(model.parameters())
         E, F = energy_and_forces(hm, batch, create_graph=True)
         loss = loss_fn(E, F, batch)
-        flat = flat_gradient(loss, params, group, replicated=True)
+        flat = flat_gradient(loss, params, group, replicated=group)
         return loss.detach(), [v.view_as(p) for v, p in
                                zip(flat.split([p.numel() for p in params]), params)]
 
@@ -671,11 +666,18 @@ def make_halo_eval_step(trainer, group):
 
     def eval_step(state, batch, use_ema=False):
         metrics, counts = step(state, batch, use_ema)
-        keys = sorted(metrics)
-        values = broadcast_(torch.stack([metrics[k].float() for k in keys]), group)
-        return dict(zip(keys, values.unbind())), counts
+        return broadcast_metrics(metrics, group), counts
 
     return eval_step
+
+
+def broadcast_metrics(metrics: dict, group) -> dict:
+    """Rank 0's metrics (of `group`) on every rank of it, in one broadcast:
+    the metrics that drive the run's decisions, which the ranks must take
+    alike (`make_halo_eval_step`)."""
+    keys = sorted(metrics)
+    values = broadcast_(torch.stack([metrics[k].float() for k in keys]), group)
+    return dict(zip(keys, values.unbind()))
 
 
 def make_halo_train_step(trainer, group):

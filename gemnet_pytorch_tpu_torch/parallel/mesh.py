@@ -14,13 +14,18 @@ two NCCL ranks on it, so its multi-rank runs put the model's compute on the
 card and send the collectives through the host (`collectives.py` stages
 them). A group that fails to start raises; no backend is chosen because
 another failed.
+
+`make_hybrid_mesh` cuts a group into the rows and columns of a 2-D mesh,
+JAX's ("dp", "ep") mesh of `parallel/hybrid.py`: each rank holds the
+sub-group of its row (the ep axis) and of its column (the dp axis).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -75,6 +80,67 @@ def initialize_distributed(coordinator: Optional[str] = None,
         dist.all_reduce(warm, group=group)
         torch.cuda.synchronize()
     return group
+
+
+class HybridMesh(NamedTuple):
+    """A 2-D mesh of process groups (`make_hybrid_mesh`), from one rank's
+    side: the groups it belongs to and its place in the (n_dp, n_ep) grid."""
+
+    world: object  # all n_dp * n_ep ranks (the parent group)
+    dp: object     # this rank's column: the n_dp ranks of its ep index
+    ep: object     # this rank's row: the n_ep ranks of its dp index
+    dp_index: int
+    ep_index: int
+    n_dp: int
+    n_ep: int
+
+
+def make_hybrid_mesh(n_dp: int, n_ep: int, group=None, *,
+                     timeout: datetime.timedelta = TIMEOUT) -> HybridMesh:
+    """The dp and ep sub-groups of `group` (default: the world group), whose
+    rank r = dp_index * n_ep + ep_index sits at (dp_index, ep_index): JAX's
+    `devices.reshape(n_dp, n_ep)` (`gemnet_pytorch_tpu/parallel/hybrid.py:
+    34-40`). Every rank creates every sub-group, in one order (as
+    `torch.distributed.new_group` requires), with `group`'s backend and
+    `timeout`. On NCCL each of the rank's two groups runs one all-reduce
+    here, so its communicator starts outside any CUDA graph capture. A 1x1
+    mesh at world size 1 is a mesh like any other."""
+    parent = dist.group.WORLD if group is None else group
+    if world_size(parent) != n_dp * n_ep:
+        raise ValueError(f"a {n_dp}x{n_ep} mesh needs {n_dp * n_ep} ranks, the group has "
+                         f"{world_size(parent)}")
+    ranks = dist.get_process_group_ranks(parent)  # global ranks, in group-rank order
+    kind = backend(parent)
+    me = rank(parent)
+    dp_index, ep_index = divmod(me, n_ep)
+    mine = {}
+    for e in range(n_ep):  # the columns: one ep index, every dp index
+        members = [ranks[d * n_ep + e] for d in range(n_dp)]
+        g = dist.new_group(members, timeout=timeout, backend=kind)
+        if e == ep_index:
+            mine["dp"] = g
+    for d in range(n_dp):  # the rows: one dp index, every ep index
+        members = [ranks[d * n_ep + e] for e in range(n_ep)]
+        g = dist.new_group(members, timeout=timeout, backend=kind)
+        if d == dp_index:
+            mine["ep"] = g
+    if kind == "nccl":
+        for name in ("dp", "ep"):
+            warm = torch.ones(1, device=local_device("cuda"))
+            dist.all_reduce(warm, group=mine[name])
+        torch.cuda.synchronize()
+    return HybridMesh(parent, mine["dp"], mine["ep"], dp_index, ep_index, n_dp, n_ep)
+
+
+def agree_max(value, group):
+    """The field-wise max of every rank's `value`, a dataclass of ints, in
+    one all-reduce: the static sizes ranks must share (halo pads, pad dims)
+    where each rank sized its own batches."""
+    names = [f.name for f in dataclasses.fields(value)]
+    device = local_device("cuda") if backend(group) == "nccl" else torch.device("cpu")
+    t = torch.tensor([getattr(value, n) for n in names], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return dataclasses.replace(value, **dict(zip(names, t.tolist())))
 
 
 def local_device(device) -> torch.device:

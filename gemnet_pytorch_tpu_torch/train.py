@@ -1,16 +1,20 @@
 """Training driver of the PyTorch port: the repository's `train.py`
 (reference train_seml.py:42-387) on one device, or data-parallel (`--dp
-N`) or halo edge-partitioned (`--halo N`) over N processes, one a device.
+N`), halo edge-partitioned (`--halo N`) or row-partitioned (`--ep N`,
+deprecated) over N processes, one a device, or both at once (`--dp-halo
+DP EP`, DP x EP processes).
 
     python -m gemnet_pytorch_tpu_torch.train [--config config.yaml] [--num-steps N]
         [--dataset PATH] [--batch-size B] [--evaluation-interval N]
         [--save-interval N] [--logdir DIR] [--restart RUN_DIR]
         [--synthetic-molecules N] [--export-torch OUT.pth] [--steps-per-call K]
-        [--device cuda|cpu] [--dp N | --halo N]
+        [--device cuda|cpu] [--dp N | --halo N | --ep N | --dp-halo DP EP]
         [--coordinator HOST:PORT --num-processes N --process-id I]
 
     python -m torch.distributed.run --nproc-per-node N \
-        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N
+        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N, --ep N
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m gemnet_pytorch_tpu_torch.train --dp-halo 2 2
 
 It builds the model, data and Trainer from the flat config schema
 (config.yaml), and runs the step loop with periodic checkpoints, validation
@@ -43,23 +47,32 @@ N batches drawn by every process alike, and runs the data-parallel step
 (`parallel.dp`); `--halo N` partitions each batch over the N ranks in the
 prefetch threads, with HaloPads estimated from sample batches, grown on an
 outlier batch and agreed across the ranks before each step (`HaloBatches`),
-and runs the halo step (`parallel.halo`). Validation runs
-on the same group. Only rank 0 writes the log, the checkpoints, the best
-model and the export; the other ranks log to sidecar directories and keep
-their plateau and early-stopping state in lockstep. Every rank resumes
-from rank 0's checkpoint. `run(config, dp=N, group=...)` takes a group the
-caller made (a gloo group on one card, as chip_smoke.py's phase 14 does).
+and runs the halo step (`parallel.halo`). `--dp-halo DP EP` cuts the
+group into DP rows of EP ranks (`parallel.make_hybrid_mesh`): each step
+every process draws DP batches, each row halo-partitions its own, with the
+pads agreed over the whole group, and runs the dp x halo step
+(`parallel.hybrid`). `--ep N` (rung 2a, deprecated as in train.py) pads
+and row-partitions each batch in the prefetch threads, with chunk sizes
+the PadDims fix and the PadDims agreed across the ranks before each step,
+and runs the ep step (`parallel.ep`). Validation runs on the same group,
+except under `--ep`: the single-device eval on every rank, rank 0's
+metrics broadcast (train.py's else branch). Only rank 0 writes the log,
+the checkpoints, the best model and the export; the other ranks log to
+sidecar directories and keep their plateau and early-stopping state in
+lockstep. Every rank resumes from rank 0's checkpoint. `run(config, dp=N,
+group=...)` takes a group the caller made (a gloo group on one card, as
+chip_smoke.py's phases 14 and 15 do).
 
-Not ported yet, and refused: `--dp-halo` (parallel/hybrid.py, the next
-slice), `--ep` (rung 2a, parallel/ep.py), `--pp`/`--pp-micro`
-(parallel/pp.py) and `--tp` (parallel/tp.py), in that order; and the
-`GEMNET_SWEEP_OVERRIDES` environment variable (a caller passes its
-overrides in `run`'s config dict instead).
+Not ported yet, and refused: `--pp`/`--pp-micro` (parallel/pp.py) and
+`--tp` (parallel/tp.py), in that order; and the `GEMNET_SWEEP_OVERRIDES`
+environment variable (a caller passes its overrides in `run`'s config dict
+instead).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import random
@@ -75,10 +88,12 @@ import torch
 from .compat import save_reference_checkpoint
 from .config import ModelConfig, TrainConfig
 from .data import DataContainer, DataProvider, make_dataset
+from .data.padding import ROW_BLOCK, pad_batch, round_up, scale_graph_dims
 from .models import GemNet
 from .models.scaling import load_scales_from_json
+from .parallel import ep as ep_mod
 from .parallel import halo as halo_mod
-from .parallel import mesh
+from .parallel import hybrid, mesh
 from .training import (
     BestMetrics, Metrics, PlateauState, Trainer, make_writer, restore_checkpoint,
     save_checkpoint, save_params,
@@ -86,8 +101,7 @@ from .training import (
 
 # flags of the repository's train.py this driver refuses, with their "unset"
 # value and the module of the JAX package a later slice ports for them
-UNPORTED_FLAGS = {"dp_halo": (None, "parallel/hybrid.py"), "ep": (0, "parallel/ep.py"),
-                  "pp": (0, "parallel/pp.py"), "pp_micro": (0, "parallel/pp.py"),
+UNPORTED_FLAGS = {"pp": (0, "parallel/pp.py"), "pp_micro": (0, "parallel/pp.py"),
                   "tp": (0, "parallel/tp.py")}
 # the loop's 10-step logging boundary (train.py:397)
 LOG_INTERVAL = 10
@@ -117,13 +131,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--halo", type=int, default=0,
                    help="halo edge-partitioned over N processes, one a device "
                    "(parallel/halo.py)")
+    p.add_argument("--ep", type=int, default=0,
+                   help="DEPRECATED (use --halo): row-partitioned (rung 2a) over N "
+                   "processes, one a device (parallel/ep.py)")
+    p.add_argument("--dp-halo", type=int, nargs=2, default=None, metavar=("DP", "EP"),
+                   help="DP data-parallel rows, each halo-partitioned over EP processes "
+                   "(parallel/hybrid.py)")
     p.add_argument("--coordinator", default=None,
                    help="host:port of process 0 (multi-process without torchrun)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     for flag, (unset, module) in UNPORTED_FLAGS.items():
-        p.add_argument("--" + flag.replace("_", "-"), default=unset,
-                       nargs=2 if flag == "dp_halo" else None, type=int,
+        p.add_argument("--" + flag.replace("_", "-"), default=unset, type=int,
                        help=f"not ported yet ({module} of the JAX package)")
     return p.parse_args(argv)
 
@@ -135,7 +154,7 @@ def main(argv=None) -> dict:
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported to the PyTorch driver yet; later slices bring "
-            "them in the order --dp-halo, --ep, --pp, --tp. --dp and --halo run")
+            "them in the order --pp, --tp. --dp, --halo, --ep and --dp-halo run")
     if os.environ.get("GEMNET_SWEEP_OVERRIDES"):
         raise NotImplementedError(
             "GEMNET_SWEEP_OVERRIDES is not read by the PyTorch driver: pass the overrides in "
@@ -151,19 +170,21 @@ def main(argv=None) -> dict:
         val = getattr(args, key)
         if val is not None:
             config[key] = val
-    if args.dp and args.halo:
-        raise ValueError("pick one of --dp / --halo")
+    dp_halo = tuple(args.dp_halo) if args.dp_halo is not None else None
+    modes = (args.dp, args.halo, args.ep, dp_halo)
+    if sum(bool(m) for m in modes) > 1:
+        raise ValueError("pick one of --dp / --ep / --halo / --dp-halo")
     device, group = args.device, None
-    if args.dp or args.halo or args.coordinator:
+    if any(modes) or args.coordinator:
         group = mesh.initialize_distributed(args.coordinator, args.num_processes,
                                             args.process_id, device=args.device)
         device = mesh.local_device(args.device)
-        if not (args.dp or args.halo):
+        if not any(modes):
             args.dp = mesh.world_size(group)  # train.py:108-113
     try:
         best = run(config, device=device, synthetic_molecules=args.synthetic_molecules,
                    export_torch=args.export_torch, steps_per_call=args.steps_per_call,
-                   dp=args.dp, halo=args.halo, group=group)
+                   dp=args.dp, halo=args.halo, ep=args.ep, dp_halo=dp_halo, group=group)
         if group is not None:
             torch.distributed.barrier(group)  # rank 0's checkpoint is written
         return best
@@ -202,27 +223,32 @@ def run_directory(tcfg, group=None) -> str:
 
 def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         export_torch: Optional[str] = None, steps_per_call: int = 1, dp: int = 0,
-        halo: int = 0, group=None) -> dict:
+        halo: int = 0, ep: int = 0, dp_halo: Optional[tuple] = None, group=None) -> dict:
     """Train from a flat config dict (config.yaml's keys; missing keys take
     the ModelConfig/TrainConfig defaults), up to `steps_per_call` steps per
-    host call (one device), or data-parallel (`dp`) or halo-partitioned
-    (`halo`) over `group`, whose world size they must equal. Returns the
-    best validation metrics as {f"{key}_best": value}, as the repository's
+    host call (one device), or over `group` in one parallel mode:
+    data-parallel (`dp`), halo-partitioned (`halo`), row-partitioned (`ep`,
+    rung 2a) over that many processes, or `dp_halo=(n_dp, n_ep)`, n_dp
+    data-parallel rows each halo-partitioned over n_ep processes; the
+    group's world size must be the mode's count. Returns the best
+    validation metrics as {f"{key}_best": value}, as the repository's
     train.py does."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call {steps_per_call} < 1")
-    if dp and halo:
-        raise ValueError("pick one of dp / halo")
-    n_par = dp or halo
+    modes = {"dp": dp, "halo": halo, "ep": ep, "dp_halo": dp_halo}
+    asked = [k for k, v in modes.items() if v]
+    if len(asked) > 1:
+        raise ValueError("pick one of dp / ep / halo / dp_halo")
+    n_par = int(np.prod(dp_halo)) if dp_halo else dp or halo or ep
     if n_par:
         if group is None:
-            raise ValueError("dp and halo run over a process group: pass the one "
+            raise ValueError(f"{asked[0]} runs over a process group: pass the one "
                              "parallel.initialize_distributed returned")
         if mesh.world_size(group) != n_par:
-            raise ValueError(f"{'dp' if dp else 'halo'}={n_par} needs a group of {n_par} "
+            raise ValueError(f"{asked[0]}={modes[asked[0]]} needs a group of {n_par} "
                              f"processes, this one has {mesh.world_size(group)}")
     elif group is not None:
-        raise ValueError("a process group without dp or halo")
+        raise ValueError("a process group without dp, ep, halo or dp_halo")
     rank, is_main = (mesh.rank(group), mesh.is_main(group)) if n_par else (0, True)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -297,9 +323,12 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         step_fn = dp_mod.make_dp_train_step(trainer, group)
         val_step = dp_mod.make_dp_eval_step(trainer, group)
         logging.info("data parallel over %d processes, rank %d", dp, rank)
-    elif halo:
+    elif halo or dp_halo:
         train_iter, val_iter, step_fn, val_step = _halo_mode(
-            trainer, provider, container, mcfg, tcfg, group, rank)
+            trainer, provider, container, mcfg, tcfg, group, dp_halo)
+    elif ep:
+        train_iter, val_iter, step_fn, val_step = _ep_mode(
+            trainer, provider, mcfg, group)
     else:
         train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
     if val_iter is None:
@@ -324,7 +353,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             if dp:
                 # every process draws the same dp batches and steps on its own
                 state, _, _ = step_fn(state, [next(train_iter) for _ in range(dp)][rank], lr_eff)
-            elif halo:
+            elif dp_halo:  # a batch for each dp row
+                state, _ = step_fn(state, [next(train_iter) for _ in range(dp_halo[0])], lr_eff)
+            elif halo or ep:
                 state, _ = step_fn(state, next(train_iter), lr_eff)
             elif k > 1:
                 state, _ = trainer.train_on_batches(state, [next(train_iter) for _ in range(k)],
@@ -355,7 +386,10 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             if dp:
                 _dp_validation(trainer, state, val_step, val_iter, val_metrics, n_val_batches,
                                dp, rank)
-            elif halo:
+            elif dp_halo:
+                _dp_halo_validation(trainer, state, val_step, val_iter, val_metrics,
+                                    n_val_batches, dp_halo[0])
+            elif halo or ep:
                 for _ in range(n_val_batches):
                     m, c = val_step(state, next(val_iter), use_ema=True)
                     trainer._update_metrics(val_metrics, m, c)
@@ -411,21 +445,41 @@ def _dp_validation(trainer, state, val_step, val_iter, val_metrics, n_batches: i
         trainer._update_metrics(val_metrics, m, c)
 
 
-class HaloBatches:
-    """--halo's batches (train.py:286-330). `partition(g, Z, R, E, F)` runs
-    in the provider's threads: it builds the batch's halo partition at the
-    current pads, grown (headroom 1.25) and built again where an outlier
-    batch outgrows them. `row(item)` runs on the main thread before each
-    step and eval batch: the ranks agree on the partition's pads
-    (`halo.agree_halo_pads`), a rank behind the agreed pads builds the
-    partition again at them, and the rank's shard is packed. The agreement
-    is needed because each rank grows its pads in its own threads, in
-    whatever order they reach the batches: the same batch may meet old
-    pads on one rank and grown pads on another."""
+def _dp_halo_validation(trainer, state, val_step, val_iter, val_metrics, n_batches: int,
+                        n_dp: int) -> None:
+    """The dp x halo EMA validation (train.py:541-570): a batch for each dp
+    row a call; the rows of the last call past the batches left take a
+    copy of the first row's with its mol and atom masks zeroed
+    (`val_step` takes the call's batches and does so)."""
+    done = 0
+    while done < n_batches:
+        take = min(n_dp, n_batches - done)
+        done += take
+        m, c = val_step(state, [next(val_iter) for _ in range(take)], use_ema=True)
+        trainer._update_metrics(val_metrics, m, c)
 
-    def __init__(self, trainer, group, pads, triplets_only: bool):
+
+class HaloBatches:
+    """--halo's and --dp-halo's batches (train.py:286-330). `partition(g, Z,
+    R, E, F)` runs in the provider's threads: it builds the batch's halo
+    partition at the current pads, grown (headroom 1.25) and built again
+    where an outlier batch outgrows them. `row(items, which)` runs on the
+    main thread before each step and eval batch, on the items of that step
+    (one batch, or one for each dp row): the ranks of `group` agree on pads
+    that cover them all (`halo.agree_halo_pads`), a rank whose item `which`
+    is behind the agreed pads builds it again at them, and the rank's shard
+    of it is packed. The agreement is needed because each rank grows its
+    pads in its own threads, in whatever order they reach the batches: the
+    same batch may meet old pads on one rank and grown pads on another. A
+    partition built at old pads is built again where the JAX driver drops
+    it and draws another batch (its train.py:449-458): every rank keeps the
+    same batches."""
+
+    def __init__(self, trainer, group, pads, triplets_only: bool, shard: Optional[int] = None,
+                 n_shards: Optional[int] = None):
         self._trainer, self._group = trainer, group
-        self._rank, self._n_shards = mesh.rank(group), mesh.world_size(group)
+        self._shard = mesh.rank(group) if shard is None else shard
+        self._n_shards = mesh.world_size(group) if n_shards is None else n_shards
         self._triplets_only = triplets_only
         self.pads = pads
         self._lock = threading.Lock()
@@ -449,44 +503,154 @@ class HaloBatches:
             part = self._build(raw, pads)
         return raw, part
 
-    def row(self, item) -> np.ndarray:
-        raw, part = item
-        agreed = halo_mod.agree_halo_pads(part["halo_pads"], self._group)
+    def row(self, items, which: int = 0) -> np.ndarray:
+        if not isinstance(items, list):
+            items = [items]
+        pads = items[0][1]["halo_pads"]
+        for _, part in items[1:]:
+            pads = pads.grow_to(part["halo_pads"])
+        agreed = halo_mod.agree_halo_pads(pads, self._group)
+        raw, part = items[which]
         if agreed != part["halo_pads"]:
-            self._grow(agreed)
-            logging.info("halo pads agreed across ranks: %s", agreed)
+            if agreed != pads:
+                self._grow(agreed)
+                logging.info("halo pads agreed across ranks: %s", agreed)
             part = self._build(raw, agreed)
             if part["halo_pads"] != agreed:
                 raise RuntimeError(f"a partition built at {agreed} used {part['halo_pads']}")
-        return self._trainer.packer.pack(halo_mod.local_halo_batch(part, self._rank))
+        return self._trainer.packer.pack(halo_mod.local_halo_batch(part, self._shard))
 
 
-def _halo_mode(trainer, provider, container, mcfg, tcfg, group, rank):
+def _halo_mode(trainer, provider, container, mcfg, tcfg, group, dp_halo=None):
     """(train iterator, val iterator, train step, eval step) of --halo
-    (train.py:286-330): the partitioner replaces the padding and runs in
-    the prefetch threads; HaloPads are estimated from 8 sample batches and
-    grown on an outlier batch (the packer's layout then changes and the
-    captured step captures again); before each step and eval batch the
-    ranks agree on the pads and each packs its own shard (`HaloBatches`).
-    The validation partitions are built inline, so none is stale after a
-    train batch grew the pads."""
+    (train.py:286-330) or --dp-halo: the partitioner replaces the padding
+    and runs in the prefetch threads; HaloPads are estimated from 8 sample
+    batches and grown on an outlier batch (the packer's layout then changes
+    and the captured step captures again); before each step and eval batch
+    the ranks (of the world, under --dp-halo) agree on the pads and each
+    packs its own shard (`HaloBatches`). The validation partitions are built
+    inline, so none is stale after a train batch grew the pads. Under
+    --dp-halo each step takes a batch for each dp row (every rank draws the
+    same ones) and the rank trains on its row's; an eval call past the
+    batches left gives its rows a copy of the first batch with zeroed mol
+    and atom masks (`BatchPacker.zero_masks`)."""
+    n_dp, n_ep = dp_halo or (1, mesh.world_size(group))
     rng = np.random.RandomState(0)
     train_idx = provider.idx["train"]
     samples = (container.build(rng.choice(train_idx, size=min(tcfg.batch_size, len(train_idx)),
                                           replace=False)) for _ in range(8))
-    pads = halo_mod.estimate_halo_pads(samples, mesh.world_size(group),
-                                       triplets_only=mcfg.triplets_only, headroom=1.25,
-                                       n_mol=tcfg.batch_size)
+    pads = halo_mod.estimate_halo_pads(samples, n_ep, triplets_only=mcfg.triplets_only,
+                                       headroom=1.25, n_mol=tcfg.batch_size)
     logging.info("halo pads: %s", pads)
-    batches = HaloBatches(trainer, group, pads, mcfg.triplets_only)
+    if dp_halo:
+        hmesh = mesh.make_hybrid_mesh(n_dp, n_ep, group)
+        batches = HaloBatches(trainer, group, pads, mcfg.triplets_only, shard=hmesh.ep_index,
+                              n_shards=n_ep)
+        train_step = hybrid.make_dp_halo_train_step(trainer, hmesh)
+        eval_step = hybrid.make_dp_halo_eval_step(trainer, hmesh)
+        me = hmesh.dp_index
+        logging.info("dp%d x halo%d, rank %d at (%d, %d)", n_dp, n_ep, mesh.rank(group),
+                     hmesh.dp_index, hmesh.ep_index)
+    else:
+        batches = HaloBatches(trainer, group, pads, mcfg.triplets_only)
+        train_step = halo_mod.make_halo_train_step(trainer, group)
+        eval_step = halo_mod.make_halo_eval_step(trainer, group)
+        me = 0
+        logging.info("halo-partitioned over %d processes, rank %d", n_ep, mesh.rank(group))
     train_iter = provider.get_dataset("train", raw_transform=batches.partition)
     val_iter = provider.get_dataset("val", raw_transform=batches.partition, prefetch_workers=0)
-    logging.info("halo-partitioned over %d processes, rank %d", mesh.world_size(group), rank)
-    train_step = halo_mod.make_halo_train_step(trainer, group)
-    eval_step = halo_mod.make_halo_eval_step(trainer, group)
+
+    def eval_row(items):
+        if not isinstance(items, list):
+            return batches.row(items)
+        row = batches.row(items, me if me < len(items) else 0)
+        return row if me < len(items) else trainer.packer.zero_masks(row)
+
+    return (train_iter, val_iter,
+            lambda state, items, lr_scale: train_step(state, batches.row(items, me), lr_scale),
+            lambda state, items, use_ema=False: eval_step(state, eval_row(items), use_ema))
+
+
+class EpBatches:
+    """--ep's batches (train.py:248-269). `partition(g, Z, R, E, F)` runs in
+    the provider's threads: it pads the batch to the current PadDims (grown
+    with headroom 1.25 where an outlier batch outgrows them, as the
+    provider grows its own) and partitions it over the ranks with the chunk
+    sizes those dims fix (`ep.partition_batch`). `row(item)` runs on the
+    main thread before each step: the ranks agree on the dims
+    (`mesh.agree_max`: the psums of the bilinear outputs are (nEdges,
+    units) on every rank, and an outlier may grow one rank's dims in its
+    threads before its peers'), a rank behind them pads and partitions the
+    batch again, and the rank's shard is packed."""
+
+    def __init__(self, trainer, group, dims, triplets_only: bool):
+        self._trainer, self._group = trainer, group
+        self._rank, self._n_shards = mesh.rank(group), mesh.world_size(group)
+        self._triplets_only = triplets_only
+        self.dims = dims
+        self._lock = threading.Lock()
+
+    def _build(self, raw, dims):
+        g, Z, R, E, F = raw
+        batch = pad_batch(g, Z, R, dims, E=E, F=F, triplets_only=self._triplets_only)
+        # fixed chunks keep one shape (one capture) across batches
+        trip = round_up(-(-dims.n_triplets // self._n_shards), ROW_BLOCK)
+        quad = (None if self._triplets_only
+                else round_up(-(-dims.n_quads // self._n_shards), ROW_BLOCK))
+        return ep_mod.partition_batch(batch, self._n_shards, trip_chunk=trip, quad_chunk=quad)
+
+    def partition(self, g, Z, R, E, F):
+        n_mol, n_atoms = int(g.batch_seg.max()) + 1, len(Z)
+        with self._lock:
+            if not self.dims.fits(g, n_mol, n_atoms):  # outlier: grow
+                self.dims = self.dims.grow_to(scale_graph_dims(g, 1.25), n_mol,
+                                              int(n_atoms * 1.25))
+                logging.info("pad dims grown: %s", self.dims)
+            dims = self.dims
+        raw = (g, Z, R, E, F)
+        return raw, dims, self._build(raw, dims)
+
+    def row(self, item) -> np.ndarray:
+        raw, dims, part = item
+        agreed = mesh.agree_max(dims, self._group)
+        if agreed != dims:
+            with self._lock:  # the threads' dims may have grown meanwhile
+                self.dims = dataclasses.replace(self.dims, **{
+                    f.name: max(getattr(self.dims, f.name), getattr(agreed, f.name))
+                    for f in dataclasses.fields(agreed)})
+            logging.info("pad dims agreed across ranks: %s", agreed)
+            part = self._build(raw, agreed)
+        return self._trainer.packer.pack(ep_mod.local_ep_batch(part, self._rank))
+
+
+def _ep_mode(trainer, provider, mcfg, group):
+    """(train iterator, val iterator, train step, eval step) of --ep
+    (train.py:248-269, deprecated there for --halo): the row partitioner
+    runs in the prefetch threads (`EpBatches`) and each rank trains on its
+    shard; the validation is the single-device eval of the EMA weights on
+    every rank (train.py's else branch), eager (a second layout would make
+    the trainer's one packer capture again after every eval), its metrics
+    rank 0's, broadcast: they drive the run's decisions, which the ranks
+    must take alike."""
+    from .data import to_torch
+
+    logging.warning(
+        "--ep (rung 2a) is deprecated: it replicates the edge embeddings and all-reduces "
+        "the bilinear outputs in every block; use --halo %d instead", mesh.world_size(group))
+    batches = EpBatches(trainer, group, provider.pad_dims, mcfg.triplets_only)
+    train_iter = provider.get_dataset("train", raw_transform=batches.partition)
+    val_iter = provider.get_dataset("val")
+    train_step = ep_mod.make_ep_train_step(trainer, group)
+    logging.info("row-partitioned (ep) over %d processes, rank %d", mesh.world_size(group),
+                 mesh.rank(group))
+
+    def eval_step(state, batch, use_ema=False):
+        m, c = trainer.eval_step(state, to_torch(batch, trainer.device), use_ema)
+        return halo_mod.broadcast_metrics(m, group), c
+
     return (train_iter, val_iter,
             lambda state, item, lr_scale: train_step(state, batches.row(item), lr_scale),
-            lambda state, item, use_ema=False: eval_step(state, batches.row(item), use_ema))
+            eval_step)
 
 
 if __name__ == "__main__":

@@ -45,17 +45,21 @@ to the EMA buffer), so a graph never replays against the other weights.
 `test_on_batch`, which `train.py`'s validation calls, goes through it;
 `eval_step` and `predict` are the eager versions.
 
-The parallel modes (`parallel/dp.py`, `parallel/halo.py`) run the same
-steps with two more arguments. `group`, data parallelism's process group:
-each loss term is the rank's LOCAL numerator over the GLOBAL denominator
-and each reported metric the all-reduced numerator over it (`_ratios`,
-trainer.py:359-378), the counts are global, and the flat gradient is
-all-reduced once (the per-tensor gradients as one coalesced buffer).
-`model`, a halo view of the trainer's model (`parallel.halo.halo_model`,
-sharing its parameters): E and F come out replicated, the loss is the
-single-device loss, seeded with 1/P, and the gradient is all-reduced over
-the halo model's group. A step whose collectives run on an NCCL group is
-captured with them in the graph; on a gloo group (collectives on the host)
+The parallel modes (`parallel/dp.py`, `halo.py`, `ep.py`, `hybrid.py`) run
+the same steps with up to three more arguments. `group`, data
+parallelism's process group: each loss term is the rank's LOCAL numerator
+over the GLOBAL denominator and each reported metric the all-reduced
+numerator over it (`_ratios`, trainer.py:359-378), the counts are global,
+and the flat gradient is all-reduced once (the per-tensor gradients as one
+coalesced buffer). `model`, a halo or ep view of the trainer's model
+(`parallel.halo.halo_model`, `parallel.ep.ep_model`, sharing its
+parameters): E and F come out replicated over the view's group, the loss
+is seeded with 1/P of that group, and the gradient is all-reduced over it.
+Both at once are a hybrid mesh's step (`parallel/hybrid.py`): the loss's
+num/den over the dp `group`, the seed 1/n_ep over the model's ep group,
+and the flat gradient all-reduced once over `grad_group`, the world of
+both. A step whose collectives all run on NCCL groups is captured with
+them in the graph; on a gloo group (collectives on the host)
 `train_step_fn()` and `eval_step_fn()` run the eager step.
 """
 
@@ -168,28 +172,38 @@ def _state_tensors(state: TrainState) -> list[torch.Tensor]:
     return [state.step, state.params, state.ema_params, state.metric_acc, *opt]
 
 
-def flat_gradient(loss, params, group=None, replicated: bool = False) -> torch.Tensor:
+def flat_gradient(loss, params, group=None, replicated=None) -> torch.Tensor:
     """The gradient of `loss` over `params` as one flat buffer, all-reduced
-    over `group` in one collective (dp.py:62). `replicated`: every rank
-    holds the same `loss` (a halo model's) and its program computes one
-    part of the gradient; the loss is seeded with 1/P on each of the P
-    ranks, so the all-reduce sums the parts to the exact gradient.
-    `Trainer.train_step` and `parallel.halo.make_halo_loss_and_grad` both
-    take their gradient here."""
-    if replicated:
-        loss = loss * (1.0 / mesh.world_size(group))
+    over `group` in one collective (dp.py:62). `replicated`: the group over
+    which every rank holds the same `loss` (a halo or ep model's group) and
+    its program computes one part of the gradient; the loss is seeded with
+    1/P on each of its P ranks, so the all-reduce sums the parts to the
+    exact gradient. `Trainer.train_step` and the parallel modes'
+    loss-and-grad functions all take their gradient here."""
+    if replicated is not None:
+        loss = loss * (1.0 / mesh.world_size(replicated))
     grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
     return all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
 
 
-def _reduce_group(group, model):
-    """The group a step's gradient is all-reduced over: data parallelism's,
-    or a halo model's."""
-    if group is not None:
-        return group
-    if model is not None and model.cfg.ep_halo:
-        return model.group
-    return None
+def _model_group(model):
+    """The process group a partitioned model (halo or ep view) runs over."""
+    return model.group if model is not None and model.cfg.ep_axis is not None else None
+
+
+def _reduce_group(group, model, grad_group=None):
+    """The group a step's gradient is all-reduced over: `grad_group` where
+    given (the world of a hybrid mesh, whose dp `group` and model group are
+    its rows and columns), else data parallelism's or a partitioned
+    model's."""
+    for g in (grad_group, group):
+        if g is not None:
+            return g
+    return _model_group(model)
+
+
+def _capturable(group, model, grad_group=None) -> bool:
+    return all(mesh.capturable(g) for g in (group, _model_group(model), grad_group))
 
 
 # ------------------------------------------------------------------- trainer
@@ -379,23 +393,24 @@ class Trainer:
         return state
 
     # -- steps --
-    def train_step(self, state: TrainState, batch, lr_scale, group=None, model=None):
+    def train_step(self, state: TrainState, batch, lr_scale, group=None, model=None,
+                   grad_group=None):
         """The eager step on a batch of tensors (`data.to_torch`, or unpacked):
         loss, its gradient through the force graph, update. `lr_scale` is a
-        float or a device scalar. `group` (data parallelism) and `model` (a
-        halo view) as the module docstring says. Returns (state, metrics,
-        counts) with the metrics still on the device."""
+        float or a device scalar. `group` (data parallelism), `model` (a halo
+        or ep view) and `grad_group` (a hybrid mesh's world) as the module
+        docstring says. Returns (state, metrics, counts) with the metrics
+        still on the device."""
         if not isinstance(lr_scale, torch.Tensor):
             self._lr_scale.fill_(lr_scale)
             lr_scale = self._lr_scale
         params = list(self.model.parameters())
-        reduce_group = _reduce_group(group, model)
+        reduce_group = _reduce_group(group, model, grad_group)
         loss, (metrics, counts) = self._loss_and_metrics(batch, group, model, create_graph=True)
         if self.flat or reduce_group is not None:
-            # one collective for the whole gradient (dp.py:62); the halo
-            # model's loss is replicated on every rank
-            grads = flat_gradient(loss, params, reduce_group,
-                                  replicated=reduce_group is not None and group is None)
+            # one collective for the whole gradient (dp.py:62); a
+            # partitioned model's loss is replicated over its group
+            grads = flat_gradient(loss, params, reduce_group, replicated=_model_group(model))
             if not self.flat:  # the per-tensor gradients, split again
                 grads = [v.view_as(p) for v, p in zip(grads.split([p.numel() for p in params]),
                                                       params)]
@@ -409,17 +424,18 @@ class Trainer:
         """A host batch (numpy dict) packed, or a packed row as it is."""
         return batch if isinstance(batch, np.ndarray) else self.packer.pack(batch)
 
-    def _state_key(self, state: TrainState, group=None, model=None):
-        extra = () if group is None and model is None else (id(group), id(model))
+    def _state_key(self, state: TrainState, group=None, model=None, grad_group=None):
+        extra = (() if group is None and model is None and grad_group is None
+                 else (id(group), id(model), id(grad_group)))
         return ((self.packer.version, *extra)
                 + tuple(t.data_ptr() for t in _state_tensors(state)))
 
-    def _step_graph(self, state: TrainState, fill, group=None, model=None):
-        """The captured step for `state` (and `group`, `model`), capturing it
-        where there is none for the packer's version and the state's
-        buffers. `fill(buf)` puts the call's first input row into the static
-        buffer first."""
-        key = self._state_key(state, group, model)
+    def _step_graph(self, state: TrainState, fill, group=None, model=None, grad_group=None):
+        """The captured step for `state` (and `group`, `model`, `grad_group`),
+        capturing it where there is none for the packer's version and the
+        state's buffers. `fill(buf)` puts the call's first input row into
+        the static buffer first."""
+        key = self._state_key(state, group, model, grad_group)
         if self._captured is not None and self._captured[0] == key:
             fill(self._captured[2])
             return self._captured[1]
@@ -435,32 +451,34 @@ class Trainer:
                 t.copy_(v)
 
         cap = graphs.capture(
-            lambda: self.train_step(state, batch, self._lr_scale, group, model)[1:],
+            lambda: self.train_step(state, batch, self._lr_scale, group, model, grad_group)[1:],
             self.device, before_capture=restore, debug=self.graph_debug)
         self._captured = (key, cap, buf)
         return cap
 
-    def train_step_fn(self, group=None, model=None):
+    def train_step_fn(self, group=None, model=None, grad_group=None):
         """The counterpart of the jitted step (trainer.py:615-636): a callable
         (state, batch, lr_scale) -> (state, metrics, counts), `batch` a host
         batch (numpy dict), its packed row, or packed words already on the
         trainer's device. On a CUDA trainer it copies the row into the static
         buffer and replays the captured step (the metrics are the graph's
         outputs, overwritten by the next call); on a CPU trainer, or where
-        the step's collectives run on a gloo group (`group`, or a halo
-        `model`'s), it runs the eager step on the unpacked batch."""
-        if self.device.type != "cuda" or not mesh.capturable(_reduce_group(group, model)):
+        the step's collectives run on a gloo group (`group`, a partitioned
+        `model`'s or `grad_group`), it runs the eager step on the unpacked
+        batch."""
+        if self.device.type != "cuda" or not _capturable(group, model, grad_group):
             return lambda state, batch, lr_scale: self.train_step(
-                state, self._device_batch(batch), lr_scale, group, model)
+                state, self._device_batch(batch), lr_scale, group, model, grad_group)
 
         def step(state, batch, lr_scale):
             if isinstance(batch, torch.Tensor):
-                cap = self._step_graph(state, lambda buf: buf.copy_(batch), group, model)
+                cap = self._step_graph(state, lambda buf: buf.copy_(batch), group, model,
+                                       grad_group)
             else:
                 row = self._host_row(batch)
                 cap = self._step_graph(
                     state, lambda buf: self.packer.to_device(row, self.device, out=buf),
-                    group, model)
+                    group, model, grad_group)
             self._lr_scale.fill_(lr_scale)
             cap.graph.replay()
             return (state, *cap.outputs)
@@ -565,7 +583,7 @@ class Trainer:
         weights `use_ema` selects (the outputs are the graph's, overwritten
         by its next replay); on a CPU trainer, or over a gloo group (as
         `train_step_fn`), it runs `eval_step`."""
-        if self.device.type != "cuda" or not mesh.capturable(_reduce_group(group, model)):
+        if self.device.type != "cuda" or not _capturable(group, model):
             return lambda state, batch, use_ema=False: self.eval_step(
                 state, self._device_batch(batch), use_ema, group, model)
 

@@ -266,23 +266,24 @@ def test_scale_factor_names_and_json(jax_run, tmp_path):
     ("compute_dtype", "float16"), ("matmul_precision", "tensorfloat32"), ("ep_axis", "ep"), ("ep_halo", True),
 ])
 def test_unsupported_knobs_raise(knob, value):
-    """What the port still refuses: fp16, TF32, and ep_axis alone (rung 2a,
-    parallel/ep.py, a later slice). The halo mode is ported
-    (tests/test_torch_halo.py): ep_halo=True needs its axis and a group,
-    and a halo model without its group raises at the forward."""
+    """What the port still refuses: fp16 and TF32. The partitioned modes are
+    ported (tests/test_torch_halo.py, tests/test_torch_ep.py): ep_axis alone
+    (rung 2a) and ep_halo=True with its axis build a model that raises at
+    the forward without its process group, and ep_halo needs its axis."""
     from gemnet_pytorch_tpu_torch.config import ModelConfig
     from gemnet_pytorch_tpu_torch.models import GemNet
 
     cfg = dataclasses.replace(ModelConfig(**SMALL), **{knob: value})
-    if knob == "ep_halo":
-        with pytest.raises(ValueError, match="ep_halo needs ep_axis"):
-            GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-        model = GemNet(dataclasses.replace(cfg, ep_axis="ep"),
-                       generator=torch.Generator().manual_seed(0), device="cpu")
+    if knob in ("ep_axis", "ep_halo"):
+        if knob == "ep_halo":
+            with pytest.raises(ValueError, match="ep_halo needs ep_axis"):
+                GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+            cfg = dataclasses.replace(cfg, ep_axis="ep")
+        model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
         with pytest.raises(ValueError, match="process group"):
             model({})
         return
-    with pytest.raises(NotImplementedError, match="rung 2a" if knob == "ep_axis" else knob):
+    with pytest.raises(NotImplementedError, match=knob):
         GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
 
 

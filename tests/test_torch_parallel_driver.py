@@ -7,7 +7,7 @@ the best model, both ranks keep the same best metrics, and a restart of 6
 steps resumes from rank 0's checkpoint on both ranks; under halo, ranks that
 hold other HaloPads (one rank's prefetch met an outlier batch first) agree
 on them before each step; the mode flags' checks; and what stays refused
-(ep_axis without ep_halo)."""
+(--pp, --pp-micro, --tp)."""
 
 import logging
 import os
@@ -181,35 +181,61 @@ def test_run_parallel_checkpoints_on_rank0_and_resumes(tmp_path, mode):
 
 
 def test_run_mode_checks():
-    """dp and halo at once, a mode without a group, and a group whose size
-    is not the mode's count raise before anything runs; so does a
-    configuration that asks for the JAX package's rung 2a (ep_axis without
-    ep_halo, a later slice)."""
+    """Two modes at once, a mode without a group, and a group without a
+    mode raise before anything runs."""
     from gemnet_pytorch_tpu_torch import train
 
-    with pytest.raises(ValueError, match="one of dp / halo"):
+    with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo"):
         train.run(dict(RUN), device="cpu", dp=2, halo=2)
+    with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo"):
+        train.run(dict(RUN), device="cpu", ep=2, dp_halo=(2, 2))
     with pytest.raises(ValueError, match="process group"):
         train.run(dict(RUN), device="cpu", dp=2)
-    with pytest.raises(ValueError, match="without dp or halo"):
+    with pytest.raises(ValueError, match="process group"):
+        train.run(dict(RUN), device="cpu", dp_halo=(2, 2))
+    with pytest.raises(ValueError, match="without dp, ep, halo or dp_halo"):
         train.run(dict(RUN), device="cpu", group=object())
 
 
 def test_run_refuses_ep_axis_alone(tmp_path):
+    """A configuration that asks for the partitioned model itself (ep_axis,
+    the rung-2a view `parallel.ep.ep_model` makes) builds a model without a
+    process group, whose first step raises: the parallel modes make the
+    view (tests/test_torch_ep.py runs --ep)."""
     from gemnet_pytorch_tpu_torch import train
 
     config = dict(RUN, ep_axis="ep", num_steps=1, restart=str(tmp_path / "run"))
-    with pytest.raises(NotImplementedError, match="rung 2a"):
+    with pytest.raises(ValueError, match="process group"):
         train.run(config, device="cpu", synthetic_molecules=RUN_MOLECULES)
 
 
 @pytest.mark.parametrize("argv", [["--ep", "2"], ["--dp-halo", "2", "2"], ["--pp", "2"],
                                   ["--pp-micro", "4"], ["--tp", "2"]],
                          ids=["ep", "dp-halo", "pp", "pp-micro", "tp"])
-def test_main_still_refuses(argv):
-    """Each flag a later slice ports raises, and the message names its
-    module of the JAX package."""
+def test_main_still_refuses(argv, monkeypatch):
+    """Each flag a later slice ports (--pp, --pp-micro, --tp) raises, and the
+    message names its module of the JAX package. --ep and --dp-halo are
+    ported: they parse and reach `train.run` with the mode and the process
+    group (here stand-ins; tests/test_torch_ep.py and
+    tests/test_torch_hybrid.py run them on gloo ranks)."""
+    import torch.distributed as dist
+
     from gemnet_pytorch_tpu_torch import train
 
-    with pytest.raises(NotImplementedError, match=r"parallel/(ep|hybrid|pp|tp)\.py"):
-        train.main(argv + ["--device", "cpu"])
+    if argv[0] in ("--pp", "--pp-micro", "--tp"):
+        with pytest.raises(NotImplementedError, match=r"parallel/(pp|tp)\.py"):
+            train.main(argv + ["--device", "cpu"])
+        return
+    group, reached = object(), {}
+
+    def run(config, **kw):
+        reached.update(kw)
+        return {"loss_best": 1.0}
+
+    monkeypatch.setattr(train.mesh, "initialize_distributed", lambda *a, **k: group)
+    monkeypatch.setattr(train, "run", run)
+    monkeypatch.setattr(dist, "barrier", lambda *a, **k: None)
+    monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: None)
+    assert train.main(argv + ["--device", "cpu"]) == {"loss_best": 1.0}
+    assert reached["group"] is group
+    assert (reached["ep"], reached["dp_halo"]) == ((2, None) if argv[0] == "--ep" else (0, (2, 2)))

@@ -176,27 +176,32 @@ def test_plateau_timing_and_early_stopping(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,env", [
     (["--dp", "2", "--ep", "2"], {}), (["--halo", "2", "--tp", "2"], {}),
-    (["--dp-halo", "2", "2"], {}), (["--pp", "2"], {}), (["--tp", "2"], {}),
+    (["--dp-halo", "2", "2", "--pp", "2"], {}), (["--pp", "2"], {}), (["--tp", "2"], {}),
     (["--coordinator", "localhost:1234", "--pp-micro", "4"], {}),
     ([], {"GEMNET_SWEEP_OVERRIDES": "{}"}),
 ], ids=["dp", "halo", "dp-halo", "pp", "tp", "coordinator", "sweep"])
 def test_main_refuses_unported(monkeypatch, argv, env):
     """What the driver still refuses, before any process group starts: the
-    modes later slices port (--dp-halo, --ep, --pp, --pp-micro, --tp), also
-    beside the ported --dp, --halo and --coordinator, which the message
-    does not name (tests/test_torch_parallel_driver.py runs those), and the
-    sweep variable."""
+    modes later slices port (--pp, --pp-micro, --tp), also beside the ported
+    --dp, --halo, --dp-halo and --coordinator, which the message does not
+    name (tests/test_torch_parallel_driver.py, test_torch_ep.py and
+    test_torch_hybrid.py run those), two modes at once (--dp with the
+    ported --ep: "pick one"), and the sweep variable."""
     from gemnet_pytorch_tpu_torch import train
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if "--ep" in argv:
+        with pytest.raises(ValueError, match="pick one of --dp / --ep / --halo / --dp-halo"):
+            train.main(argv + ["--device", "cpu"])
+        return
     with pytest.raises(NotImplementedError) as err:
         train.main(argv + ["--device", "cpu"])
     refused = [a for a in argv if a.startswith("--") and a[2:].replace("-", "_")
                in train.UNPORTED_FLAGS]
     for flag in refused:
         assert flag in str(err.value)
-    for flag in ("--dp ", "--halo ", "--coordinator"):
+    for flag in ("--dp ", "--halo ", "--dp-halo", "--coordinator"):
         assert flag not in str(err.value).split(":")[0]
 
 
