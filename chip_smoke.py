@@ -152,13 +152,32 @@ Phases:
      bench-small's two halves, 2 dp x halo train steps and the eval of the
      EMA weights against the single device on all of bench-small; (e)
      `train.run(ep=2)` on (c)'s ranks and `train.run(dp_halo=(2, 2))` on
-     (d)'s.
+     (d)'s;
+ 16. pipeline parallelism (`parallel/pp.py`), with deterministic algorithms
+     for the gates: (b) K1, K2, K3 and K4 (fp32, bf16, split3) at the
+     shapes of a pp microbatch (an eighth of bench-small) against their
+     plain versions with phase 3's checks, timed as phase 4 times the
+     others; then, the counters at 0, (a) one stage on an NCCL group of
+     one, bench-small in 4 microbatches: the captured PPTrainer step against
+     its eager run (bit-equal where two eager runs are), its launches
+     pinned (pp_launches) and one step against the captured single-device
+     step (phase 14's 1-shard gates); (c) 2 gloo ranks on cuda:0, 2 stages,
+     bench-small in 8 microbatches: E/F in fp32 (tests/test_halo.py's
+     gates), bf16 and "high" against the single-device predicts, the
+     gradient of tests/test_pp.py's loss (1e-4 + 1e-3 max|g|), one step
+     (phase 14's halo gates) with its launches pinned, every rank's
+     collectives in one order, and one bench-large eager fp32 step (one
+     system a microbatch): parameters, peak MiB and ms a rank; (d) 4 gloo
+     ranks: E/F at 4 stages, and the 2x2 dp x pp loss and gradient against
+     the single device; (e) `train.run(pp=2, pp_micro=4)` on (c)'s ranks:
+     4 steps, a resume to 6 with the export, rank 0's checkpoint holding
+     both stages.
 
 The last lines are the `{"kernels": [...]}` record (every kernel at both
 batches' shapes, its launches on each path: serving, training, probe,
 bench and graph, the launches the captured graphs of phase 11 hold,
-rest, phase 12's, stack, phase 13's, parallel, phase 14's, and ep, phase
-15's, their gloo ranks' included), the
+rest, phase 12's, stack, phase 13's, parallel, phase 14's, ep, phase
+15's, and pp, phase 16's, their gloo ranks' included), the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero before those lines. Without a CUDA device
 it fails at once.
@@ -356,12 +375,25 @@ PARALLEL_TIMEOUT_S = 400
 # K2 (HALO_LAUNCHES) and no K3, the chunk carrying no sort metadata
 EP_LAUNCHES = HALO_LAUNCHES
 # phase 15 (d): the 2-D mesh of gloo ranks on cuda:0 (n_dp, n_ep), its dp
-# shards bench-small's two padded halves (padded_halves); dp x halo train
+# shards bench-small's two padded halves (padded_parts); dp x halo train
 # steps from one state
 HYBRID_MESH = (2, 2)
 DP_HALO_STEPS = 2
 # phase 15 (c): one eager ep step at bench-large a rank, after a warm-up
 LARGE_EP_STEPS = 1
+# phase 16: the pipeline (`parallel/pp.py`). (a) one stage on the NCCL group
+# of one, bench-small in PP_NCCL_MICRO quarters; (c) PP_RANKS gloo ranks,
+# bench-small in PP_MICRO eighths (JAX's default M = 4 S), and bench-large
+# one system a microbatch; (d) PP_WIDE gloo ranks: S = PP_WIDE (one block a
+# stage) and the PP_MESH dp x pp mesh; (e) `train.run(pp=PP_RANKS)` with
+# PP_DRIVER_MICRO microbatches a step. A pp step's launches: pp_launches
+PP_NCCL_MICRO = 4
+PP_RANKS = 2
+PP_MICRO = 4 * PP_RANKS
+PP_LARGE_MICRO = 4
+PP_WIDE = 4
+PP_MESH = (2, 2)
+PP_DRIVER_MICRO = 4
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -2154,14 +2186,15 @@ def collectives_of(fn) -> dict:
     return dict(+after)
 
 
-def padded_halves(cfg, mols):
-    """`mols` in two halves padded to one PadDims (the larger half's sizes
-    and 5% headroom, as bench.padded_batch pads): a dp shard each."""
+def padded_parts(cfg, mols, n_parts: int = PARALLEL_RANKS):
+    """`mols` in `n_parts` equal parts padded to one PadDims (the largest
+    part's sizes and 5% headroom, as bench.padded_batch pads): a dp shard
+    or a pp microbatch each."""
     from gemnet_pytorch_tpu_torch.data import pad_batch, scale_graph_dims
     from gemnet_pytorch_tpu_torch.data.synthetic import toy_energy_forces
 
-    half = len(mols) // PARALLEL_RANKS
-    parts = [mols[i * half:(i + 1) * half] for i in range(PARALLEL_RANKS)]
+    size = len(mols) // n_parts
+    parts = [mols[i * size:(i + 1) * size] for i in range(n_parts)]
     raws, dims = [], None
     for part in parts:
         _, g, d = bench.padded_batch(cfg, part)
@@ -2399,7 +2432,7 @@ def parallel_rank(rank: int, world: int, workdir: str) -> None:
     _cuda.reset_launches()
     torch.use_deterministic_algorithms(True, warn_only=True)
     # (b) dp: a half each
-    half = padded_halves(cfg, mols)[rank]
+    half = padded_parts(cfg, mols)[rank]
     trainer, state = make_trainer(cfg, "float32", device)
     p0 = state.params.clone()
     state, metrics, _ = dp.make_dp_train_step(trainer, group)(state, half, 1.0)
@@ -2514,7 +2547,7 @@ def single_device_references(cfg, mols, large_mols, device) -> dict:
         ref["dp_step"] = (float(metrics["loss"]), host(state.params - p0))
         model = make_model(cfg, device)
         ref["dp_predict"] = [tuple(host(t) for t in predict(model, to_torch(h, device)))
-                             for h in padded_halves(cfg, mols)]
+                             for h in padded_parts(cfg, mols)]
         ref["halo_small"] = tuple(host(t) for t in predict(model, to_torch(batch_np,
                                                                                    device)))
         trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
@@ -2999,7 +3032,7 @@ def hybrid_references(cfg, mols, device) -> dict:
         # the gradient on a model of its own, after the capture (ep_references)
         model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
         num = den = 0.0
-        for half in padded_halves(cfg, mols):
+        for half in padded_parts(cfg, mols):
             b = to_torch(half, device)
             E, F = energy_and_forces(model, b, create_graph=True)
             n, d = ef_parts(E, F, b)
@@ -3034,7 +3067,7 @@ def hybrid_rank(rank: int, world: int, workdir: str) -> None:
     mols = spec["mols"]
     model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
     local = hybrid.shard_hybrid_batch(
-        hybrid.build_hybrid_batch(padded_halves(cfg, mols), hmesh.n_ep), hmesh, device)
+        hybrid.build_hybrid_batch(padded_parts(cfg, mols), hmesh.n_ep), hmesh, device)
     (loss, grads), calls, nbytes = collectives_and_bytes(
         lambda: hybrid.make_hybrid_loss_and_grad(model, hmesh, ef_parts)(local))
     out["dp_ep"] = (float(loss), host(torch.cat([g.reshape(-1) for g in grads])), calls, nbytes)
@@ -3215,6 +3248,521 @@ def ep_hybrid_phase(cfg, mols, device, workdir: str, power: str, large_mols=None
         cfg, mols, large_mols or bench.molecules("large"), device, workdir, power)
     hybrid_launches, out["hybrid_collectives"] = hybrid_gloo(cfg, mols, device, workdir)
     launches.update(hybrid_launches)
+    torch.cuda.synchronize()
+    launches.update(_cuda.LAUNCHES)
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------- phase 16
+
+def pp_launches(cfg, n_stages: int, n_micro: int) -> dict:
+    """Launches of one fp32 pp train step on each rank (PP_LAUNCHES): its
+    stage runs on every one of the T = M + S - 1 ticks (`parallel/pp.py`),
+    and each block of each tick launches what a block of the single-device
+    step does (TRAIN_LAUNCHES / 4 blocks: 6 K1, 6 K2, 6 K3); the preamble
+    adds each microbatch's 2 geometry K3s of -dE/dR."""
+    per = 6 * (cfg.num_blocks // n_stages) * (n_micro + n_stages - 1)
+    return {"gemnet_segment_outer_sum_f32": per, "gemnet_segment_gather_contract_f32": per,
+            "gemnet_sorted_segsum_f32": per + 2 * n_micro}
+
+
+def pp_ef_loss(E, F, batch):
+    """`ef_loss` over stacked (M, ...) outputs and targets."""
+    import torch
+
+    m = batch["mol_mask"].float()[..., None]
+    am = batch["atom_mask"].float()[..., None]
+    return torch.sum(torch.abs(E - batch["E"]) * m) + torch.sum(
+        torch.abs(F[..., 0, :] - batch["F"]) * am)
+
+
+def pp_trainer(cfg, device, group, n_micro: int, train_kw=None):
+    """(PPTrainer, its state) of this rank's PipelineStage of GemNet(cfg),
+    weights from seed 0 (those of `make_trainer`), at `make_trainer`'s
+    TrainConfig."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.config import TrainConfig
+    from gemnet_pytorch_tpu_torch.parallel import mesh, pp
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    stage, n = (0, 1) if group is None else (mesh.rank(group), mesh.world_size(group))
+    model = pp.PipelineStage(cfg, stage, n, generator=torch.Generator().manual_seed(0),
+                             device=device)
+    trainer = Trainer(model, TrainConfig(**{"warmup_steps": 1, **(train_kw or {})}))
+    ppt = pp.PPTrainer(trainer, group, n_micro)
+    return ppt, ppt.init_state()
+
+
+def monolithic_names(cfg) -> list:
+    """GemNet(cfg)'s parameter names in `parameters()` order (the single
+    device's flat buffer)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.models import GemNet
+
+    model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    return [n for n, _ in model.named_parameters()]
+
+
+def pp_flat(named: dict, names) -> np.ndarray:
+    """Tensors by name as one flat vector in the single device's order."""
+    return np.concatenate([np.asarray(named[n], np.float32).reshape(-1) for n in names])
+
+
+def pp_step_outputs(ppt, state, metrics, names):
+    """(loss, parameters, EMA, accumulators) after a pp step, the parameters
+    and EMA merged (collective) into the single device's order."""
+    params = ppt.merged_state_dict(state)
+    ema = ppt.merged_state_dict(state, ema=True)
+    return (float(metrics["loss"]), pp_flat({n: params[n].numpy() for n in names}, names),
+            pp_flat({n: ema[n].numpy() for n in names}, names), host(state.metric_acc))
+
+
+def pp_nccl(cfg, mols, device, group, names) -> tuple:
+    """Phase 16 (a): one stage on the NCCL group of one, bench-small in
+    PP_NCCL_MICRO quarters: CAPTURED_STEPS captured PPTrainer steps against
+    its eager steps from one state (bit-equal where two eager runs are, else
+    phase 11's gates), the collectives and launches of one eager step, and
+    one captured step against the captured single-device step on all of
+    bench-small (phase 14's 1-shard gates). Returns (the collectives and
+    bytes of a step, its launches)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import pp
+
+    quarters = padded_parts(cfg, mols, PP_NCCL_MICRO)
+    ppt, state = pp_trainer(cfg, device, group, PP_NCCL_MICRO, train_kw=HALO_TRAIN)
+    tensors = [to_torch(q, device) for q in quarters]
+    rows = np.stack([ppt.trainer.packer.pack(q) for q in quarters])
+    snapshot = list(pp.state_tensors(state).values())
+    start = [t.clone() for t in snapshot]
+
+    def restore():
+        for t, v in zip(snapshot, start):
+            t.copy_(v)
+
+    def flat_params():
+        return torch.cat([state.params["pre"], state.params["stage"]])
+
+    p0 = flat_params().clone()
+    step_fn = ppt.train_step_fn()
+
+    def five(step):
+        restore()
+        losses = [step()["loss"].detach().clone() for _ in range(CAPTURED_STEPS)]
+        torch.cuda.synchronize()
+        return torch.stack(losses).cpu().numpy(), flat_params().clone(), state.metric_acc.clone()
+
+    eager = lambda: ppt.train_step(state, tensors, 1.0)[1]  # noqa: E731
+    captured = lambda: step_fn(state, rows, 1.0)[1]  # noqa: E731
+    a, b, c = five(eager), five(eager), five(captured)
+    (ab, ab_equal), (ca, ca_equal) = run_diffs(b, a, p0), run_diffs(c, a, p0)
+    check(ppt._captured is not None, "(a) the pp step was not captured")
+    log(f"  (a) pp at 1 stage, NCCL, {PP_NCCL_MICRO} microbatches: {CAPTURED_STEPS} captured "
+        f"steps vs eager: bit-equal {ca_equal} (two eager runs bit-equal {ab_equal}); max loss "
+        f"rel {ca[0]:.3e}, update rel L2 {ca[1]:.3e} (second eager run vs the first: "
+        f"{ab[0]:.3e}, {ab[1]:.3e})"
+        + (f"; captured in {ppt._captured[1].seconds:.2f} s" if ppt._captured else ""))
+    if ab_equal:
+        check(ca_equal, "(a) two eager pp runs are bit-equal and the captured one is not")
+    check(ca[0] <= CAPTURED_LOSS_RTOL and ca[1] <= CAPTURED_UPDATE_REL_L2,
+          "(a) the captured pp step disagrees with its eager run")
+    restore()
+    torch.cuda.synchronize()
+    before = collections.Counter(_cuda.kernel_launches())
+    _, calls, nbytes = collectives_and_bytes(eager)
+    torch.cuda.synchronize()
+    census = collections.Counter(_cuda.kernel_launches())
+    census.subtract(before)
+    want = pp_launches(cfg, 1, PP_NCCL_MICRO)
+    log(f"  (a) one eager pp step launched {dict(+census)} (expected {want}), issued {calls} "
+        f"({sum(nbytes.values()) / 1e6:.2f} MB)")
+    check(dict(+census) == want, "(a) the pp step's launches are not the pinned count")
+    restore()
+    p0_mono = pp_flat({n: t.numpy() for n, t in ppt.merged_state_dict(state).items()}, names)
+    got = pp_step_outputs(ppt, state, captured(), names)
+    strainer, sstate = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+    check(np.array_equal(host(sstate.params), p0_mono),
+          "(a) the stage's weights are not the single device's")
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
+    halo_step_gates(f"(a) captured pp step ({PP_NCCL_MICRO} quarters, 1 stage) vs the captured "
+                    "single-device step on bench-small", got, ref, p0_mono)
+    del strainer, sstate, ppt, state
+    torch.cuda.empty_cache()
+    return calls, nbytes
+
+
+def pp_kernel_cases(cfg, mols, device, power: str):
+    """Phase 16 (b): K1, K2 and K3 (fp32, bf16; K4 as split3) at the shapes
+    of a pp microbatch: the first of bench-small's PP_MICRO eighths, as
+    (c) pads them; each against its plain version with phase 3's checks and
+    timed as phase 4 times the others. Returns (the cases without their
+    tensors, the errors, the timings)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+
+    micro = to_torch(padded_parts(cfg, mols, PP_MICRO)[0], device)
+    cases = kernel_cases(cfg, micro, device, tags=(
+        "triplet", "quadruplet", "trip_ba", "intm_db", "quad_abd", "geometry_abd",
+        "geometry_cab"))
+    for case in cases:
+        case["tag"] += "@pp"
+    errors = compare_kernels(cases)
+    timings = time_kernels(cases, power)
+    for case in cases:
+        for key in [k for k in case if k not in ("kernel", "tag", "dtype", "shape")]:
+            del case[key]
+    torch.cuda.empty_cache()
+    return cases, errors, timings
+
+
+def pp_references(cfg, mols, device) -> dict:
+    """Phase 16 (c) and (d)'s single-device card runs, with deterministic
+    algorithms: the predict of each of bench-small's PP_MICRO eighths in
+    fp32, bf16 and "high"; the gradient of `ef_loss` summed over the
+    eighths; one step at test_halo.py's settings on all of bench-small."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet, energy_and_forces
+
+    ref = {}
+    eighths = [to_torch(e, device) for e in padded_parts(cfg, mols, PP_MICRO)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, c in (("float32", cfg), ("bfloat16", dataclasses.replace(
+                cfg, compute_dtype="bfloat16")), ("high", dataclasses.replace(
+                cfg, matmul_precision="high"))):
+            model = make_model(c, device)
+            out = [predict(model, e) for e in eighths]
+            ref[f"predict_{name}"] = tuple(np.stack([host(o[i]) for o in out])
+                                           for i in range(2))
+        trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        ref["p0"] = host(state.params)
+        metrics = trainer.train_step_fn()(state, bench.padded_batch(cfg, mols)[0], 1.0)[1]
+        ref["step"] = step_outputs(state, metrics)
+        del trainer, state
+        # the gradient on a model of its own, after the capture (ep_references)
+        model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        loss = 0.0
+        for e in eighths:
+            E, F = energy_and_forces(model, e, create_graph=True)
+            loss = loss + ef_loss(E, F, e)
+        ref["grad"] = host(flat_grad(model, loss))
+        del model, E, F, loss
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    return ref
+
+
+def pp_driver_run(device, workdir: str, group) -> dict:
+    """Phase 16 (e): `train.run(pp=2, pp_micro=PP_DRIVER_MICRO)` for
+    PARALLEL_RUN's steps, then a resume to 2 more with the export: the best
+    metrics, finite; rank 0's checkpoint at the last step with both stages'
+    rows; the export loaded into a monolithic model."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch import train as train_driver
+    from gemnet_pytorch_tpu_torch.compat import strip_reference_aliases
+    from gemnet_pytorch_tpu_torch.config import ModelConfig
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    run_dir = os.path.join(workdir, "run_pp")
+    export = os.path.join(workdir, "pp_export.pth")
+    config = dict(PARALLEL_RUN, restart=run_dir, logdir=workdir)
+    kw = dict(device=device, synthetic_molecules=PARALLEL_RUN_MOLECULES, group=group,
+              pp=mesh.world_size(group), pp_micro=PP_DRIVER_MICRO)
+    first = train_driver.run(config, **kw)
+    n_steps = PARALLEL_RUN["num_steps"] + 2
+    second = train_driver.run(dict(config, num_steps=n_steps), export_torch=export, **kw)
+    for best in (first, second):
+        check(all(np.isfinite(v) for v in best.values()), "(e) train.run(pp): non-finite metrics")
+    if mesh.is_main(group):
+        ckpt = torch.load(os.path.join(run_dir, "logs", "checkpoint"), map_location="cpu",
+                          weights_only=True)
+        check(int(ckpt["step"]) == n_steps
+              and ckpt["params.stage"].shape[0] == mesh.world_size(group),
+              f"(e) rank 0's pp checkpoint: step {int(ckpt['step'])}, "
+              f"{ckpt['params.stage'].shape[0]} stages")
+        model = GemNet(ModelConfig.from_dict(config), generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+        model.load_state_dict(strip_reference_aliases(torch.load(export, weights_only=True)),
+                              strict=True)
+    return dict(first=first, second=second)
+
+
+def pp_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 16 (c) and (e) on one rank of a gloo group of PP_RANKS ranks
+    sharing cuda:0, S = PP_RANKS: on bench-small's PP_MICRO eighths, E/F in
+    fp32, bf16 and "high", the gradient of `ef_loss` and one step, each
+    with the collectives it issued, in order; one eager fp32 step on
+    bench-large's systems, one a microbatch (peak MiB, ms); then
+    `train.run(pp=world)`."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import collectives, pp
+
+    spec, device, group, cfg = _gloo_rank(workdir, world, rank)
+    out = {}
+    _cuda.reset_launches()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    eighths = [to_torch(e, device) for e in padded_parts(cfg, spec["mols"], PP_MICRO)]
+    for name, c in (("float32", cfg), ("bfloat16", dataclasses.replace(
+            cfg, compute_dtype="bfloat16")), ("high", dataclasses.replace(
+            cfg, matmul_precision="high"))):
+        stage = pp.PipelineStage(c, rank, world, generator=torch.Generator().manual_seed(0),
+                                 device=device).requires_grad_(False)
+        with collectives.recorded() as seq:
+            E, F = pp.make_pp_energy_and_forces(stage, group)(eighths)
+        out[f"predict_{name}"] = (host(E), host(F), seq)
+        del stage
+    stage = pp.PipelineStage(cfg, rank, world, generator=torch.Generator().manual_seed(0),
+                             device=device)
+    with collectives.recorded() as seq:
+        _, grads = pp.make_pp_loss_and_grad(stage, group, pp_ef_loss)(eighths)
+    out["grad"] = ({k: host(g) for k, g in grads.items()}, seq)
+    del stage, grads
+    ppt, state = pp_trainer(cfg, device, group, PP_MICRO, train_kw=HALO_TRAIN)
+    torch.cuda.synchronize()
+    before = collections.Counter(_cuda.kernel_launches())
+    with collectives.recorded() as seq:
+        (state, metrics, _), calls, nbytes = collectives_and_bytes(
+            lambda: ppt.train_step(state, eighths, 1.0))
+    torch.cuda.synchronize()
+    census = collections.Counter(_cuda.kernel_launches())
+    census.subtract(before)
+    out["census"], out["collectives"], out["seq"] = dict(+census), (calls, nbytes), seq
+    out["step"] = pp_step_outputs(ppt, state, metrics, spec["names"])
+    out["shapes"] = {k: tuple(v.shape) for k, v in eighths[0].items()
+                     if k in ("id_c", "id3_reduce_ca", "id4_reduce_ca")}
+    del ppt, state, eighths
+    torch.use_deterministic_algorithms(False)
+    # bench-large: one eager fp32 pp step, one system a microbatch
+    large = [to_torch(b, device) for b in padded_parts(cfg, spec["large_mols"],
+                                                       PP_LARGE_MICRO)]
+    torch.cuda.empty_cache()
+    ppt, state = pp_trainer(cfg, device, group, PP_LARGE_MICRO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ppt.train_step(state, large, 1.0)  # warm-up
+    dist.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics, _ = ppt.train_step(state, large, 1.0)
+    torch.cuda.synchronize()
+    out["large"] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                        peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                        loss=float(metrics["loss"]),
+                        params=sum(p.numel() for p in ppt.model.parameters()))
+    del ppt, state, large
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["run"] = (pp_driver_run(device, workdir, group), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["launches"] = collections.Counter(_cuda.LAUNCHES)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def pp_wide_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 16 (d) on one rank of a gloo group of PP_WIDE ranks sharing
+    cuda:0: S = PP_WIDE E/F on bench-small's eighths; then the 2x2 dp x pp
+    mesh (`make_hybrid_mesh(*PP_MESH)`, its rows pipelines of 2 stages,
+    each row half of the eighths): the loss and gradient of `ef_loss`."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import collectives, mesh, pp
+
+    spec, device, group, cfg = _gloo_rank(workdir, world, rank)
+    out = {}
+    _cuda.reset_launches()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    eighths = [to_torch(e, device) for e in padded_parts(cfg, spec["mols"], PP_MICRO)]
+    stage = pp.PipelineStage(cfg, rank, world, generator=torch.Generator().manual_seed(0),
+                             device=device).requires_grad_(False)
+    with collectives.recorded() as seq:
+        E, F = pp.make_pp_energy_and_forces(stage, group)(eighths)
+    out["predict"] = (host(E), host(F), seq)
+    del stage
+    hmesh = mesh.make_hybrid_mesh(*PP_MESH, group)
+    out["place"] = (hmesh.dp_index, hmesh.pp_index)
+    stage = pp.PipelineStage(cfg, hmesh.pp_index, hmesh.n_pp,
+                             generator=torch.Generator().manual_seed(0), device=device)
+    m = PP_MICRO // hmesh.n_dp
+    row = eighths[hmesh.dp_index * m:(hmesh.dp_index + 1) * m]
+    with collectives.recorded() as seq:
+        loss, grads = pp.make_pp_loss_and_grad(stage, hmesh, pp_ef_loss)(row)
+    out["dp_pp"] = (float(loss), {k: host(g) for k, g in grads.items()}, seq)
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    out["launches"] = collections.Counter(_cuda.LAUNCHES)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def merged_grad(results, key, names) -> np.ndarray:
+    """The ranks' gradients by name (each rank's preamble and stage),
+    checked equal where two ranks hold one parameter, as one flat vector in
+    the single device's order."""
+    merged = {}
+    for res in results:
+        for name, g in res[key][1 if key == "dp_pp" else 0].items():
+            if name in merged:
+                check(np.array_equal(merged[name], g),
+                      f"({key}) two ranks' gradients of {name} differ")
+            merged[name] = g
+    check(sorted(merged) == sorted(names), f"({key}) the ranks' gradients miss parameters")
+    return pp_flat(merged, names)
+
+
+def pp_gloo(cfg, mols, large_mols, device, workdir: str, power: str, names,
+            single_large=None) -> tuple:
+    """Phase 16 (c)-(e): PP_RANKS gloo ranks running `pp_rank`, then
+    PP_WIDE running `pp_wide_rank`, held against the single-device card.
+    Returns (their launches, the bench-large numbers, the collectives of a
+    step)."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.models import GemNet
+
+    ref = pp_references(cfg, mols, device)
+    model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    spec = dict(device=str(device), cfg=dataclasses.asdict(cfg), mols=mols,
+                large_mols=large_mols, names=names)
+    t0 = time.perf_counter()
+    results = spawn_ranks(os.path.join(workdir, "pp"), spec, target=pp_rank, world=PP_RANKS)
+    log(f"  {PP_RANKS} gloo ranks on cuda:0 ran (c) and (e) in {time.perf_counter() - t0:.1f} s "
+        f"(spawn and CUDA start included)")
+    want = pp_launches(cfg, PP_RANKS, PP_MICRO)
+    for r, res in enumerate(results):
+        E, F, seq = res["predict_float32"]
+        ef_gates(f"(c) pp predict of the {PP_MICRO} eighths, rank {r}", E, F,
+                 *ref["predict_float32"])
+        check(seq == results[0]["predict_float32"][2], "(c) the ranks' pp predict collectives "
+              "differ in order")
+        for name, (rel_e, rel_f) in (("bfloat16", (BF16_E_REL, BF16_F_REL)),
+                                     ("high", (SERVE_RTOL, SERVE_RTOL))):
+            got = res[f"predict_{name}"]
+            for t, g, w, rel in zip("EF", got[:2], ref[f"predict_{name}"], (rel_e, rel_f)):
+                ok, err = close(g, w, rel)
+                log(f"  (c) pp predict {name}, rank {r}, {t}: max |diff| {err:.3e} vs the "
+                    f"single-device {name} predict (rtol {rel} of max |{t}|)")
+                check(ok, f"(c) rank {r}'s {name} pp predict {t} disagrees with the single device")
+            check(got[2] == results[0][f"predict_{name}"][2],
+                  f"(c) the ranks' {name} pp predict collectives differ in order")
+        check(res["grad"][1] == results[0]["grad"][1],
+              "(c) the ranks' pp gradient collectives differ in order")
+        halo_step_gates(f"(c) pp fp32 step ({PP_MICRO} eighths, {PP_RANKS} stages) vs the "
+                        f"single-device step on bench-small, rank {r}", res["step"], ref["step"],
+                        ref["p0"])
+        calls, nbytes = res["collectives"]
+        log(f"  (c) rank {r}: an eighth {res['shapes']}; one step launched {res['census']} "
+            f"(expected {want}), issued {calls} ({sum(nbytes.values()) / 1e6:.2f} MB) in "
+            f"{len(res['seq'])} collectives")
+        check(res["census"] == want, f"(c) rank {r}'s pp step launched {res['census']}")
+        check(res["seq"] == results[0]["seq"],
+              f"(c) rank {r}'s pp step issued its collectives in another order than rank 0")
+    grad_gates("(c) pp gradient of the E/F loss over the eighths (merged over the ranks)",
+               merged_grad(results, "grad", names), ref["grad"], model)
+    large = dict(single=single_large, ranks=[res["large"] for res in results])
+    log(f"  (c) bench-large eager fp32 pp step [{power}]: {PP_RANKS} stages, {PP_LARGE_MICRO} "
+        f"microbatches of one system; parameters a rank " + ", ".join(
+            str(x["params"]) for x in large["ranks"]) + "; peak MiB a rank " + ", ".join(
+            f"{x['peak_mib']:.1f}" for x in large["ranks"]) + "; ms " + ", ".join(
+            f"{x['ms']:.1f}" for x in large["ranks"]) + " (gloo through the host, 2 ranks "
+        "sharing one card: not a scaling number)" + (
+            f" vs single-device eager on bench-large {single_large['peak_mib']:.1f} MiB, "
+            f"{single_large['ms']:.1f} ms" if single_large else ""))
+    first = [res["run"][0] for res in results]
+    log(f"  (e) train.run(pp={PP_RANKS}, pp_micro={PP_DRIVER_MICRO}) over the gloo ranks, "
+        f"{PARALLEL_RUN['num_steps']} steps, then a resume to "
+        f"{PARALLEL_RUN['num_steps'] + 2} with the export, in "
+        f"{max(res['run'][1] for res in results):.1f} s: best {first[0]['second']}")
+    check(all(b == first[0] for b in first), "(e) the ranks' train.run(pp) disagree")
+    launches = collections.Counter()
+    for res in results:
+        launches.update(res["launches"])
+    # (d)
+    t0 = time.perf_counter()
+    wide = spawn_ranks(os.path.join(workdir, "pp_wide"), spec, target=pp_wide_rank,
+                       world=PP_WIDE)
+    log(f"  {PP_WIDE} gloo ranks on cuda:0 ran (d) in {time.perf_counter() - t0:.1f} s")
+    for r, res in enumerate(wide):
+        # SERVE_RTOL of the largest |E|, |F|, as every card-vs-card predict
+        # of phase 14 (d): the psum of 4 ranks' partial dE/dR sums in
+        # another order than one backward (tests/test_torch_pp.py measures
+        # the same at 4 stages: up to 5 times tests/test_pp.py's gate)
+        E, F, seq = res["predict"]
+        for name, got, want in zip("EF", (E, F), ref["predict_float32"]):
+            ok, err = close(got, want, SERVE_RTOL)
+            log(f"  (d) pp predict at {PP_WIDE} stages, rank {r}, {name}: max |diff| {err:.3e}, "
+                f"max |{name}| {np.abs(want).max():.3e} (rtol {SERVE_RTOL} of it)")
+            check(ok, f"(d) rank {r}'s S = {PP_WIDE} pp {name} disagrees with the single device")
+        check(seq == wide[0]["predict"][2], "(d) the ranks' pp collectives differ in order")
+        check(res["place"] == divmod(r, PP_MESH[1]), f"(d) rank {r}'s place {res['place']}")
+        loss = res["dp_pp"][0]
+        check(loss == wide[0]["dp_pp"][0] and res["dp_pp"][2] == wide[0]["dp_pp"][2],
+              "(d) the ranks' dp x pp losses or collectives differ")
+    grad_gates(f"(d) dp x pp {PP_MESH[0]}x{PP_MESH[1]} gradient of the E/F loss (merged)",
+               merged_grad(wide, "dp_pp", names), ref["grad"], model)
+    log(f"  (d) dp x pp collectives of the loss and gradient on a rank: "
+        f"{collections.Counter(k for k, _, _ in wide[0]['dp_pp'][2])}")
+    for res in wide:
+        launches.update(res["launches"])
+    return launches, large, results[0]["collectives"]
+
+
+def pp_phase(cfg, mols, device, workdir: str, power: str, large_mols=None,
+             single_large=None) -> dict:
+    """Phase 16: (b) the pp microbatch's kernels against their plain
+    versions; then, the launch counters at 0, (a) on an NCCL group of one
+    with deterministic algorithms, (c)-(e) on gloo ranks sharing cuda:0.
+    `single_large`: the single-device eager fp32 step's peak MiB and ms on
+    bench-large (phase 15), printed beside the pp ranks'. Returns the cases,
+    errors and timings of (b), and the launches and numbers of the phase."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    out = {}
+    names = monolithic_names(cfg)
+    log("  (b) K1, K2, K3 and K4 at a pp microbatch's shapes (an eighth of bench-small)")
+    out["cases"], out["errors"], out["timings"] = pp_kernel_cases(cfg, mols, device, power)
+    _cuda.reset_launches()
+    group = mesh.initialize_distributed(f"localhost:{free_port()}", 1, 0, device=device)
+    check(mesh.backend(group) == "nccl", f"phase 16's group is {mesh.backend(group)}, not NCCL")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["one_stage"] = pp_nccl(cfg, mols, device, group, names)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    launches, out["large"], out["collectives"] = pp_gloo(
+        cfg, mols, large_mols or bench.molecules("large"), device, workdir, power, names,
+        single_large)
     torch.cuda.synchronize()
     launches.update(_cuda.LAUNCHES)
     out["launches"] = launches
@@ -3429,11 +3977,24 @@ def main() -> int:
     errors.update(ep_out["errors"])
     timings.update(ep_out["timings"])
 
+    log(f"== 16. the pipeline (parallel/pp.py): NCCL at world size 1 (the captured PPTrainer "
+        f"step, 1 stage), the kernels at a pp microbatch's shapes, {PP_RANKS} and {PP_WIDE} gloo "
+        f"ranks sharing cuda:0 ({PP_RANKS} and {PP_WIDE} stages, dp x pp "
+        f"{PP_MESH[0]}x{PP_MESH[1]}, train.run(pp={PP_RANKS})) [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_pp_") as workdir:
+        t0 = time.perf_counter()
+        pp_out = pp_phase(cfg, mols, device, workdir, power,
+                          single_large=ep_out["large"]["single"])
+        log(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
+    errors.update(pp_out["errors"])
+    timings.update(pp_out["timings"])
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
              "train_high": high_census, "probe": probe_census, "bench": bench_census,
              "graph": graph_census, "rest": rest_census, "stack": stack_census,
-             "parallel": dict(parallel_census), "ep": dict(ep_out["launches"])}
+             "parallel": dict(parallel_census), "ep": dict(ep_out["launches"]),
+             "pp": dict(pp_out["launches"])}
     # each row's own paths, where it must have launched (at the large
     # shapes only the bench's steps and phase 12's timed MVE steps run, in
     # fp32 and bf16: no path runs split3 there); "graph": the launches the
@@ -3449,7 +4010,10 @@ def main() -> int:
     # phase 15's ep ranks (a step in fp32, a predict in bf16 and "high")
     own_halo = {"f32": ("parallel",)}
     own_ep = {"f32": ("ep",), "bf16": ("ep",), "split3": ("ep",)}
-    cases += large + ep_out["cases"]
+    # at a pp microbatch's shapes: phase 16's (a step in fp32, a predict in
+    # bf16 and "high" on (c)'s ranks)
+    own_pp = {"f32": ("pp",), "bf16": ("pp",), "split3": ("pp",)}
+    cases += large + ep_out["cases"] + pp_out["cases"]
     kernels = []
     for case in cases:
         key = (case["kernel"], case["tag"], case["dtype"])
@@ -3471,7 +4035,8 @@ def main() -> int:
         else:
             must = (own_large if case["tag"].endswith("@large") else
                     own_halo if case["tag"].endswith("@halo") else
-                    own_ep if case["tag"].endswith("@ep") else own)[row["dtype"]]
+                    own_ep if case["tag"].endswith("@ep") else
+                    own_pp if case["tag"].endswith("@pp") else own)[row["dtype"]]
         for p in must:
             check(by_path[p] > 0, f"{row['name']} was not launched by the {p} path")
         lib = [f"{row[k]:.4f}" if row[k] is not None else "null"
@@ -3526,7 +4091,9 @@ def main() -> int:
         f"{ep_out['large']['ranks'][0]['peak_mib']:.1f} vs one device "
         f"{ep_out['large']['single']['peak_mib']:.1f}; an ep step's collectives "
         f"{ep_out['ep_collectives'][0]} ({sum(ep_out['ep_collectives'][1].values()) / 1e6:.2f} "
-        "MB)")
+        f"MB); pp over 2 gloo ranks, bench-large eager fp32 step peak MiB a rank "
+        f"{pp_out['large']['ranks'][0]['peak_mib']:.1f}; a pp step's collectives a rank "
+        f"{pp_out['collectives'][0]} ({sum(pp_out['collectives'][1].values()) / 1e6:.2f} MB)")
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

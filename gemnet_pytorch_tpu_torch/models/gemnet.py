@@ -73,6 +73,11 @@ outputs; everything after them computes replicated, so E and the direct F
 come out replicated with no further collective (-dE/dR as the halo mode's).
 A single-device batch must carry the sort metadata: only a partitioned
 model gathers without it.
+
+The forward is three parts, as JAX's `GemNet.__call__(return_state=True)`
+and `finalize_outputs` split it for the pipeline (`parallel/pp.py`):
+`preamble` (up to and with `out_blocks[0]`), `run_blocks` on any contiguous
+range of the block loop, and `finalize_outputs`.
 """
 
 from __future__ import annotations
@@ -127,6 +132,11 @@ def _required(batch: dict, keys) -> None:
 HALO_KEYS = ("trip_b_atom", "edge_halo_send_idx", "edge_halo_send_mask", "id3_reduce_ca_plan")
 HALO_QUAD_KEYS = ("intm_ext_a_atom", "intm_ext_b_atom", "intm_ext_d_atom", "intm_halo_send_idx",
                   "intm_halo_send_mask", "id4_reduce_ca_plan")
+
+
+# the state the block loop carries from block to block (and a pipeline from
+# stage to stage, `parallel/pp.py`)
+CARRY_KEYS = ("h", "m", "E_a", "F_ca")
 
 
 class GemNet(nn.Module):
@@ -186,6 +196,21 @@ class GemNet(nn.Module):
         """(E, F): E (n_mol_pad, num_targets); F per-atom (n_atoms_pad,
         num_targets, 3) with direct forces, else the per-edge heads, zero.
         `R` overrides batch["R"] so the caller can differentiate w.r.t. it."""
+        state = self.preamble(batch, R)
+        carry = self.run_blocks(tuple(state[k] for k in CARRY_KEYS), state)
+        return finalize_outputs(self.cfg, batch, *carry[2:], state["V_ca"], self._out_group())
+
+    def _out_group(self):
+        # the output blocks' psum: the halo mode's alone (JAX gemnet.py:276)
+        return self.group if self.cfg.ep_halo else None
+
+    def preamble(self, batch: dict[str, torch.Tensor], R: torch.Tensor | None = None) -> dict:
+        """Everything before the block loop (JAX `GemNet.__call__(return_state=
+        True)`, `gemnet_pytorch_tpu/models/gemnet.py:291-298`): geometry,
+        bases, the shared down-projections, the embeddings and
+        `out_blocks[0]`. Returns the carried state `h`, `m`, `E_a`, `F_ca`
+        (CARRY_KEYS) and what every block reads: `basis`, `rbf_out`, `ind`,
+        `masks`, and `V_ca` for `finalize_outputs`."""
         cfg, cdt = self.cfg, self.cdt
         halo = cfg.ep_halo
         # rung 2a: the rows are a shard's, the rest replicated (parallel/ep.py)
@@ -292,8 +317,7 @@ class GemNet(nn.Module):
         if not cfg.triplets_only:
             ind.update({k: batch[k] for k in ("id4_reduce_ca", "id4_reduce_ca_plan",
                                               "id4_expand_intm_db", "id4_expand_abd")})
-        # the output blocks' psum: the halo mode's alone (JAX gemnet.py:276)
-        group = self.group if halo else None
+        group = self._out_group()
         if halo:
             ind["halo_group"] = group
             ind["edge_send"] = (batch["edge_halo_send_idx"], batch["edge_halo_send_mask"])
@@ -311,15 +335,29 @@ class GemNet(nn.Module):
                 ind["intm_db_sort"] = (batch["intm_db_perm"], batch["intm_db_sorted"],
                                        batch["intm_db_plan"])
 
-        # ---- block stack ----
         E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask, atom_mask, group)
-        run = _remat if cfg.remat_blocks else _call
-        for int_block, out_block in zip(self.int_blocks, self.out_blocks[1:]):
-            h, m = run(int_block, h, m, basis, ind, masks)
-            E, F = run(out_block, h, m, rbf_out, id_a, edge_mask, atom_mask, group)
+        return dict(h=h, m=m, E_a=E_a, F_ca=F_ca, basis=basis, rbf_out=rbf_out, ind=ind,
+                    masks=masks, V_ca=V_ca)
+
+    def run_blocks(self, carry, consts: dict, start: int = 0, stop: int | None = None):
+        """Interaction and output blocks `start` to `stop` (default all) of
+        the block loop on the carried state `carry` = (h, m, E_a, F_ca);
+        `consts` is the preamble's dict (basis, rbf_out, ind, masks).
+        Returns the carry after them. `remat_blocks` recomputes each block
+        in the backward, as JAX's pipeline stage does (`parallel/pp.py:83-84`)."""
+        h, m, E_a, F_ca = carry
+        basis, ind, masks = consts["basis"], consts["ind"], consts["masks"]
+        rbf_out = consts["rbf_out"]
+        group = self._out_group()
+        run = _remat if self.cfg.remat_blocks else _call
+        stop = self.cfg.num_blocks if stop is None else stop
+        for i in range(start, stop):
+            h, m = run(self.int_blocks[i], h, m, basis, ind, masks)
+            E, F = run(self.out_blocks[i + 1], h, m, rbf_out, ind["id_a"], masks["edge"],
+                       masks["atom"], group)
             E_a = E_a + E
             F_ca = F_ca + F
-        return finalize_outputs(cfg, batch, E_a, F_ca, V_ca, group)
+        return h, m, E_a, F_ca
 
 
 def _call(block, *args):

@@ -1,8 +1,8 @@
-"""Data parallelism and the edge partitions over `torch.distributed`
-process groups (port of `gemnet_pytorch_tpu/parallel/`: `mesh.py`, `dp.py`,
-`ep.py`, `halo.py`, `hybrid.py`; the collectives JAX's `shard_map`
-transposes itself are in `collectives.py`). The pp and tp modes are not
-ported yet."""
+"""Data parallelism, the edge partitions and the pipeline over
+`torch.distributed` process groups (port of `gemnet_pytorch_tpu/parallel/`:
+`mesh.py`, `dp.py`, `ep.py`, `halo.py`, `hybrid.py`, `pp.py`; the
+collectives JAX's `shard_map` transposes itself are in `collectives.py`).
+The tp mode is not ported yet."""
 from .mesh import (  # noqa: F401
     HybridMesh,
     initialize_distributed,
@@ -51,3 +51,17 @@ from .hybrid import (  # noqa: F401
     shard_dp_halo_batch,
     shard_hybrid_batch,
 )
+
+# the pipeline's names, imported at first use: `pp.py` builds on the model
+# (`PipelineStage` is a GemNet), whose module imports this package
+PP_NAMES = ("PipelineStage", "PPTrainer", "make_pp_apply", "make_pp_energy_and_forces",
+            "make_pp_loss_and_grad", "merge_pp_state_dict", "split_pp_state_dict",
+            "stack_microbatches")
+
+
+def __getattr__(name):
+    if name in PP_NAMES:
+        from . import pp
+
+        return getattr(pp, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

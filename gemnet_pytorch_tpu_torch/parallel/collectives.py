@@ -13,7 +13,13 @@ loss backpropagates through -dE/dR):
   unrolled program, an all-reduced value y = sum_s x_s feeds every rank,
   so x_s's cotangent is the sum of every rank's cotangent of y;
 - `all_to_all` (block j of rank r goes to rank j, block r): the reverse
-  exchange is the same all-to-all, so it is its own transpose.
+  exchange is the same all-to-all, so it is its own transpose;
+- `shift` (rank s sends to s+1 and receives from s-1, rank 0 receives
+  zeros: `jax.lax.ppermute(x, axis, [(i, i + 1)])`): y_{s+1} = x_s, so x_s's
+  cotangent is y_{s+1}'s, and the last rank's x feeds nothing (zero). That
+  is the shift in the other direction (rank s sends to s-1, the last rank
+  receives zeros): its transpose is the reverse shift, whose transpose is
+  the shift again.
 
 A replicated scalar that every rank differentiates (the halo loss, the
 energy sum of -dE/dR) is seeded with 1/P on each of the P ranks: the ranks'
@@ -26,7 +32,8 @@ single-device gradient (`parallel/halo.py`).
 and `all_gather` stacks every rank's tensor.
 Every collective issued on a group is counted in `CALLS`, by kind and
 backend, and its tensor's bytes in `BYTES` (a captured step's are issued
-at its capture).
+at its capture); inside `recorded()` each is also appended to a list, in
+the order issued, with its shape, so ranks can compare their sequences.
 
 The ranks must issue their collectives in one order. The forward's order
 is the program's; a backward's is the autograd engine's, which runs ready
@@ -38,12 +45,16 @@ design: gloo is the host backend of the one-card runs, its collectives run
 on CPU tensors. gloo takes no bf16: it is summed in fp32 and exchanged as
 raw bytes. An NCCL group takes the tensors where they are, and its
 collectives are kernels a CUDA graph captures. `group=None` is a group of
-one: every collective is the identity.
+one: every collective is the identity. A shift is point to point: one
+`batch_isend_irecv` a call, every send and receive of the call in it, so
+no pair of ranks waits on the other's order; over one rank it issues
+nothing.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -56,10 +67,30 @@ CALLS: collections.Counter = collections.Counter()
 BYTES: collections.Counter = collections.Counter()
 
 
-def _count(kind: str, group, t: torch.Tensor) -> None:
+# the collectives issued inside `recorded()`, in order: (kind, backend, shapes)
+_RECORD: list | None = None
+
+
+def _count(kind: str, group, *ts: torch.Tensor) -> None:
     key = (kind, mesh.backend(group))
     CALLS[key] += 1
-    BYTES[key] += t.numel() * t.element_size()
+    BYTES[key] += sum(t.numel() * t.element_size() for t in ts)
+    if _RECORD is not None:
+        _RECORD.append((*key, tuple(tuple(t.shape) for t in ts)))
+
+
+@contextlib.contextmanager
+def recorded():
+    """Yield a list that collects every collective issued in the block, in
+    order, as (kind, backend, shapes of its tensors)."""
+    global _RECORD
+    outer, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        if outer is not None:
+            outer.extend(_RECORD)
+        _RECORD = outer
 
 
 def _gloo(group) -> bool:
@@ -131,6 +162,54 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out.view(x.dtype) if raw else out
 
 
+def _shift(xs, group, reverse: bool) -> tuple:
+    """Each of `xs` from rank s to rank s+1 (s-1 when `reverse`), zeros on
+    the rank with no sender; one `batch_isend_irecv` for the whole tuple."""
+    xs = [x.contiguous() for x in xs]
+    n = mesh.world_size(group)
+    _count("shift", group, *xs)
+    me = mesh.rank(group)
+    step = -1 if reverse else 1
+    dst, src = me + step, me - step
+    gloo = _gloo(group)
+    outs = [torch.zeros_like(x) for x in xs]
+    ops, received = [], []
+    for x, out in zip(xs, outs):
+        buf = out
+        if gloo:  # host tensors of 4- or 8-byte words; a bf16 tensor as its bytes
+            raw = x.dtype not in (torch.float32, torch.float64, torch.int32, torch.int64)
+            x = x.view(torch.uint8) if raw else x
+            x = _host_copy(x) if x.is_cuda else x
+            if raw or out.is_cuda:
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=out.is_cuda)
+        if 0 <= dst < n:
+            ops.append(dist.P2POp(dist.isend, x, group=group, group_peer=dst))
+        if 0 <= src < n:
+            ops.append(dist.P2POp(dist.irecv, buf, group=group, group_peer=src))
+            received.append((out, buf))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for out, buf in received:
+        if buf is not out:
+            out.copy_(buf.view(out.dtype))
+    return tuple(outs)
+
+
+class Shift(torch.autograd.Function):
+    """The neighbour shift of a tuple of tensors (rank s to s+1, or s to s-1
+    with `reverse`); backward: the shift in the other direction of the
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, group, reverse, *xs):
+        ctx.group, ctx.reverse = group, reverse
+        return _shift(xs, group, reverse)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *Shift.apply(ctx.group, not ctx.reverse, *gs))
+
+
 class Psum(torch.autograd.Function):
     """All-reduce (sum); backward: Psum of the cotangent."""
 
@@ -167,6 +246,16 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable all-to-all over x's leading axis of P blocks
     (`jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0)`)."""
     return x if group is None else AllToAll.apply(x, group)
+
+
+def shift(xs, group) -> tuple:
+    """Differentiable neighbour shift of the tuple `xs`: rank s's tensors go
+    to rank s+1, rank 0 receives zeros, the last rank's go nowhere
+    (`jax.lax.ppermute(x, axis, [(i, i + 1) for i in range(P - 1)])`). With
+    `group=None`, or over one rank, the identity: no collective."""
+    if group is None or mesh.world_size(group) == 1:
+        return tuple(xs)
+    return Shift.apply(group, False, *xs)
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:

@@ -16,8 +16,9 @@ them). A group that fails to start raises; no backend is chosen because
 another failed.
 
 `make_hybrid_mesh` cuts a group into the rows and columns of a 2-D mesh,
-JAX's ("dp", "ep") mesh of `parallel/hybrid.py`: each rank holds the
-sub-group of its row (the ep axis) and of its column (the dp axis).
+JAX's ("dp", "ep") mesh of `parallel/hybrid.py` and ("dp", "pp") mesh of
+`parallel/pp.py`: each rank holds the sub-group of its row (the ep or pp
+axis) and of its column (the dp axis).
 """
 
 from __future__ import annotations
@@ -93,6 +94,20 @@ class HybridMesh(NamedTuple):
     ep_index: int
     n_dp: int
     n_ep: int
+
+    # the row axis under its pipeline name: on a dp x pp mesh each row is a
+    # pipeline of n_pp stages (`parallel/pp.py`)
+    @property
+    def pp(self):
+        return self.ep
+
+    @property
+    def pp_index(self) -> int:
+        return self.ep_index
+
+    @property
+    def n_pp(self) -> int:
+        return self.n_ep
 
 
 def make_hybrid_mesh(n_dp: int, n_ep: int, group=None, *,

@@ -1,18 +1,19 @@
 """Training driver of the PyTorch port: the repository's `train.py`
 (reference train_seml.py:42-387) on one device, or data-parallel (`--dp
-N`), halo edge-partitioned (`--halo N`) or row-partitioned (`--ep N`,
-deprecated) over N processes, one a device, or both at once (`--dp-halo
-DP EP`, DP x EP processes).
+N`), halo edge-partitioned (`--halo N`), row-partitioned (`--ep N`,
+deprecated) or pipelined (`--pp N`, N stages of the block stack) over N
+processes, one a device, or data-parallel and halo at once (`--dp-halo DP
+EP`, DP x EP processes).
 
     python -m gemnet_pytorch_tpu_torch.train [--config config.yaml] [--num-steps N]
         [--dataset PATH] [--batch-size B] [--evaluation-interval N]
         [--save-interval N] [--logdir DIR] [--restart RUN_DIR]
         [--synthetic-molecules N] [--export-torch OUT.pth] [--steps-per-call K]
-        [--device cuda|cpu] [--dp N | --halo N | --ep N | --dp-halo DP EP]
-        [--coordinator HOST:PORT --num-processes N --process-id I]
+        [--device cuda|cpu] [--dp N | --halo N | --ep N | --dp-halo DP EP |
+         --pp N [--pp-micro M]] [--coordinator HOST:PORT --num-processes N --process-id I]
 
     python -m torch.distributed.run --nproc-per-node N \
-        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N, --ep N
+        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N, --ep N, --pp N
     python -m torch.distributed.run --nproc-per-node 4 \
         -m gemnet_pytorch_tpu_torch.train --dp-halo 2 2
 
@@ -54,19 +55,28 @@ pads agreed over the whole group, and runs the dp x halo step
 (`parallel.hybrid`). `--ep N` (rung 2a, deprecated as in train.py) pads
 and row-partitions each batch in the prefetch threads, with chunk sizes
 the PadDims fix and the PadDims agreed across the ranks before each step,
-and runs the ep step (`parallel.ep`). Validation runs on the same group,
-except under `--ep`: the single-device eval on every rank, rank 0's
-metrics broadcast (train.py's else branch). Only rank 0 writes the log,
-the checkpoints, the best model and the export; the other ranks log to
+and runs the ep step (`parallel.ep`). `--pp N` (train.py:73-81, :228-237)
+builds rank s's `parallel.pp.PipelineStage` (the preamble and blocks s of
+N) and trains it with `parallel.pp.PPTrainer` on `--pp-micro M`
+microbatches a step (default 4N; one step is a single-device step on the
+M batches together, one step per call): every rank draws the same M
+batches, padded in the prefetch threads, and the ranks agree on the
+PadDims of the step's M batches before it (`PPBatches`: every rank runs
+the preamble of every microbatch). Validation runs on the same group,
+except under `--ep` and `--pp`: the single-device eval on every rank,
+rank 0's metrics broadcast (train.py's else branch; under `--pp` a
+monolithic model on each rank holds the merged EMA weights,
+`PPTrainer.merged_state_dict`). Only rank 0 writes the log, the
+checkpoints, the best model and the export; the other ranks log to
 sidecar directories and keep their plateau and early-stopping state in
-lockstep. Every rank resumes from rank 0's checkpoint. `run(config, dp=N,
-group=...)` takes a group the caller made (a gloo group on one card, as
-chip_smoke.py's phases 14 and 15 do).
+lockstep. Every rank resumes from rank 0's checkpoint (under `--pp` it
+holds every stage, gathered, and each rank takes its own at the same N).
+`run(config, dp=N, group=...)` takes a group the caller made (a gloo group
+on one card, as chip_smoke.py's phases 14 to 16 do).
 
-Not ported yet, and refused: `--pp`/`--pp-micro` (parallel/pp.py) and
-`--tp` (parallel/tp.py), in that order; and the `GEMNET_SWEEP_OVERRIDES`
-environment variable (a caller passes its overrides in `run`'s config dict
-instead).
+Not ported yet, and refused: `--tp` (parallel/tp.py); and the
+`GEMNET_SWEEP_OVERRIDES` environment variable (a caller passes its
+overrides in `run`'s config dict instead).
 """
 
 from __future__ import annotations
@@ -94,15 +104,15 @@ from .models.scaling import load_scales_from_json
 from .parallel import ep as ep_mod
 from .parallel import halo as halo_mod
 from .parallel import hybrid, mesh
+from .parallel import pp as pp_mod
 from .training import (
-    BestMetrics, Metrics, PlateauState, Trainer, make_writer, restore_checkpoint,
-    save_checkpoint, save_params,
+    BestMetrics, Metrics, PlateauState, Trainer, make_writer, read_checkpoint,
+    restore_checkpoint, save_checkpoint, save_params,
 )
 
 # flags of the repository's train.py this driver refuses, with their "unset"
 # value and the module of the JAX package a later slice ports for them
-UNPORTED_FLAGS = {"pp": (0, "parallel/pp.py"), "pp_micro": (0, "parallel/pp.py"),
-                  "tp": (0, "parallel/tp.py")}
+UNPORTED_FLAGS = {"tp": (0, "parallel/tp.py")}
 # the loop's 10-step logging boundary (train.py:397)
 LOG_INTERVAL = 10
 OVERRIDES = ("num_steps", "dataset", "batch_size", "logdir", "restart",
@@ -137,6 +147,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--dp-halo", type=int, nargs=2, default=None, metavar=("DP", "EP"),
                    help="DP data-parallel rows, each halo-partitioned over EP processes "
                    "(parallel/hybrid.py)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline over N processes, one a device: each holds 1/N of the "
+                   "block stack (parallel/pp.py PPTrainer)")
+    p.add_argument("--pp-micro", type=int, default=0,
+                   help="microbatches a --pp step (default 4*pp; the bubble is "
+                   "(N-1)/(M+N-1)); a step trains on pp_micro batches")
     p.add_argument("--coordinator", default=None,
                    help="host:port of process 0 (multi-process without torchrun)")
     p.add_argument("--num-processes", type=int, default=None)
@@ -153,8 +169,10 @@ def main(argv=None) -> dict:
              if getattr(args, k) != unset]
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to the PyTorch driver yet; later slices bring "
-            "them in the order --pp, --tp. --dp, --halo, --ep and --dp-halo run")
+            f"{', '.join(asked)}: not ported to the PyTorch driver yet; a later slice brings "
+            "it. --dp, --halo, --ep, --dp-halo and --pp run")
+    if args.pp_micro and not args.pp:
+        raise ValueError("--pp-micro is the microbatch count of --pp: pass --pp N with it")
     if os.environ.get("GEMNET_SWEEP_OVERRIDES"):
         raise NotImplementedError(
             "GEMNET_SWEEP_OVERRIDES is not read by the PyTorch driver: pass the overrides in "
@@ -171,9 +189,9 @@ def main(argv=None) -> dict:
         if val is not None:
             config[key] = val
     dp_halo = tuple(args.dp_halo) if args.dp_halo is not None else None
-    modes = (args.dp, args.halo, args.ep, dp_halo)
+    modes = (args.dp, args.halo, args.ep, dp_halo, args.pp)
     if sum(bool(m) for m in modes) > 1:
-        raise ValueError("pick one of --dp / --ep / --halo / --dp-halo")
+        raise ValueError("pick one of --dp / --ep / --halo / --dp-halo / --pp")
     device, group = args.device, None
     if any(modes) or args.coordinator:
         group = mesh.initialize_distributed(args.coordinator, args.num_processes,
@@ -184,7 +202,8 @@ def main(argv=None) -> dict:
     try:
         best = run(config, device=device, synthetic_molecules=args.synthetic_molecules,
                    export_torch=args.export_torch, steps_per_call=args.steps_per_call,
-                   dp=args.dp, halo=args.halo, ep=args.ep, dp_halo=dp_halo, group=group)
+                   dp=args.dp, halo=args.halo, ep=args.ep, dp_halo=dp_halo, pp=args.pp,
+                   pp_micro=args.pp_micro, group=group)
         if group is not None:
             torch.distributed.barrier(group)  # rank 0's checkpoint is written
         return best
@@ -223,23 +242,28 @@ def run_directory(tcfg, group=None) -> str:
 
 def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         export_torch: Optional[str] = None, steps_per_call: int = 1, dp: int = 0,
-        halo: int = 0, ep: int = 0, dp_halo: Optional[tuple] = None, group=None) -> dict:
+        halo: int = 0, ep: int = 0, dp_halo: Optional[tuple] = None, pp: int = 0,
+        pp_micro: int = 0, group=None) -> dict:
     """Train from a flat config dict (config.yaml's keys; missing keys take
     the ModelConfig/TrainConfig defaults), up to `steps_per_call` steps per
     host call (one device), or over `group` in one parallel mode:
     data-parallel (`dp`), halo-partitioned (`halo`), row-partitioned (`ep`,
-    rung 2a) over that many processes, or `dp_halo=(n_dp, n_ep)`, n_dp
+    rung 2a) or pipelined (`pp` stages, `pp_micro` microbatches a step,
+    default 4*pp) over that many processes, or `dp_halo=(n_dp, n_ep)`, n_dp
     data-parallel rows each halo-partitioned over n_ep processes; the
     group's world size must be the mode's count. Returns the best
     validation metrics as {f"{key}_best": value}, as the repository's
     train.py does."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call {steps_per_call} < 1")
-    modes = {"dp": dp, "halo": halo, "ep": ep, "dp_halo": dp_halo}
+    modes = {"dp": dp, "halo": halo, "ep": ep, "dp_halo": dp_halo, "pp": pp}
     asked = [k for k, v in modes.items() if v]
     if len(asked) > 1:
-        raise ValueError("pick one of dp / ep / halo / dp_halo")
-    n_par = int(np.prod(dp_halo)) if dp_halo else dp or halo or ep
+        raise ValueError("pick one of dp / ep / halo / dp_halo / pp")
+    if pp_micro and not pp:
+        raise ValueError("pp_micro without pp")
+    pp_micro = pp_micro or 4 * pp
+    n_par = int(np.prod(dp_halo)) if dp_halo else dp or halo or ep or pp
     if n_par:
         if group is None:
             raise ValueError(f"{asked[0]} runs over a process group: pass the one "
@@ -248,7 +272,7 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             raise ValueError(f"{asked[0]}={modes[asked[0]]} needs a group of {n_par} "
                              f"processes, this one has {mesh.world_size(group)}")
     elif group is not None:
-        raise ValueError("a process group without dp, ep, halo or dp_halo")
+        raise ValueError("a process group without dp, ep, halo, dp_halo or pp")
     rank, is_main = (mesh.rank(group), mesh.is_main(group)) if n_par else (0, True)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -285,13 +309,28 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     logging.info("pad dims: %s", provider.pad_dims)
 
     # ---- model/trainer (train.py:209-222) ----
-    model = GemNet(mcfg, generator=torch.Generator().manual_seed(tcfg.tfseed), device=device)
-    if mcfg.scale_file and os.path.exists(mcfg.scale_file):
-        load_scales_from_json(model, mcfg.scale_file)
-        logging.info("loaded scale factors from %s", mcfg.scale_file)
+    def new_model(cls=GemNet, **kw):
+        m = cls(mcfg, generator=torch.Generator().manual_seed(tcfg.tfseed), device=device, **kw)
+        if mcfg.scale_file and os.path.exists(mcfg.scale_file):
+            load_scales_from_json(m, mcfg.scale_file)
+            logging.info("loaded scale factors from %s", mcfg.scale_file)
+        return m
+
+    # --pp: this rank's stage, and a monolithic model for the eval, the
+    # best model and the export, which holds the merged weights
+    pp_trainer = eval_model = None
+    model = new_model(pp_mod.PipelineStage, stage=rank, num_stages=pp) if pp else new_model()
     logging.info("nParams: %d", sum(p.numel() for p in model.parameters()))
     trainer = Trainer(model, tcfg)
-    state = trainer.init_state()
+    if pp:
+        pp_trainer = pp_mod.PPTrainer(trainer, group, pp_micro)
+        state = pp_trainer.init_state()
+        eval_model = new_model()
+        eval_trainer = Trainer(eval_model, tcfg)
+        logging.info("pipeline over %d stages, %d microbatches; rank %d holds blocks %d-%d",
+                     pp, pp_micro, rank, model.start, model.stop - 1)
+    else:
+        state = trainer.init_state()
     plateau = PlateauState(factor=tcfg.decay_factor, patience=tcfg.decay_patience,
                            cooldown=tcfg.decay_cooldown)
     # the other ranks log to sidecar directories: they compute the same
@@ -307,7 +346,10 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     # ---- restore (train.py:375-382) ----
     step_init = 0
     if os.path.exists(ckpt_path):
-        state, plateau = restore_checkpoint(ckpt_path, state, plateau)
+        if pp:  # every stage's rows: this rank takes its own
+            state = pp_trainer.load_checkpoint_tensors(read_checkpoint(ckpt_path, plateau), state)
+        else:
+            state, plateau = restore_checkpoint(ckpt_path, state, plateau)
         best_metrics.restore()
         step_init = int(state.step)
         logging.info("restored checkpoint at step %d", step_init)
@@ -329,6 +371,17 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     elif ep:
         train_iter, val_iter, step_fn, val_step = _ep_mode(
             trainer, provider, mcfg, group)
+    elif pp:
+        batches = PPBatches(trainer, group, provider.pad_dims, mcfg.triplets_only)
+        train_iter = provider.get_dataset("train", raw_transform=batches.partition)
+        val_iter = provider.get_dataset("val", transform=eval_trainer.packer.pack)
+        pp_step = pp_trainer.train_step_fn()
+        step_fn = lambda state, items, lr: pp_step(state, batches.rows(items), lr)[0]  # noqa: E731
+        eval_fn = eval_trainer.eval_step_fn()
+
+        def val_step(state, row, use_ema=True):
+            m, c = eval_fn(None, row)
+            return halo_mod.broadcast_metrics(m, group), c
     else:
         train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
     if val_iter is None:
@@ -357,6 +410,8 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
                 state, _ = step_fn(state, [next(train_iter) for _ in range(dp_halo[0])], lr_eff)
             elif halo or ep:
                 state, _ = step_fn(state, next(train_iter), lr_eff)
+            elif pp:  # every rank draws the same M microbatches
+                state = step_fn(state, [next(train_iter) for _ in range(pp_micro)], lr_eff)
             elif k > 1:
                 state, _ = trainer.train_on_batches(state, [next(train_iter) for _ in range(k)],
                                                     lr_eff)
@@ -369,8 +424,8 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
 
             if step % LOG_INTERVAL == 0:
                 writer.add_scalar("lr_scale", plateau.lr_scale, step)
-            if step % tcfg.save_interval == 0 and is_main:
-                save_checkpoint(ckpt_path, state, plateau)
+            if step % tcfg.save_interval == 0:
+                _checkpoint(ckpt_path, state, plateau, is_main, pp_trainer)
             if step % tcfg.evaluation_interval != 0:
                 continue
 
@@ -389,7 +444,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             elif dp_halo:
                 _dp_halo_validation(trainer, state, val_step, val_iter, val_metrics,
                                     n_val_batches, dp_halo[0])
-            elif halo or ep:
+            elif halo or ep or pp:
+                if pp:  # the merged EMA weights into every rank's monolithic model
+                    eval_model.load_state_dict(pp_trainer.merged_state_dict(state, ema=True))
                 for _ in range(n_val_batches):
                     m, c = val_step(state, next(val_iter), use_ema=True)
                     trainer._update_metrics(val_metrics, m, c)
@@ -398,7 +455,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
                     trainer.test_on_batch(state, next(val_iter), val_metrics, use_ema=True)
             if val_metrics.loss < best_metrics.loss:
                 best_metrics.update(step, val_metrics)
-                if is_main:
+                if is_main and pp:
+                    save_params(best_path, eval_model)
+                elif is_main:
                     with trainer.weights(state, use_ema=True):
                         save_params(best_path, trainer.model)
             best_metrics.write(writer, step)
@@ -419,15 +478,28 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         val_iter.close()
 
     # ---- final checkpoint and export (train.py:610-623) ----
-    if is_main:
-        save_checkpoint(ckpt_path, state, plateau)
-        if export_torch:
+    _checkpoint(ckpt_path, state, plateau, is_main, pp_trainer)
+    if export_torch and pp:  # the merged EMA weights (collective)
+        eval_model.load_state_dict(pp_trainer.merged_state_dict(state, ema=True))
+    if is_main and export_torch:
+        if pp:
+            save_reference_checkpoint(export_torch, eval_model, mcfg)
+        else:
             with trainer.weights(state, use_ema=True):
                 save_reference_checkpoint(export_torch, model, mcfg)
-            logging.info("exported reference .pth to %s", export_torch)
+        logging.info("exported reference .pth to %s", export_torch)
     writer.close()
     logging.info("done; best: %s", dict(best_metrics.items()))
     return {f"{k}_best": v for k, v in best_metrics.items()}
+
+
+def _checkpoint(path: str, state, plateau, is_main: bool, pp_trainer=None) -> None:
+    """Rank 0 writes the checkpoint; under --pp every rank first sends its
+    stage's rows to it (`PPTrainer.checkpoint_tensors`, collective)."""
+    if pp_trainer is not None:
+        state = pp_trainer.checkpoint_tensors(state)
+    if is_main:
+        save_checkpoint(path, state, plateau)
 
 
 def _dp_validation(trainer, state, val_step, val_iter, val_metrics, n_batches: int, dp: int,
@@ -615,9 +687,7 @@ class EpBatches:
         agreed = mesh.agree_max(dims, self._group)
         if agreed != dims:
             with self._lock:  # the threads' dims may have grown meanwhile
-                self.dims = dataclasses.replace(self.dims, **{
-                    f.name: max(getattr(self.dims, f.name), getattr(agreed, f.name))
-                    for f in dataclasses.fields(agreed)})
+                self.dims = _dims_max(self.dims, agreed)
             logging.info("pad dims agreed across ranks: %s", agreed)
             part = self._build(raw, agreed)
         return self._trainer.packer.pack(ep_mod.local_ep_batch(part, self._rank))
@@ -651,6 +721,40 @@ def _ep_mode(trainer, provider, mcfg, group):
     return (train_iter, val_iter,
             lambda state, item, lr_scale: train_step(state, batches.row(item), lr_scale),
             eval_step)
+
+
+class PPBatches(EpBatches):
+    """--pp's batches. `partition(g, Z, R, E, F)` (EpBatches') pads each
+    batch in the provider's threads at the current PadDims, grown (headroom
+    1.25) where an outlier batch outgrows them. `rows(items)` runs on the
+    main thread before each step, on its M microbatches: the ranks agree on
+    PadDims that cover all M (`mesh.agree_max`: every rank runs the
+    preamble of every microbatch, and the pipeline's states and psums have
+    one shape), the microbatches behind them are padded again, and the M
+    are packed into one (M, total) stack of one layout."""
+
+    def _build(self, raw, dims):
+        g, Z, R, E, F = raw
+        return pad_batch(g, Z, R, dims, E=E, F=F, triplets_only=self._triplets_only)
+
+    def rows(self, items) -> np.ndarray:
+        dims = items[0][1]
+        for _, d, _ in items[1:]:
+            dims = _dims_max(dims, d)
+        agreed = mesh.agree_max(dims, self._group)
+        if agreed != self.dims:
+            with self._lock:  # the threads' dims may have grown meanwhile
+                self.dims = _dims_max(self.dims, agreed)
+        if any(d != agreed for _, d, _ in items):
+            logging.info("pad dims agreed across ranks: %s", agreed)
+        batches = [b if d == agreed else self._build(raw, agreed) for raw, d, b in items]
+        return np.stack([self._trainer.packer.pack(b) for b in batches])
+
+
+def _dims_max(a, b):
+    """The field-wise max of two PadDims."""
+    return dataclasses.replace(a, **{f.name: max(getattr(a, f.name), getattr(b, f.name))
+                                     for f in dataclasses.fields(a)})
 
 
 if __name__ == "__main__":

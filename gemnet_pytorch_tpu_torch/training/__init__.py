@@ -5,6 +5,6 @@ from .metrics import BestMetrics, JsonlWriter, MeanMetric, Metrics, make_writer 
 from .schedules import PlateauState, linear_warmup_exponential_decay  # noqa: F401
 from .trainer import Trainer, TrainState  # noqa: F401
 from .checkpoint import (  # noqa: F401
-    restore_checkpoint, restore_params, save_checkpoint, save_params,
+    read_checkpoint, restore_checkpoint, restore_params, save_checkpoint, save_params,
 )
 from .fit_scaling import fit_scaling_factors  # noqa: F401

@@ -69,14 +69,17 @@ def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
     return out
 
 
-def save_checkpoint(path: str, state: TrainState, plateau: Optional[PlateauState] = None) -> None:
-    """The state to `path`, the plateau to its sidecar. Both are written in
-    full to temporary names before either is renamed, so neither file is ever
-    torn; the two renames follow each other, the sidecar's first."""
+def save_checkpoint(path: str, state, plateau: Optional[PlateauState] = None) -> None:
+    """The state (a TrainState, or a dict of tensors by key: the pipeline's,
+    `parallel.pp.PPTrainer.checkpoint_tensors`) to `path`, the plateau to
+    its sidecar. Both are written in full to temporary names before either
+    is renamed, so neither file is ever torn; the two renames follow each
+    other, the sidecar's first."""
     path = _abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = _temp_name(path)
-    torch.save({k: _host(v) for k, v in state_tensors(state).items()}, tmp)
+    tensors = state if isinstance(state, dict) else state_tensors(state)
+    torch.save({k: _host(v) for k, v in tensors.items()}, tmp)
     if plateau is not None:
         sidecar = path + ".plateau.npz"
         tmp_sidecar = _temp_name(sidecar)
@@ -90,8 +93,7 @@ def restore_checkpoint(path: str, state: TrainState, plateau: Optional[PlateauSt
                        ) -> tuple[TrainState, Optional[PlateauState]]:
     """Copy the checkpoint at `path` into `state`'s own tensors (and the
     sidecar into `plateau`); returns them."""
-    path = _abspath(path)
-    saved = torch.load(path, map_location="cpu", weights_only=True)
+    saved = read_checkpoint(path, plateau)
     targets = state_tensors(state)
     if sorted(saved) != sorted(targets):
         raise KeyError(f"checkpoint {path} holds {sorted(saved)}, the state {sorted(targets)}")
@@ -101,10 +103,18 @@ def restore_checkpoint(path: str, state: TrainState, plateau: Optional[PlateauSt
             raise ValueError(f"checkpoint {key}: {src.dtype}{tuple(src.shape)}, "
                              f"state {dst.dtype}{tuple(dst.shape)}")
         dst.copy_(src)
+    return state, plateau
+
+
+def read_checkpoint(path: str, plateau: Optional[PlateauState] = None) -> dict:
+    """The tensors of the checkpoint at `path`, by key, on the CPU; its
+    sidecar, where there is one, is read into `plateau` (in place)."""
+    path = _abspath(path)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
     if plateau is not None and os.path.exists(path + ".plateau.npz"):
         with np.load(path + ".plateau.npz", allow_pickle=True) as data:
             plateau.load_state_dict({k: data[k].item() for k in data.files})
-    return state, plateau
+    return saved
 
 
 def save_params(path: str, model: torch.nn.Module) -> None:

@@ -48,19 +48,30 @@ class FlatOptState:
 def flatten_parameters(module: torch.nn.Module) -> torch.Tensor:
     """Copy `module`'s fp32 parameters into one contiguous buffer, in
     `parameters()` order, and rebind each parameter to its view of it."""
-    params = list(module.parameters())
-    for name, p in module.named_parameters():
+    return flatten_named(list(module.named_parameters()))
+
+
+def flatten_named(named: list[tuple[str, torch.nn.Parameter]]) -> torch.Tensor:
+    """`flatten_parameters` over a list of (name, parameter): a part of a
+    module's parameters (the pipeline's preamble or stage, `parallel/pp.py`)."""
+    for name, p in named:
         if p.dtype != torch.float32:
             raise TypeError(f"{name} is {p.dtype}: master parameters must be float32")
+    params = [p for _, p in named]
     flat = torch.cat([p.detach().reshape(-1) for p in params])
-    bind_parameters(module, flat)
+    bind_views(params, flat)
     return flat
 
 
 def bind_parameters(module: torch.nn.Module, flat: torch.Tensor) -> None:
     """Make every parameter of `module` a view of `flat` (no copy)."""
+    bind_views(list(module.parameters()), flat)
+
+
+def bind_views(params: list[torch.nn.Parameter], flat: torch.Tensor) -> None:
+    """Make each of `params` a view of `flat`, in order (no copy)."""
     off = 0
-    for p in module.parameters():
+    for p in params:
         n = p.numel()
         p.data = flat[off:off + n].view_as(p)
         off += n
@@ -124,6 +135,7 @@ def apply_update(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-7,
+    clip_scale: torch.Tensor | None = None,
 ) -> None:
     """One optimizer step on flat vectors, in place on p, ema and st.
 
@@ -133,10 +145,18 @@ def apply_update(
     post-increment count, and EMA follows the update. `lr_scale` (the
     plateau's multiplier) is a float or a 0-d fp32 tensor on p's device: the
     Trainer passes a device scalar it fills before each step, so a captured
-    step reads the value of each replay, not the one of its capture."""
+    step reads the value of each replay, not the one of its capture.
+
+    `clip_scale` replaces the global-norm clip with a multiplier the caller
+    computed, where the whole gradient spans several flat vectors and the
+    norm must be taken over all of them (the pipeline's preamble and stage
+    vectors, `parallel/pp.py`; JAX `training/flat_opt.py:123-141`)."""
     g = g * st.shared_scale
-    gnorm = torch.sqrt(torch.sum(g * g))
-    g = torch.where(gnorm < grad_clip_max, g, g * (grad_clip_max / gnorm))
+    if clip_scale is None:
+        gnorm = torch.sqrt(torch.sum(g * g))
+        g = torch.where(gnorm < grad_clip_max, g, g * (grad_clip_max / gnorm))
+    else:
+        g = g * clip_scale
 
     lr_t = learning_rate * schedule(st.count)
     st.count += 1

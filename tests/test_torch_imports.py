@@ -128,9 +128,10 @@ def test_package_imports_without_jax(tmp_path):
 def test_parallel_modules_are_checked():
     """The parallel package (process groups and 2-D meshes, the collectives,
     data parallelism, the halo and row-space edge partitions, the hybrid
-    meshes) is among the files checked above, and imports without JAX in
+    meshes, the pipeline) is among the files checked above, and imports without JAX in
     the fresh interpreter of `test_package_imports_without_jax`."""
     rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
     for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
-                 "parallel/dp.py", "parallel/halo.py", "parallel/ep.py", "parallel/hybrid.py"):
+                 "parallel/dp.py", "parallel/halo.py", "parallel/ep.py", "parallel/hybrid.py",
+                 "parallel/pp.py"):
         assert name in rel, name

@@ -181,8 +181,8 @@ def test_run_parallel_checkpoints_on_rank0_and_resumes(tmp_path, mode):
 
 
 def test_run_mode_checks():
-    """Two modes at once, a mode without a group, and a group without a
-    mode raise before anything runs."""
+    """Two modes at once, a mode without a group, a group without a mode,
+    and pp_micro without pp raise before anything runs."""
     from gemnet_pytorch_tpu_torch import train
 
     with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo"):
@@ -193,8 +193,14 @@ def test_run_mode_checks():
         train.run(dict(RUN), device="cpu", dp=2)
     with pytest.raises(ValueError, match="process group"):
         train.run(dict(RUN), device="cpu", dp_halo=(2, 2))
-    with pytest.raises(ValueError, match="without dp, ep, halo or dp_halo"):
+    with pytest.raises(ValueError, match="without dp, ep, halo, dp_halo or pp"):
         train.run(dict(RUN), device="cpu", group=object())
+    with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo / pp"):
+        train.run(dict(RUN), device="cpu", pp=2, halo=2)
+    with pytest.raises(ValueError, match="process group"):
+        train.run(dict(RUN), device="cpu", pp=2)
+    with pytest.raises(ValueError, match="pp_micro without pp"):
+        train.run(dict(RUN), device="cpu", pp_micro=4)
 
 
 def test_run_refuses_ep_axis_alone(tmp_path):
@@ -213,17 +219,22 @@ def test_run_refuses_ep_axis_alone(tmp_path):
                                   ["--pp-micro", "4"], ["--tp", "2"]],
                          ids=["ep", "dp-halo", "pp", "pp-micro", "tp"])
 def test_main_still_refuses(argv, monkeypatch):
-    """Each flag a later slice ports (--pp, --pp-micro, --tp) raises, and the
-    message names its module of the JAX package. --ep and --dp-halo are
-    ported: they parse and reach `train.run` with the mode and the process
-    group (here stand-ins; tests/test_torch_ep.py and
-    tests/test_torch_hybrid.py run them on gloo ranks)."""
+    """The flag a later slice ports (--tp) raises, and the message names its
+    module of the JAX package; --pp-micro without --pp raises (it is the
+    microbatch count of --pp). --ep, --dp-halo and --pp are ported: they
+    parse and reach `train.run` with the mode and the process group (here
+    stand-ins; tests/test_torch_ep.py, tests/test_torch_hybrid.py and
+    tests/test_torch_pp.py run them on gloo ranks)."""
     import torch.distributed as dist
 
     from gemnet_pytorch_tpu_torch import train
 
-    if argv[0] in ("--pp", "--pp-micro", "--tp"):
-        with pytest.raises(NotImplementedError, match=r"parallel/(pp|tp)\.py"):
+    if argv[0] == "--tp":
+        with pytest.raises(NotImplementedError, match=r"parallel/tp\.py"):
+            train.main(argv + ["--device", "cpu"])
+        return
+    if argv[0] == "--pp-micro":
+        with pytest.raises(ValueError, match="--pp-micro .* --pp N"):
             train.main(argv + ["--device", "cpu"])
         return
     group, reached = object(), {}
@@ -238,4 +249,6 @@ def test_main_still_refuses(argv, monkeypatch):
     monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: None)
     assert train.main(argv + ["--device", "cpu"]) == {"loss_best": 1.0}
     assert reached["group"] is group
-    assert (reached["ep"], reached["dp_halo"]) == ((2, None) if argv[0] == "--ep" else (0, (2, 2)))
+    assert (reached["ep"], reached["dp_halo"], reached["pp"]) == {
+        "--ep": (2, None, 0), "--dp-halo": (0, (2, 2), 0), "--pp": (0, None, 2)}[argv[0]]
+    assert reached["pp_micro"] == 0  # run() takes 4 * pp

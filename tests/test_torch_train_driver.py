@@ -181,19 +181,36 @@ def test_plateau_timing_and_early_stopping(tmp_path, monkeypatch):
     ([], {"GEMNET_SWEEP_OVERRIDES": "{}"}),
 ], ids=["dp", "halo", "dp-halo", "pp", "tp", "coordinator", "sweep"])
 def test_main_refuses_unported(monkeypatch, argv, env):
-    """What the driver still refuses, before any process group starts: the
-    modes later slices port (--pp, --pp-micro, --tp), also beside the ported
-    --dp, --halo, --dp-halo and --coordinator, which the message does not
-    name (tests/test_torch_parallel_driver.py, test_torch_ep.py and
-    test_torch_hybrid.py run those), two modes at once (--dp with the
-    ported --ep: "pick one"), and the sweep variable."""
+    """What the driver refuses, before any process group starts: the mode a
+    later slice ports (--tp), also beside the ported --halo, which the
+    message does not name; two modes at once (--dp with --ep, --dp-halo
+    with --pp: "pick one"); --pp-micro without --pp (beside --coordinator);
+    and the sweep variable. --pp alone is ported: it parses and reaches
+    `train.run` with its process group (a stand-in here;
+    tests/test_torch_pp.py runs it on gloo ranks)."""
+    import torch.distributed as dist
+
     from gemnet_pytorch_tpu_torch import train
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "--ep" in argv:
-        with pytest.raises(ValueError, match="pick one of --dp / --ep / --halo / --dp-halo"):
+    if "--ep" in argv or "--dp-halo" in argv:
+        with pytest.raises(ValueError,
+                           match="pick one of --dp / --ep / --halo / --dp-halo / --pp"):
             train.main(argv + ["--device", "cpu"])
+        return
+    if "--pp-micro" in argv:
+        with pytest.raises(ValueError, match="--pp-micro .* --pp N"):
+            train.main(argv + ["--device", "cpu"])
+        return
+    if argv == ["--pp", "2"]:
+        group, reached = object(), {}
+        monkeypatch.setattr(train.mesh, "initialize_distributed", lambda *a, **k: group)
+        monkeypatch.setattr(train, "run", lambda config, **kw: reached.update(kw) or {})
+        monkeypatch.setattr(dist, "barrier", lambda *a, **k: None)
+        monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: None)
+        train.main(argv + ["--device", "cpu"])
+        assert reached["group"] is group and reached["pp"] == 2
         return
     with pytest.raises(NotImplementedError) as err:
         train.main(argv + ["--device", "cpu"])
