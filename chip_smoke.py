@@ -171,13 +171,35 @@ Phases:
      ranks: E/F at 4 stages, and the 2x2 dp x pp loss and gradient against
      the single device; (e) `train.run(pp=2, pp_micro=4)` on (c)'s ranks:
      4 steps, a resume to 6 with the export, rank 0's checkpoint holding
-     both stages.
+     both stages;
+ 17. tensor parallelism (`parallel/tp.py`), with deterministic algorithms
+     for the gates: (a) on an NCCL group of one, the tp step at bench-small
+     (fp32, tree mode): its launches the single device's (TRAIN_LAUNCHES)
+     and its collectives the gather of the weights and two all-reduces,
+     CAPTURED_STEPS captured steps against its eager run (bit-equal where
+     two eager runs are) and one against the captured single-device
+     tree-mode step (phase 14's 1-shard gates), ms and device ms of both
+     captured steps; one spawn of 4 gloo ranks on cuda:0: (b) the first 2,
+     as a tp group of their own, at bench-small: E/F in fp32
+     (tests/test_halo.py's gates), bf16 and "high" against the
+     single-device predicts, the gradient of tests/test_edge_partition.py's
+     loss (1e-4 + 1e-3 max|g|), TP_STEPS steps against the single-device
+     tree-mode steps (phase 14's halo gates after the first and the last),
+     the first step's launches pinned and its collectives and bytes, every
+     rank's collectives in one order, the replicated parameters bit-equal
+     on both ranks; (c) one bench-large eager fp32 tree-mode step a rank:
+     parameters, state bytes (parameters, EMA, moments), peak MiB and ms a
+     rank beside the single device's; (d) all 4 ranks: E/F at tp = 4, and
+     one 2x2 dp x tp step against the single device on all of bench-small;
+     (e) `train.run(tp=2)` on (b)'s ranks: 4 steps, a resume to 6 with the
+     export, rank 0's checkpoint in the single device's tree-mode layout.
 
 The last lines are the `{"kernels": [...]}` record (every kernel at both
 batches' shapes, its launches on each path: serving, training, probe,
 bench and graph, the launches the captured graphs of phase 11 hold,
 rest, phase 12's, stack, phase 13's, parallel, phase 14's, ep, phase
-15's, and pp, phase 16's, their gloo ranks' included), the
+15's, pp, phase 16's, and tp, phase 17's, their gloo ranks' included;
+the parallel phases' single-device reference runs left out), the
 card's name and power limit, and `{"ok": true, "device": {...}}`.
 Any failed check exits non-zero before those lines. Without a CUDA device
 it fails at once.
@@ -186,6 +208,7 @@ it fails at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import json
 import os
@@ -394,6 +417,16 @@ PP_LARGE_MICRO = 4
 PP_WIDE = 4
 PP_MESH = (2, 2)
 PP_DRIVER_MICRO = 4
+# phase 17: tensor parallelism (`parallel/tp.py`). (a) the NCCL group of
+# one; one spawn of TP_WIDE gloo ranks: (b) the first TP_RANKS of them on
+# bench-small, TP_STEPS steps at test_halo.py's settings in tree mode
+# (TP_TRAIN), (c) bench-large and (e) `train.run(tp=TP_RANKS)`; then (d)
+# all TP_WIDE: tp = TP_WIDE and the TP_MESH dp x tp mesh
+TP_RANKS = 2
+TP_WIDE = 4
+TP_MESH = (2, 2)
+TP_STEPS = 3
+TP_TRAIN = dict(HALO_TRAIN, flat_optimizer=False)
 
 # benzonitrile-like C7NH5 geometry (examples/predict.py)
 BENZONITRILE_Z = np.array([6, 6, 6, 6, 6, 6, 6, 7, 1, 1, 1, 1, 1])
@@ -435,6 +468,40 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi unavailable"
+
+
+def launches_of(fn):
+    """(fn(), the kernel launches it made, by entry)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    before = collections.Counter(_cuda.kernel_launches())
+    out = fn()
+    torch.cuda.synchronize()
+    census = collections.Counter(_cuda.kernel_launches())
+    census.subtract(before)
+    return out, dict(+census)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """A block whose kernel launches stay out of the launch counters: a
+    parallel phase's single-device reference runs, which are not the path
+    the phase counts (its counters were set to 0 before it)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    saved = collections.Counter(_cuda.LAUNCHES)
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.clear()
+        _cuda.LAUNCHES.update(saved)
 
 
 # ---------------------------------------------------------------- kernels
@@ -2063,7 +2130,6 @@ def remat(cfg, mols, device) -> dict:
     import torch
 
     from gemnet_pytorch_tpu_torch.data import to_torch
-    from gemnet_pytorch_tpu_torch.ops import _cuda
 
     batch_np, _, _ = bench.padded_batch(cfg, mols)
     runs = {}
@@ -2074,12 +2140,8 @@ def remat(cfg, mols, device) -> dict:
                                           "float32", device)
             start, p0 = state_copy(state), state.params.clone()
             if on:
-                before = collections.Counter(_cuda.kernel_launches())
-                trainer.train_step(state, to_torch(batch_np, device), 1.0)
-                torch.cuda.synchronize()
-                eager = collections.Counter(_cuda.kernel_launches())
-                eager.subtract(before)
-                eager = dict(+eager)
+                _, eager = launches_of(
+                    lambda: trainer.train_step(state, to_torch(batch_np, device), 1.0))
             words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
             step_fn = trainer.train_step_fn()
             runs[on] = five_steps(trainer, state, start, p0,
@@ -2121,28 +2183,24 @@ def xla(cfg, mols, device) -> None:
     the card: the bench-small predict raises, with no kernel launched."""
     import dataclasses
 
-    import torch
-
     from gemnet_pytorch_tpu_torch.data import to_torch
-    from gemnet_pytorch_tpu_torch.ops import _cuda
 
     batch = to_torch(bench.padded_batch(cfg, mols)[0], device)
     model = make_model(dataclasses.replace(cfg, bilinear_implementation="xla"), device)
-    torch.cuda.synchronize()
-    before = collections.Counter(_cuda.kernel_launches())
-    try:
-        predict(model, batch)
-        message = None
-    except ValueError as err:
-        message = str(err)
-    torch.cuda.synchronize()
-    count = collections.Counter(_cuda.kernel_launches())
-    count.subtract(before)
+
+    def attempt():
+        try:
+            predict(model, batch)
+        except ValueError as err:
+            return str(err)
+        return None
+
+    message, count = launches_of(attempt)
     log(f"  bilinear_implementation='xla' on the card, bench-small predict: {message!r}; "
-        f"launches {dict(+count)}")
+        f"launches {count}")
     check(message is not None and "'xla'" in message,
           "bilinear_implementation='xla' ran on the card: no plain version may run there")
-    check(not +count, f"'xla' on the card launched {dict(+count)} before it raised")
+    check(not count, f"'xla' on the card launched {count} before it raised")
 
 
 def stack_phase(cfg, mols, device, workdir: str, step_ms=None, fwd_ms=None) -> dict:
@@ -2286,19 +2344,21 @@ def dp_nccl(cfg, mols, device, group) -> dict:
     for dt in ("float32", "bfloat16"):
         runs, fns = {}, {}
         for kind in ("single", "dp"):
-            trainer, state = make_trainer(cfg, dt, device)
-            start, p0 = state_copy(state), state.params.clone()
-            words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
-            step_fn = (trainer.train_step_fn() if kind == "single"
-                       else dp.make_dp_train_step(trainer, group))
-            if kind == "dp":
-                eager = collectives_of(lambda: trainer.train_step(
-                    state, trainer._device_batch(batch_np), 1.0, group))
-                capture = collectives_of(lambda: step_fn(state, words, 1.0))
-                replay = collectives_of(lambda: step_fn(state, words, 1.0))
-            runs[kind] = five_steps(trainer, state, start, p0,
-                                    lambda: step_fn(state, words, 1.0)[1])
-            fns[kind] = (trainer, state, step_fn, words)
+            # the single-device reference's launches are not the dp path's
+            with uncounted() if kind == "single" else contextlib.nullcontext():
+                trainer, state = make_trainer(cfg, dt, device)
+                start, p0 = state_copy(state), state.params.clone()
+                words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
+                step_fn = (trainer.train_step_fn() if kind == "single"
+                           else dp.make_dp_train_step(trainer, group))
+                if kind == "dp":
+                    eager = collectives_of(lambda: trainer.train_step(
+                        state, trainer._device_batch(batch_np), 1.0, group))
+                    capture = collectives_of(lambda: step_fn(state, words, 1.0))
+                    replay = collectives_of(lambda: step_fn(state, words, 1.0))
+                runs[kind] = five_steps(trainer, state, start, p0,
+                                        lambda: step_fn(state, words, 1.0)[1])
+                fns[kind] = (trainer, state, step_fn, words)
         diffs, equal = run_diffs(runs["dp"], runs["single"], p0)
         trainer, state, step_fn, words = fns["dp"]
         log(f"  (a) {dt}: {CAPTURED_STEPS} captured dp steps (NCCL, world size 1) vs as many "
@@ -2322,7 +2382,8 @@ def dp_nccl(cfg, mols, device, group) -> dict:
             sstate.ema_params.mul_(1.01)
             state.ema_params.copy_(sstate.ema_params)
             state.params.copy_(sstate.params)
-            ref, _ = strainer.eval_step_fn()(sstate, fns["single"][3], use_ema=True)
+            with uncounted():
+                ref, _ = strainer.eval_step_fn()(sstate, fns["single"][3], use_ema=True)
             got, _ = dp.make_dp_eval_step(trainer, group)(state, words, use_ema=True)
             rel = max(abs(float(got[k]) - float(ref[k])) / abs(float(ref[k])) for k in ref)
             log(f"  (a) captured dp eval of the EMA weights vs single-device: max rel {rel:.3e}")
@@ -2374,9 +2435,9 @@ def halo_nccl(cfg, mols, device, group) -> None:
     state_restore(state, start)
     metrics = captured()
     got = step_outputs(state, metrics)
-    strainer, sstate = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
-    smetrics = strainer.train_step_fn()(sstate, batch_np, 1.0)[1]
-    ref = step_outputs(sstate, smetrics)
+    with uncounted():
+        strainer, sstate = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
     halo_step_gates("(e) captured halo step (1 shard) vs the captured single-device step",
                     got, ref, host(p0))
     del trainer, state, strainer, sstate, captured_fn, words, tensors
@@ -2447,13 +2508,8 @@ def parallel_rank(rank: int, world: int, workdir: str) -> None:
     out["halo_small"] = (host(E), host(F))
     trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
     local = halo.local_halo_batch(part, rank)
-    torch.cuda.synchronize()
-    before = collections.Counter(_cuda.kernel_launches())
-    state, metrics = halo.make_halo_train_step(trainer, group)(state, local, 1.0)
-    torch.cuda.synchronize()
-    census = collections.Counter(_cuda.kernel_launches())
-    census.subtract(before)
-    out["halo_census"] = dict(+census)
+    (state, metrics), out["halo_census"] = launches_of(
+        lambda: halo.make_halo_train_step(trainer, group)(state, local, 1.0))
     out["halo_step"] = step_outputs(state, metrics)
     out["shapes"] = {k: tuple(v.shape) for k, v in local.items()
                      if k in ("id_c", "id3_reduce_ca", "id4_reduce_ca", "edge_halo_send_idx",
@@ -2586,7 +2642,8 @@ def gloo_ranks(cfg, mols, large_mols, device, workdir: str, power: str):
     launches, by kernel and shape, summed; the bench-large numbers)."""
     import dataclasses
 
-    ref = single_device_references(cfg, mols, large_mols, device)
+    with uncounted():
+        ref = single_device_references(cfg, mols, large_mols, device)
     t0 = time.perf_counter()
     results = spawn_ranks(workdir, dict(device=str(device), cfg=dataclasses.asdict(cfg),
                                         mols=mols, large_mols=large_mols))
@@ -2749,12 +2806,27 @@ def grad_gates(label: str, got, ref, model) -> None:
     check(worst <= 1.0, f"{label}: the gradients disagree with the single device")
 
 
-def one_shard_step(label: str, trainer, state, local, eager, captured_fn, batch_np, device):
+def single_step_ref(cfg, batch_np, device, train_kw=HALO_TRAIN):
+    """The outputs of one captured single-device fp32 step at `train_kw`
+    from seed 0's weights (`one_shard_step`'s reference), its launches left
+    out of the counts."""
+    import torch
+
+    with uncounted():
+        strainer, sstate = make_trainer(cfg, "float32", device, train_kw=train_kw)
+        ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
+    del strainer, sstate
+    torch.cuda.empty_cache()
+    return ref
+
+
+def one_shard_step(label: str, trainer, state, local, eager, captured_fn, ref, device):
     """Phase 15 (a): CAPTURED_STEPS captured steps of a partitioned model at
     one shard under NCCL against its eager steps from one state (bit-equal
-    where two eager runs are, else phase 11's gates) and one against the
-    captured single-device step (phase 14's 1-shard gates). Returns the
-    collectives and bytes of one eager step."""
+    where two eager runs are, else phase 11's gates) and one against `ref`,
+    the captured single-device step's outputs from the same weights
+    (`single_step_ref`; phase 14's 1-shard gates). Returns the collectives
+    and bytes of one eager step."""
     import torch
 
     start, p0 = state_copy(state), state.params.clone()
@@ -2776,11 +2848,9 @@ def one_shard_step(label: str, trainer, state, local, eager, captured_fn, batch_
     _, calls, nbytes = collectives_and_bytes(eager)
     state_restore(state, start)
     got = step_outputs(state, captured())
-    strainer, sstate = make_trainer(trainer.model.cfg, "float32", device, train_kw=HALO_TRAIN)
-    ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
     halo_step_gates(f"(a) captured {label} step (1 shard) vs the captured single-device step",
                     got, ref, host(p0))
-    del strainer, sstate, words
+    del words
     torch.cuda.empty_cache()
     return calls, nbytes
 
@@ -2795,6 +2865,7 @@ def ep_nccl(cfg, mols, device, group) -> dict:
     from gemnet_pytorch_tpu_torch.parallel import ep, halo, hybrid, mesh
 
     batch_np, _, _ = bench.padded_batch(cfg, mols)
+    ref = single_step_ref(cfg, batch_np, device)
     out = {}
     local = ep.local_ep_batch(ep.partition_batch(batch_np, 1), 0)
     trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
@@ -2802,7 +2873,7 @@ def ep_nccl(cfg, mols, device, group) -> dict:
     out["ep"] = one_shard_step(
         "ep", trainer, state, local,
         lambda: trainer.train_step(state, tensors, 1.0, model=em)[1],
-        ep.make_ep_train_step(trainer, group), batch_np, device)
+        ep.make_ep_train_step(trainer, group), ref, device)
     del trainer, state, em, tensors
     hmesh = mesh.make_hybrid_mesh(1, 1, group)
     check(mesh.backend(hmesh.dp) == "nccl" and mesh.backend(hmesh.ep) == "nccl",
@@ -2815,7 +2886,7 @@ def ep_nccl(cfg, mols, device, group) -> dict:
         "1x1 dp x halo", trainer, state, local,
         lambda: trainer.train_step(state, tensors, 1.0, group=hmesh.dp, model=hm,
                                    grad_group=hmesh.world)[1],
-        hybrid.make_dp_halo_train_step(trainer, hmesh), batch_np, device)
+        hybrid.make_dp_halo_train_step(trainer, hmesh), ref, device)
     for kind, (calls, nbytes) in out.items():
         log(f"  (a) collectives of one eager {kind} step at 1 shard: {calls}, "
             f"{sum(nbytes.values()) / 1e6:.2f} MB")
@@ -2965,13 +3036,9 @@ def ep_rank(rank: int, world: int, workdir: str) -> None:
     del model, grads
     trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
     step = ep.make_ep_train_step(trainer, group)
-    torch.cuda.synchronize()
-    before = collections.Counter(_cuda.kernel_launches())
-    (state, metrics), calls, nbytes = collectives_and_bytes(lambda: step(state, local, 1.0))
-    torch.cuda.synchronize()
-    census = collections.Counter(_cuda.kernel_launches())
-    census.subtract(before)
-    out["census"], out["collectives"] = dict(+census), (calls, nbytes)
+    ((state, metrics), census), calls, nbytes = collectives_and_bytes(
+        lambda: launches_of(lambda: step(state, local, 1.0)))
+    out["census"], out["collectives"] = census, (calls, nbytes)
     out["step"] = step_outputs(state, metrics)
     out["shapes"] = {k: tuple(v.shape) for k, v in local.items()
                      if k in ("id_c", "id3_reduce_ca", "id4_reduce_ca")}
@@ -3105,7 +3172,8 @@ def ep_gloo(cfg, mols, large_mols, device, workdir: str, power: str) -> tuple:
 
     from gemnet_pytorch_tpu_torch.models import GemNet
 
-    ref = ep_references(cfg, mols, large_mols, device)
+    with uncounted():
+        ref = ep_references(cfg, mols, large_mols, device)
     t0 = time.perf_counter()
     results = spawn_ranks(os.path.join(workdir, "ep"), dict(
         device=str(device), cfg=dataclasses.asdict(cfg), mols=mols, large_mols=large_mols),
@@ -3166,7 +3234,8 @@ def hybrid_gloo(cfg, mols, device, workdir: str) -> tuple:
 
     from gemnet_pytorch_tpu_torch.models import GemNet
 
-    ref = hybrid_references(cfg, mols, device)
+    with uncounted():
+        ref = hybrid_references(cfg, mols, device)
     world = HYBRID_MESH[0] * HYBRID_MESH[1]
     t0 = time.perf_counter()
     results = spawn_ranks(os.path.join(workdir, "hybrid"), dict(
@@ -3192,11 +3261,12 @@ def hybrid_gloo(cfg, mols, device, workdir: str) -> tuple:
         check(res["eval"] == results[0]["eval"], "(d) the ranks' dp x halo evals differ")
     # the eval against the single-device eval of the same (rank 0's) weights
     (loss, params, ema, _), _, _ = results[0]["dp_halo"]
-    trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
-    state.params.copy_(torch.from_numpy(params))
-    state.ema_params.copy_(torch.from_numpy(ema))
-    batch_np, _, _ = bench.padded_batch(cfg, mols)
-    want, counts = trainer.eval_step_fn()(state, batch_np, use_ema=True)
+    with uncounted():
+        trainer, state = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        state.params.copy_(torch.from_numpy(params))
+        state.ema_params.copy_(torch.from_numpy(ema))
+        batch_np, _, _ = bench.padded_batch(cfg, mols)
+        want, counts = trainer.eval_step_fn()(state, batch_np, use_ema=True)
     got, got_counts = results[0]["eval"]
     rel = max(abs(got[k] - float(want[k])) / abs(float(want[k])) for k in want)
     log(f"  (d) dp x halo eval of the EMA weights vs the single-device eval of them: max rel "
@@ -3331,7 +3401,6 @@ def pp_nccl(cfg, mols, device, group, names) -> tuple:
     import torch
 
     from gemnet_pytorch_tpu_torch.data import to_torch
-    from gemnet_pytorch_tpu_torch.ops import _cuda
     from gemnet_pytorch_tpu_torch.parallel import pp
 
     quarters = padded_parts(cfg, mols, PP_NCCL_MICRO)
@@ -3372,24 +3441,20 @@ def pp_nccl(cfg, mols, device, group, names) -> tuple:
     check(ca[0] <= CAPTURED_LOSS_RTOL and ca[1] <= CAPTURED_UPDATE_REL_L2,
           "(a) the captured pp step disagrees with its eager run")
     restore()
-    torch.cuda.synchronize()
-    before = collections.Counter(_cuda.kernel_launches())
-    _, calls, nbytes = collectives_and_bytes(eager)
-    torch.cuda.synchronize()
-    census = collections.Counter(_cuda.kernel_launches())
-    census.subtract(before)
+    (_, census), calls, nbytes = collectives_and_bytes(lambda: launches_of(eager))
     want = pp_launches(cfg, 1, PP_NCCL_MICRO)
-    log(f"  (a) one eager pp step launched {dict(+census)} (expected {want}), issued {calls} "
+    log(f"  (a) one eager pp step launched {census} (expected {want}), issued {calls} "
         f"({sum(nbytes.values()) / 1e6:.2f} MB)")
-    check(dict(+census) == want, "(a) the pp step's launches are not the pinned count")
+    check(census == want, "(a) the pp step's launches are not the pinned count")
     restore()
     p0_mono = pp_flat({n: t.numpy() for n, t in ppt.merged_state_dict(state).items()}, names)
     got = pp_step_outputs(ppt, state, captured(), names)
-    strainer, sstate = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
-    check(np.array_equal(host(sstate.params), p0_mono),
-          "(a) the stage's weights are not the single device's")
-    batch_np, _, _ = bench.padded_batch(cfg, mols)
-    ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
+    with uncounted():
+        strainer, sstate = make_trainer(cfg, "float32", device, train_kw=HALO_TRAIN)
+        check(np.array_equal(host(sstate.params), p0_mono),
+              "(a) the stage's weights are not the single device's")
+        batch_np, _, _ = bench.padded_batch(cfg, mols)
+        ref = step_outputs(sstate, strainer.train_step_fn()(sstate, batch_np, 1.0)[1])
     halo_step_gates(f"(a) captured pp step ({PP_NCCL_MICRO} quarters, 1 stage) vs the captured "
                     "single-device step on bench-small", got, ref, p0_mono)
     del strainer, sstate, ppt, state
@@ -3539,15 +3604,10 @@ def pp_rank(rank: int, world: int, workdir: str) -> None:
     out["grad"] = ({k: host(g) for k, g in grads.items()}, seq)
     del stage, grads
     ppt, state = pp_trainer(cfg, device, group, PP_MICRO, train_kw=HALO_TRAIN)
-    torch.cuda.synchronize()
-    before = collections.Counter(_cuda.kernel_launches())
     with collectives.recorded() as seq:
-        (state, metrics, _), calls, nbytes = collectives_and_bytes(
-            lambda: ppt.train_step(state, eighths, 1.0))
-    torch.cuda.synchronize()
-    census = collections.Counter(_cuda.kernel_launches())
-    census.subtract(before)
-    out["census"], out["collectives"], out["seq"] = dict(+census), (calls, nbytes), seq
+        ((state, metrics, _), census), calls, nbytes = collectives_and_bytes(
+            lambda: launches_of(lambda: ppt.train_step(state, eighths, 1.0)))
+    out["census"], out["collectives"], out["seq"] = census, (calls, nbytes), seq
     out["step"] = pp_step_outputs(ppt, state, metrics, spec["names"])
     out["shapes"] = {k: tuple(v.shape) for k, v in eighths[0].items()
                      if k in ("id_c", "id3_reduce_ca", "id4_reduce_ca")}
@@ -3646,7 +3706,8 @@ def pp_gloo(cfg, mols, large_mols, device, workdir: str, power: str, names,
 
     from gemnet_pytorch_tpu_torch.models import GemNet
 
-    ref = pp_references(cfg, mols, device)
+    with uncounted():
+        ref = pp_references(cfg, mols, device)
     model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     spec = dict(device=str(device), cfg=dataclasses.asdict(cfg), mols=mols,
                 large_mols=large_mols, names=names)
@@ -3766,6 +3827,449 @@ def pp_phase(cfg, mols, device, workdir: str, power: str, large_mols=None,
     torch.cuda.synchronize()
     launches.update(_cuda.LAUNCHES)
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------- phase 17
+
+def tp_trainer(cfg, device, group, compute_dtype: str = "float32", train_kw=TP_TRAIN):
+    """(TPTrainer, its state) of this rank's TPModel of GemNet(cfg) over
+    `group` (a process group or a dp x tp mesh), weights from seed 0 (those
+    of `make_trainer`), the per-tensor optimizer at `train_kw`."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.config import TrainConfig
+    from gemnet_pytorch_tpu_torch.parallel import tp
+
+    model = tp.TPModel(dataclasses.replace(cfg, compute_dtype=compute_dtype), group,
+                       generator=torch.Generator().manual_seed(0), device=device)
+    trainer = tp.TPTrainer(model, TrainConfig(**{"warmup_steps": 1, **train_kw}))
+    return trainer, tp.init_tp_state(trainer)
+
+
+def tp_flat(trainer, state, names, ema: bool = False) -> np.ndarray:
+    """The merged parameters (or EMA) in the single device's flat order
+    (collective over the tp group)."""
+    from gemnet_pytorch_tpu_torch.parallel import tp
+
+    merged = tp.merged_state_dict(trainer, state, ema=ema)
+    return pp_flat({n: merged[n].numpy() for n in names}, names)
+
+
+def tp_step_outputs(trainer, state, metrics, names):
+    """(loss, parameters, EMA, accumulators) after a tp step, the parameters
+    and EMA merged into the single device's order."""
+    return (float(metrics["loss"]), tp_flat(trainer, state, names),
+            tp_flat(trainer, state, names, ema=True), host(state.metric_acc))
+
+
+def tp_nccl(cfg, mols, device, group) -> dict:
+    """Phase 17 (a): the tp step on the NCCL group of one, fp32, bench-small:
+    its launches (the single device's, TRAIN_LAUNCHES) and collectives (the
+    gather of the weights, the replicated gradients' all-reduce, the clip's)
+    from one eager step; CAPTURED_STEPS captured steps against its eager
+    steps (bit-equal where two eager runs are) and one against the captured
+    single-device tree-mode step (phase 14's 1-shard gates); ms and device ms
+    of the captured tp step beside the captured single-device one, whose
+    launches stay out of the counts."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.parallel import tp
+
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    timing = {}
+    with uncounted():
+        strainer, sstate = make_trainer(cfg, "float32", device, train_kw=TP_TRAIN)
+        sstep = strainer.train_step_fn()
+        words = strainer.packer.to_device(strainer.packer.pack(batch_np), device)
+        ref = step_outputs(sstate, sstep(sstate, words, 1.0)[1])  # the capture
+        timing["single"] = time_captured(
+            lambda: sstep(sstate, words, 1.0)[1]["loss"], strainer._captured[1].graph,
+            "(a) captured single-device tree-mode step, bench-small", 0)
+    del strainer, sstate, sstep, words
+    torch.cuda.empty_cache()
+    trainer, state = tp_trainer(cfg, device, group)
+    tensors = to_torch(batch_np, device)
+    eager = lambda: trainer.train_step(state, tensors, 1.0)[1]  # noqa: E731
+    start = state_copy(state)
+    _, census = launches_of(eager)
+    state_restore(state, start)
+    want = TRAIN_LAUNCHES["float32"]
+    log(f"  (a) one eager tp step at 1 rank launched {census} (expected the single device's "
+        f"{want})")
+    check(census == want, "(a) the tp step's launches are not the single device's")
+    step = tp.make_tp_train_step(trainer)
+    calls, nbytes = one_shard_step("tp", trainer, state, batch_np, eager, step, ref, device)
+    log(f"  (a) collectives of one eager tp step at 1 rank: {calls}, bytes {nbytes}")
+    check(calls == {("all_gather", "nccl"): 1, ("all_reduce", "nccl"): 2},
+          "(a) the tp step's collectives are not one gather and two all-reduces")
+    words = trainer.packer.to_device(trainer.packer.pack(batch_np), device)
+    timing["tp"] = time_captured(lambda: step(state, words, 1.0)[1]["loss"],
+                                 trainer._captured[1].graph,
+                                 "(a) captured tp step (NCCL, 1 rank), bench-small", 0)
+    if timing["tp"]["device_ms"] is not None and timing["single"]["device_ms"] is not None:
+        log(f"  (a) captured tp step at 1 rank minus the single device's: "
+            f"{timing['tp']['device_ms'] - timing['single']['device_ms']:+.3f} device ms, "
+            f"{timing['tp']['ms'] - timing['single']['ms']:+.3f} ms")
+    del trainer, state, step, words, tensors
+    torch.cuda.empty_cache()
+    return dict(timing=timing, collectives=(calls, nbytes))
+
+
+def tp_references(cfg, mols, large_mols, device) -> dict:
+    """Phase 17 (b)-(d)'s single-device card runs, with deterministic
+    algorithms: the predict of bench-small in fp32, bf16 and "high"; the
+    gradient of `ef_loss`; TP_STEPS tree-mode steps at TP_TRAIN (the first
+    step's outputs and the last's); then the peak MiB and ms of an eager
+    fp32 tree-mode step at bench-large."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.models import GemNet, energy_and_forces
+
+    ref = {}
+    batch_np, _, _ = bench.padded_batch(cfg, mols)
+    batch = to_torch(batch_np, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, c in (("float32", cfg), ("bfloat16", dataclasses.replace(
+                cfg, compute_dtype="bfloat16")), ("high", dataclasses.replace(
+                cfg, matmul_precision="high"))):
+            ref[f"predict_{name}"] = tuple(host(t) for t in predict(make_model(c, device), batch))
+        trainer, state = make_trainer(cfg, "float32", device, train_kw=TP_TRAIN)
+        ref["p0"] = host(state.params)
+        losses = []
+        for i in range(TP_STEPS):
+            state, metrics, _ = trainer.train_step(state, batch, 1.0)
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                ref["step"] = step_outputs(state, metrics)
+        ref["steps"] = (losses, step_outputs(state, metrics))
+        del trainer, state
+        model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        E, F = energy_and_forces(model, batch, create_graph=True)
+        ref["grad"] = host(flat_grad(model, ef_loss(E, F, batch)))
+        del model, E, F
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref["large"] = large_step(cfg, device, large_mols, lambda: make_trainer(
+        cfg, "float32", device, train_kw=dict(flat_optimizer=False)))
+    return ref
+
+
+def large_step(cfg, device, large_mols, build, group=None) -> dict:
+    """One eager fp32 step at bench-large of the (Trainer, state) `build()`
+    makes, after a warm-up step (the ranks of `group` start it together): ms,
+    peak MiB above what the process held before the trainer was built, the
+    parameters the trainer holds and their state's bytes (parameters, EMA
+    and the three moments of the per-tensor optimizer, fp32)."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+
+    large = to_torch(bench.padded_batch(cfg, large_mols)[0], device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    trainer, state = build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(state, large, 1.0)  # warm-up
+    if group is not None:
+        dist.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics, _ = trainer.train_step(state, large, 1.0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in trainer.model.parameters())
+    opt = state.opt_state
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        state.params, state.ema_params, *opt.mu.values(), *opt.nu.values(),
+        *opt.nu_max.values()))
+    out = dict(ms=(time.perf_counter() - t0) * 1e3,
+               peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+               loss=float(metrics["loss"]), params=n, state_bytes=state_bytes)
+    del trainer, state, large
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_driver_run(device, workdir: str, group) -> dict:
+    """Phase 17 (e): `train.run(tp=world)` for PARALLEL_RUN's steps (the
+    per-tensor optimizer), then a resume to 2 more with the export: the best
+    metrics, finite; rank 0's checkpoint the single device's tree-mode
+    layout at the last step; the export loaded into a monolithic model."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch import train as train_driver
+    from gemnet_pytorch_tpu_torch.compat import strip_reference_aliases
+    from gemnet_pytorch_tpu_torch.config import ModelConfig
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    run_dir = os.path.join(workdir, "run_tp")
+    export = os.path.join(workdir, "tp_export.pth")
+    config = dict(PARALLEL_RUN, restart=run_dir, logdir=workdir, flat_optimizer=False)
+    kw = dict(device=device, synthetic_molecules=PARALLEL_RUN_MOLECULES, group=group,
+              tp=mesh.world_size(group))
+    first = train_driver.run(config, **kw)
+    n_steps = PARALLEL_RUN["num_steps"] + 2
+    second = train_driver.run(dict(config, num_steps=n_steps), export_torch=export, **kw)
+    for best in (first, second):
+        check(all(np.isfinite(v) for v in best.values()), "(e) train.run(tp): non-finite metrics")
+    if mesh.is_main(group):
+        ckpt = torch.load(os.path.join(run_dir, "logs", "checkpoint"), map_location="cpu",
+                          weights_only=True)
+        model = GemNet(ModelConfig.from_dict(config), generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+        n = sum(p.numel() for p in model.parameters())
+        check(int(ckpt["step"]) == n_steps and ckpt["params"].numel() == n
+              and all(ckpt[f"opt_state.mu.{k}"].shape == p.shape
+                      for k, p in model.named_parameters()),
+              f"(e) rank 0's tp checkpoint: step {int(ckpt['step'])}, not the single device's "
+              "tree-mode layout")
+        model.load_state_dict(strip_reference_aliases(torch.load(export, weights_only=True)),
+                              strict=True)
+    return dict(first=first, second=second)
+
+
+def tp_pair(spec, device, group, cfg, workdir: str) -> dict:
+    """Phase 17 (b), (c) and (e) on one rank of the gloo group of TP_RANKS
+    ranks sharing cuda:0: on bench-small E/F in fp32, bf16 and "high", the
+    gradient of `ef_loss` and TP_STEPS steps, each with the collectives it
+    issued, in order (the first step's launches, collectives and bytes
+    counted); one eager fp32 step at bench-large; then `train.run(tp=N)`."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.parallel import collectives, tp
+
+    names = spec["names"]
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    batch_np, _, _ = bench.padded_batch(cfg, spec["mols"])
+    batch = to_torch(batch_np, device)
+    for name, c in (("float32", cfg), ("bfloat16", dataclasses.replace(
+            cfg, compute_dtype="bfloat16")), ("high", dataclasses.replace(
+            cfg, matmul_precision="high"))):
+        model = tp.TPModel(c, group, generator=torch.Generator().manual_seed(0),
+                           device=device).requires_grad_(False)
+        with collectives.recorded() as seq:
+            E, F = tp.make_tp_energy_and_forces(model)(batch)
+        out[f"predict_{name}"] = (host(E), host(F), seq)
+        del model
+    model = tp.TPModel(cfg, group, generator=torch.Generator().manual_seed(0), device=device)
+    with collectives.recorded() as seq:
+        _, grads = tp.make_tp_loss_and_grad(model, ef_loss)(batch)
+    merged = model.merge_named(grads)
+    out["grad"] = (pp_flat({n: merged[n].numpy() for n in names}, names), seq)
+    del model, grads
+    trainer, state = tp_trainer(cfg, device, group)
+    step = tp.make_tp_train_step(trainer)
+    losses = []
+    with collectives.recorded() as seq:
+        ((state, metrics, _), census), calls, nbytes = collectives_and_bytes(
+            lambda: launches_of(lambda: step(state, batch_np, 1.0)))
+        losses.append(float(metrics["loss"]))
+        out["first"] = tp_step_outputs(trainer, state, metrics, names)
+        for _ in range(TP_STEPS - 1):
+            state, metrics, _ = step(state, batch_np, 1.0)
+            losses.append(float(metrics["loss"]))
+    tp.check_tp_opt_sharding(trainer, state)
+    specs = trainer.model.tp_specs
+    out["census"], out["collectives"], out["seq"] = census, (calls, nbytes), seq
+    out["steps"] = (losses, tp_step_outputs(trainer, state, metrics, names))
+    out["replicated"] = {n: host(p) for n, p in trainer.model.named_parameters()
+                         if specs[n] is None}
+    del trainer, state, step, batch
+    torch.use_deterministic_algorithms(False)
+    out["large"] = large_step(cfg, device, spec["large_mols"], lambda: tp_trainer(
+        cfg, device, group, train_kw=dict(flat_optimizer=False)), group)
+    t0 = time.perf_counter()
+    out["run"] = (tp_driver_run(device, workdir, group), time.perf_counter() - t0)
+    return out
+
+
+def tp_wide(spec, device, group, cfg) -> dict:
+    """Phase 17 (d) on one rank of the gloo group of TP_WIDE ranks sharing
+    cuda:0: E/F at tp = TP_WIDE on bench-small; then one step of the dp x tp
+    mesh (`make_hybrid_mesh(*TP_MESH)`, each dp row one of bench-small's
+    padded halves)."""
+    import torch
+
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.parallel import collectives, mesh, tp
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    batch = to_torch(bench.padded_batch(cfg, spec["mols"])[0], device)
+    model = tp.TPModel(cfg, group, generator=torch.Generator().manual_seed(0),
+                       device=device).requires_grad_(False)
+    with collectives.recorded() as seq:
+        E, F = tp.make_tp_energy_and_forces(model)(batch)
+    out["predict"] = (host(E), host(F), seq)
+    del model, batch
+    hmesh = mesh.make_hybrid_mesh(*TP_MESH, group)
+    out["place"] = (hmesh.dp_index, hmesh.tp_index)
+    trainer, state = tp_trainer(cfg, device, hmesh)
+    halves = padded_parts(cfg, spec["mols"], TP_MESH[0])
+    step = tp.make_dp_tp_train_step(trainer, hmesh)
+    with collectives.recorded() as seq:
+        state, metrics, _ = step(state, halves[hmesh.dp_index], 1.0)
+    tp.check_tp_opt_sharding(trainer, state)
+    out["dp_tp"] = (tp_step_outputs(trainer, state, metrics, spec["names"]), seq)
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def tp_rank(rank: int, world: int, workdir: str) -> None:
+    """Phase 17 on one of TP_WIDE spawned gloo ranks sharing cuda:0: the
+    first TP_RANKS run `tp_pair` on a group of their own while the others
+    wait, then all run `tp_wide`; the launches of both counted."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+
+    spec, device, group, cfg = _gloo_rank(workdir, world, rank)
+    _cuda.reset_launches()
+    # every rank makes the pair's group (new_group is collective)
+    pair = dist.new_group(list(range(TP_RANKS)), backend="gloo")
+    out = tp_pair(spec, device, pair, cfg, workdir) if rank < TP_RANKS else {}
+    dist.barrier(group)
+    out.update(tp_wide(spec, device, group, cfg))
+    torch.cuda.synchronize()
+    out["launches"] = collections.Counter(_cuda.LAUNCHES)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def tp_gloo(cfg, mols, large_mols, device, workdir: str, power: str, names) -> dict:
+    """Phase 17 (b)-(e): TP_WIDE gloo ranks running `tp_rank`, held against
+    the single-device card. Returns their launches, the bench-large numbers
+    and the collectives of a step."""
+    import dataclasses
+
+    import torch
+
+    from gemnet_pytorch_tpu_torch.models import GemNet
+
+    with uncounted():
+        ref = tp_references(cfg, mols, large_mols, device)
+    model = GemNet(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    spec = dict(device=str(device), cfg=dataclasses.asdict(cfg), mols=mols,
+                large_mols=large_mols, names=names)
+    t0 = time.perf_counter()
+    wide = spawn_ranks(os.path.join(workdir, "tp"), spec, target=tp_rank, world=TP_WIDE)
+    results = wide[:TP_RANKS]
+    log(f"  {TP_WIDE} gloo ranks on cuda:0 ran (b), (c) and (e) on the first {TP_RANKS}, then (d) "
+        f"on all, in {time.perf_counter() - t0:.1f} s (spawn and CUDA start included)")
+    want = TRAIN_LAUNCHES["float32"]
+    for r, res in enumerate(results):
+        E, F, seq = res["predict_float32"]
+        ef_gates(f"(b) tp predict of bench-small, rank {r}", E, F, *ref["predict_float32"])
+        for name, (rel_e, rel_f) in (("bfloat16", (BF16_E_REL, BF16_F_REL)),
+                                     ("high", (SERVE_RTOL, SERVE_RTOL))):
+            got = res[f"predict_{name}"]
+            for t, g, w, rel in zip("EF", got[:2], ref[f"predict_{name}"], (rel_e, rel_f)):
+                ok, err = close(g, w, rel)
+                log(f"  (b) tp predict {name}, rank {r}, {t}: max |diff| {err:.3e} vs the "
+                    f"single-device {name} predict (rtol {rel} of max |{t}|)")
+                check(ok, f"(b) rank {r}'s {name} tp predict {t} disagrees with the single device")
+        for name in ("float32", "bfloat16", "high"):
+            check(res[f"predict_{name}"][2] == results[0][f"predict_{name}"][2]
+                  and [k for k, _, _ in res[f"predict_{name}"][2]] == ["all_gather"],
+                  f"(b) rank {r}'s {name} tp predict did not issue one gather, as rank 0")
+        grad_gates(f"(b) tp gradient of the E/F loss, rank {r} (its slices merged)",
+                   res["grad"][0], ref["grad"], model)
+        check(res["grad"][1] == results[0]["grad"][1],
+              "(b) the ranks' tp gradient collectives differ in order")
+        halo_step_gates(f"(b) tp fp32 step 1 of {TP_STEPS} vs the single-device tree-mode step, "
+                        f"rank {r}", res["first"], ref["step"], ref["p0"])
+        losses, last = res["steps"]
+        rloss, rlast = ref["steps"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, rloss))
+        log(f"  (b) rank {r}: {TP_STEPS} tp steps' losses {losses} vs {rloss} (max rel "
+            f"{loss_rel:.3e})")
+        halo_step_gates(f"(b) tp fp32 step {TP_STEPS} vs the single-device tree-mode step, "
+                        f"rank {r}", last, rlast, ref["p0"])
+        calls, nbytes = res["collectives"]
+        log(f"  (b) rank {r}: one tp step launched {res['census']} (expected {want}), issued "
+            f"{calls}, bytes {nbytes}; {len(res['seq'])} collectives in {TP_STEPS} steps")
+        check(res["census"] == want, f"(b) rank {r}'s tp step launched {res['census']}")
+        check(res["seq"] == results[0]["seq"],
+              f"(b) rank {r}'s tp steps issued their collectives in another order than rank 0")
+        for name, p in res["replicated"].items():
+            check(np.array_equal(p, results[0]["replicated"][name]),
+                  f"(b) the replicated {name} differs between rank {r} and rank 0")
+    log(f"  (b) the {len(results[0]['replicated'])} replicated tensors are bit-equal on every "
+        f"rank after {TP_STEPS} steps")
+    single = ref["large"]
+    large = dict(single=single, ranks=[res["large"] for res in results])
+    log(f"  (c) bench-large eager fp32 tree-mode step [{power}]: parameters a rank "
+        + ", ".join(str(x["params"]) for x in large["ranks"]) + f" of {single['params']}; "
+        "state bytes a rank (parameters, EMA, 3 moments) " + ", ".join(
+            str(x["state_bytes"]) for x in large["ranks"]) + f" of {single['state_bytes']}; "
+        "peak MiB a rank " + ", ".join(f"{x['peak_mib']:.1f}" for x in large["ranks"])
+        + f" vs the single device's {single['peak_mib']:.1f} ("
+        + ", ".join(f"{100 * x['peak_mib'] / single['peak_mib']:.2f}%" for x in large["ranks"])
+        + "); ms a rank " + ", ".join(f"{x['ms']:.1f}" for x in large["ranks"])
+        + f" vs {single['ms']:.1f} (gloo through the host, 2 ranks sharing one card: not a "
+        "scaling number)")
+    first = [res["run"][0] for res in results]
+    log(f"  (e) train.run(tp={TP_RANKS}) over the gloo ranks, {PARALLEL_RUN['num_steps']} steps, "
+        f"then a resume to {PARALLEL_RUN['num_steps'] + 2} with the export, in "
+        f"{max(res['run'][1] for res in results):.1f} s: best {first[0]['second']}")
+    check(all(b == first[0] for b in first), "(e) the ranks' train.run(tp) disagree")
+    for r, res in enumerate(wide):
+        E, F, seq = res["predict"]
+        ef_gates(f"(d) tp predict at {TP_WIDE} ranks, rank {r}", E, F, *ref["predict_float32"])
+        check(seq == wide[0]["predict"][2], "(d) the ranks' tp collectives differ in order")
+        check(res["place"] == divmod(r, TP_MESH[1]), f"(d) rank {r}'s place {res['place']}")
+        halo_step_gates(f"(d) dp x tp {TP_MESH[0]}x{TP_MESH[1]} step (a half of bench-small a "
+                        f"row) vs the single-device tree-mode step on all of it, rank {r}",
+                        res["dp_tp"][0], ref["step"], ref["p0"])
+        check(res["dp_tp"][1] == wide[0]["dp_tp"][1],
+              f"(d) rank {r}'s dp x tp collectives differ from rank 0's")
+    log(f"  (d) dp x tp collectives of a step on a rank: "
+        f"{collections.Counter(k for k, _, _ in wide[0]['dp_tp'][1])}")
+    launches = collections.Counter()
+    for res in wide:
+        launches.update(res["launches"])
+    return dict(launches=launches, large=large, collectives=results[0]["collectives"])
+
+
+def tp_phase(cfg, mols, device, workdir: str, power: str, large_mols=None) -> dict:
+    """Phase 17: the launch counters at 0, (a) on an NCCL group of one with
+    deterministic algorithms, (b)-(e) on gloo ranks sharing cuda:0. Returns
+    the launches and numbers of the phase."""
+    import torch
+    import torch.distributed as dist
+
+    from gemnet_pytorch_tpu_torch.ops import _cuda
+    from gemnet_pytorch_tpu_torch.parallel import mesh
+
+    names = monolithic_names(cfg)
+    _cuda.reset_launches()
+    group = mesh.initialize_distributed(f"localhost:{free_port()}", 1, 0, device=device)
+    check(mesh.backend(group) == "nccl", f"phase 17's group is {mesh.backend(group)}, not NCCL")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {"nccl": tp_nccl(cfg, mols, device, group)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    out.update(tp_gloo(cfg, mols, large_mols or bench.molecules("large"), device, workdir, power,
+                       names))
+    torch.cuda.synchronize()
+    out["launches"].update(_cuda.LAUNCHES)
     return out
 
 
@@ -3989,23 +4493,34 @@ def main() -> int:
     errors.update(pp_out["errors"])
     timings.update(pp_out["timings"])
 
+    log(f"== 17. tensor parallelism (parallel/tp.py): NCCL at world size 1 (the captured tp "
+        f"step), {TP_RANKS} and {TP_WIDE} gloo ranks sharing cuda:0 (tp = {TP_RANKS} at both "
+        f"bench batches, tp = {TP_WIDE}, dp x tp {TP_MESH[0]}x{TP_MESH[1]}, "
+        f"train.run(tp={TP_RANKS})) [{power}]")
+    with tempfile.TemporaryDirectory(prefix="gemnet_tp_") as workdir:
+        t0 = time.perf_counter()
+        tp_out = tp_phase(cfg, mols, device, workdir, power)
+        log(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
+
     paths = {"serve": serve_census, "train_fp32": train_census["float32"],
              "train_bf16": train_census["bfloat16"], "serve_high": serve_high_census,
              "train_high": high_census, "probe": probe_census, "bench": bench_census,
              "graph": graph_census, "rest": rest_census, "stack": stack_census,
              "parallel": dict(parallel_census), "ep": dict(ep_out["launches"]),
-             "pp": dict(pp_out["launches"])}
+             "pp": dict(pp_out["launches"]), "tp": dict(tp_out["launches"])}
     # each row's own paths, where it must have launched (at the large
     # shapes only the bench's steps and phase 12's timed MVE steps run, in
     # fp32 and bf16: no path runs split3 there); "graph": the launches the
     # captured graphs of phase 11 hold; "rest": phase 12's launches (eager,
     # and those its captures recorded; a replay is counted at its capture);
     # "stack": phase 13's, counted as phase 12's; "parallel": phase 14's, this
-    # process's and its gloo ranks'
-    own = {"f32": ("serve", "train_fp32", "graph", "rest", "parallel"),
+    # process's and its gloo ranks'; "tp": phase 17's, at the single device's
+    # shapes (the tp fp32 steps at bench-small and bench-large); none holds
+    # its phase's single-device reference runs (`uncounted`)
+    own = {"f32": ("serve", "train_fp32", "graph", "rest", "parallel", "tp"),
            "bf16": ("train_bf16", "graph", "rest", "parallel"),
            "split3": ("serve_high", "train_high", "graph", "rest")}
-    own_large = {"f32": ("bench", "rest"), "bf16": ("bench", "rest"), "split3": ()}
+    own_large = {"f32": ("bench", "rest", "tp"), "bf16": ("bench", "rest"), "split3": ()}
     # at the halo shard's shapes: phase 14's gloo ranks; at the ep shard's:
     # phase 15's ep ranks (a step in fp32, a predict in bf16 and "high")
     own_halo = {"f32": ("parallel",)}
@@ -4093,7 +4608,15 @@ def main() -> int:
         f"{ep_out['ep_collectives'][0]} ({sum(ep_out['ep_collectives'][1].values()) / 1e6:.2f} "
         f"MB); pp over 2 gloo ranks, bench-large eager fp32 step peak MiB a rank "
         f"{pp_out['large']['ranks'][0]['peak_mib']:.1f}; a pp step's collectives a rank "
-        f"{pp_out['collectives'][0]} ({sum(pp_out['collectives'][1].values()) / 1e6:.2f} MB)")
+        f"{pp_out['collectives'][0]} ({sum(pp_out['collectives'][1].values()) / 1e6:.2f} MB)"
+        f"; tp over 2 gloo ranks, bench-large eager fp32 step peak MiB a rank "
+        f"{tp_out['large']['ranks'][0]['peak_mib']:.1f} vs one device "
+        f"{tp_out['large']['single']['peak_mib']:.1f}, state bytes a rank "
+        f"{tp_out['large']['ranks'][0]['state_bytes']} vs "
+        f"{tp_out['large']['single']['state_bytes']}; a tp step's collectives a rank "
+        f"{tp_out['collectives'][0]} ({tp_out['collectives'][1]} bytes); captured tp step at "
+        f"1 rank {tp_out['nccl']['timing']['tp']['ms']:.3f} ms vs single-device tree-mode "
+        f"{tp_out['nccl']['timing']['single']['ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     print(power)
     print(json.dumps({"ok": True, "device": {

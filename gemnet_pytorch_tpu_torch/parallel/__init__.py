@@ -1,8 +1,8 @@
-"""Data parallelism, the edge partitions and the pipeline over
-`torch.distributed` process groups (port of `gemnet_pytorch_tpu/parallel/`:
-`mesh.py`, `dp.py`, `ep.py`, `halo.py`, `hybrid.py`, `pp.py`; the
-collectives JAX's `shard_map` transposes itself are in `collectives.py`).
-The tp mode is not ported yet."""
+"""Data parallelism, the edge partitions, the pipeline and tensor
+parallelism over `torch.distributed` process groups (port of
+`gemnet_pytorch_tpu/parallel/`: `mesh.py`, `dp.py`, `ep.py`, `halo.py`,
+`hybrid.py`, `pp.py`, `tp.py`; the collectives JAX's `shard_map` transposes
+itself are in `collectives.py`)."""
 from .mesh import (  # noqa: F401
     HybridMesh,
     initialize_distributed,
@@ -52,11 +52,17 @@ from .hybrid import (  # noqa: F401
     shard_hybrid_batch,
 )
 
-# the pipeline's names, imported at first use: `pp.py` builds on the model
-# (`PipelineStage` is a GemNet), whose module imports this package
+# the pipeline's and tensor parallelism's names, imported at first use:
+# `pp.py` and `tp.py` build on the model (`PipelineStage` and `TPModel` are
+# GemNets), whose module imports this package
 PP_NAMES = ("PipelineStage", "PPTrainer", "make_pp_apply", "make_pp_energy_and_forces",
             "make_pp_loss_and_grad", "merge_pp_state_dict", "split_pp_state_dict",
             "stack_microbatches")
+TP_NAMES = ("TPModel", "TPTrainer", "check_tp_opt_sharding", "checkpoint_tensors", "init_tp_state",
+            "load_checkpoint_tensors", "make_dp_tp_train_step", "make_tp_energy_and_forces",
+            "make_tp_loss_and_grad", "make_tp_train_step", "merge_tp_state_dict",
+            "merged_state_dict", "shard_dp_batch", "shard_tp_state_dict", "stack_dp_batches",
+            "tp_param_specs")
 
 
 def __getattr__(name):
@@ -64,4 +70,8 @@ def __getattr__(name):
         from . import pp
 
         return getattr(pp, name)
+    if name in TP_NAMES:
+        from . import tp
+
+        return getattr(tp, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

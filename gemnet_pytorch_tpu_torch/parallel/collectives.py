@@ -21,15 +21,26 @@ loss backpropagates through -dE/dR):
   receives zeros): its transpose is the reverse shift, whose transpose is
   the shift again.
 
+- `all_gather_shards` (every rank's shard, stacked: tensor parallelism's
+  gather of the weights, `parallel/tp.py`): its backward is this rank's
+  row of the cotangent, with no collective. The gathered tensor feeds a
+  program that every rank runs alike on the same batch, so every rank
+  holds the one full cotangent of it; the gradient of the one objective
+  L with respect to rank r's shard x_r is row r of that cotangent, and
+  rank r takes it itself. (A psum of the rows would count L P times.)
+  The backward is a `select`, a differentiable op, so a double backward
+  through it is the transpose of that selection and not silently wrong.
+
 A replicated scalar that every rank differentiates (the halo loss, the
 energy sum of -dE/dR) is seeded with 1/P on each of the P ranks: the ranks'
 backwards then compute the gradient of the one objective sum_r (1/P) L_r =
 L, whose tied copies (replicated inputs, parameters) add up to the
-single-device gradient (`parallel/halo.py`).
+single-device gradient (`parallel/halo.py`). Tensor parallelism seeds
+nothing: the gathered weights' cotangent is already the whole one.
 
 `all_reduce_` is the plain in-place sum for values nothing differentiates
 (gradients, mask counts), `broadcast_` copies one rank's tensor to all,
-and `all_gather` stacks every rank's tensor.
+and `all_gather` stacks every rank's tensor (no gradient).
 Every collective issued on a group is counted in `CALLS`, by kind and
 backend, and its tensor's bytes in `BYTES` (a captured step's are issued
 at its capture); inside `recorded()` each is also appended to a list, in
@@ -270,3 +281,46 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.stack(parts)
     return out.to(x.device) if staged else out
+
+
+def _gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(P, *x.shape): every rank's contiguous `x`, in rank order, counted as
+    one "all_gather" of x's bytes. NCCL gathers into one tensor on the card
+    (a kernel a CUDA graph captures); gloo through pinned host memory."""
+    _count("all_gather", group, x)
+    n = mesh.world_size(group)
+    if not _gloo(group):
+        out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+    src = _host_copy(x) if x.is_cuda else x
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts).to(x.device)
+
+
+class AllGatherShards(torch.autograd.Function):
+    """Every rank's shard, stacked (P, ...); backward: this rank's row of
+    the cotangent (the module docstring), a differentiable `select`."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.index = mesh.rank(group)
+        return _gather(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.select(0, ctx.index), None
+
+
+def all_gather_shards(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable gather of every rank's shard `x` of a tensor that every
+    rank's program uses whole: (P, *x.shape) in rank order, x's gradient its
+    own row of the cotangent. gloo takes fp32 (tensor parallelism gathers the
+    fp32 master weights; the bf16 mode casts after the gather). With
+    `group=None`: x[None], no collective."""
+    if group is None:
+        return x[None]
+    if _gloo(group) and x.dtype not in (torch.float32, torch.float64, torch.int32, torch.int64):
+        raise TypeError(f"all_gather_shards over gloo takes 4- or 8-byte words, not {x.dtype}")
+    return AllGatherShards.apply(x, group)

@@ -16,9 +16,10 @@ them). A group that fails to start raises; no backend is chosen because
 another failed.
 
 `make_hybrid_mesh` cuts a group into the rows and columns of a 2-D mesh,
-JAX's ("dp", "ep") mesh of `parallel/hybrid.py` and ("dp", "pp") mesh of
-`parallel/pp.py`: each rank holds the sub-group of its row (the ep or pp
-axis) and of its column (the dp axis).
+JAX's ("dp", "ep") mesh of `parallel/hybrid.py`, ("dp", "pp") mesh of
+`parallel/pp.py` and ("dp", "tp") mesh of `parallel/tp.py`: each rank holds
+the sub-group of its row (the ep, pp or tp axis) and of its column (the dp
+axis).
 """
 
 from __future__ import annotations
@@ -107,6 +108,21 @@ class HybridMesh(NamedTuple):
 
     @property
     def n_pp(self) -> int:
+        return self.n_ep
+
+    # and under its tensor-parallel name: on a dp x tp mesh each row holds
+    # one copy of the model, its weights sharded over n_tp ranks
+    # (`parallel/tp.py`)
+    @property
+    def tp(self):
+        return self.ep
+
+    @property
+    def tp_index(self) -> int:
+        return self.ep_index
+
+    @property
+    def n_tp(self) -> int:
         return self.n_ep
 
 

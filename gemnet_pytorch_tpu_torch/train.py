@@ -1,19 +1,21 @@
 """Training driver of the PyTorch port: the repository's `train.py`
 (reference train_seml.py:42-387) on one device, or data-parallel (`--dp
 N`), halo edge-partitioned (`--halo N`), row-partitioned (`--ep N`,
-deprecated) or pipelined (`--pp N`, N stages of the block stack) over N
-processes, one a device, or data-parallel and halo at once (`--dp-halo DP
-EP`, DP x EP processes).
+deprecated), pipelined (`--pp N`, N stages of the block stack) or
+tensor-parallel (`--tp N`, the weights sharded N ways) over N processes,
+one a device, or data-parallel and halo at once (`--dp-halo DP EP`, DP x EP
+processes).
 
     python -m gemnet_pytorch_tpu_torch.train [--config config.yaml] [--num-steps N]
-        [--dataset PATH] [--batch-size B] [--evaluation-interval N]
-        [--save-interval N] [--logdir DIR] [--restart RUN_DIR]
-        [--synthetic-molecules N] [--export-torch OUT.pth] [--steps-per-call K]
-        [--device cuda|cpu] [--dp N | --halo N | --ep N | --dp-halo DP EP |
-         --pp N [--pp-micro M]] [--coordinator HOST:PORT --num-processes N --process-id I]
+        [--dataset PATH] [--val-dataset PATH] [--batch-size B]
+        [--evaluation-interval N] [--save-interval N] [--logdir DIR]
+        [--restart RUN_DIR] [--synthetic-molecules N] [--export-torch OUT.pth]
+        [--steps-per-call K] [--device cuda|cpu] [--dp N | --halo N | --ep N |
+         --dp-halo DP EP | --pp N [--pp-micro M] | --tp N]
+        [--coordinator HOST:PORT --num-processes N --process-id I]
 
     python -m torch.distributed.run --nproc-per-node N \
-        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N, --ep N, --pp N
+        -m gemnet_pytorch_tpu_torch.train --dp N    # or --halo N, --ep N, --pp N, --tp N
     python -m torch.distributed.run --nproc-per-node 4 \
         -m gemnet_pytorch_tpu_torch.train --dp-halo 2 2
 
@@ -36,7 +38,11 @@ false` (the per-tensor optimizer).
 
 `main(argv)` parses the flags into a config dict; `run(config, ...)` trains
 from such a dict, so a caller without PyYAML (the card's machine) passes
-the dict itself. `--config` is read only when given and present.
+the dict itself. `--config` is read only when given and present; the JSON
+of the `GEMNET_SWEEP_OVERRIDES` environment variable, where set, updates the
+config before the flags do (the variant sweep, `scripts/sweep.py`, sets
+it). `--val-dataset` enters the config as `val_dataset`, as in the
+repository's train.py (which reads it nowhere else either).
 
 The parallel modes (train.py:46-48, :63-67, :87-116, :271-330): one
 process per device, started by `python -m torch.distributed.run` or with the
@@ -62,27 +68,33 @@ microbatches a step (default 4N; one step is a single-device step on the
 M batches together, one step per call): every rank draws the same M
 batches, padded in the prefetch threads, and the ranks agree on the
 PadDims of the step's M batches before it (`PPBatches`: every rank runs
-the preamble of every microbatch). Validation runs on the same group,
-except under `--ep` and `--pp`: the single-device eval on every rank,
-rank 0's metrics broadcast (train.py's else branch; under `--pp` a
-monolithic model on each rank holds the merged EMA weights,
+the preamble of every microbatch). `--tp N` (train.py:82-85, :144-146,
+:238-244) builds rank r's `parallel.tp.TPModel` (its slices of the
+weights) and trains it with the per-tensor optimizer (`--tp` sets
+`flat_optimizer: false`, as train.py does): every rank reads the same
+batches (each rank's synthetic file holds the same seeded molecules) and
+runs the Trainer's step, captured on NCCL, eager on gloo and the CPU.
+Validation runs on the same group, except under `--ep`, `--pp` and `--tp`:
+the single-device eval on every rank (under `--tp` the rank's model, its
+weights gathered), rank 0's metrics broadcast (train.py's else branch;
+under `--pp` a monolithic model on each rank holds the merged EMA weights,
 `PPTrainer.merged_state_dict`). Only rank 0 writes the log, the
 checkpoints, the best model and the export; the other ranks log to
 sidecar directories and keep their plateau and early-stopping state in
 lockstep. Every rank resumes from rank 0's checkpoint (under `--pp` it
-holds every stage, gathered, and each rank takes its own at the same N).
-`run(config, dp=N, group=...)` takes a group the caller made (a gloo group
-on one card, as chip_smoke.py's phases 14 to 16 do).
-
-Not ported yet, and refused: `--tp` (parallel/tp.py); and the
-`GEMNET_SWEEP_OVERRIDES` environment variable (a caller passes its
-overrides in `run`'s config dict instead).
+holds every stage, gathered, and each rank takes its own at the same N;
+under `--tp` it is the single device's tree-mode checkpoint of the merged
+state, resharded at any N). The best model and the export of `--pp` and
+`--tp` are the merged weights. `run(config, dp=N, group=...)` takes a group
+the caller made (a gloo group on one card, as chip_smoke.py's phases 14 to
+17 do).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import random
@@ -105,18 +117,20 @@ from .parallel import ep as ep_mod
 from .parallel import halo as halo_mod
 from .parallel import hybrid, mesh
 from .parallel import pp as pp_mod
+from .parallel import tp as tp_mod
 from .training import (
     BestMetrics, Metrics, PlateauState, Trainer, make_writer, read_checkpoint,
     restore_checkpoint, save_checkpoint, save_params,
 )
 
-# flags of the repository's train.py this driver refuses, with their "unset"
-# value and the module of the JAX package a later slice ports for them
-UNPORTED_FLAGS = {"tp": (0, "parallel/tp.py")}
+# flags of the repository's train.py this driver refuses: none, every one is ported
+UNPORTED_FLAGS: dict = {}
 # the loop's 10-step logging boundary (train.py:397)
 LOG_INTERVAL = 10
-OVERRIDES = ("num_steps", "dataset", "batch_size", "logdir", "restart",
+OVERRIDES = ("num_steps", "dataset", "val_dataset", "batch_size", "logdir", "restart",
              "evaluation_interval", "save_interval")
+# the environment variable of the variant sweep's config overrides (train.py:140-143)
+SWEEP_ENV = "GEMNET_SWEEP_OVERRIDES"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -124,6 +138,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--config", default=None, help="flat YAML config (config.yaml's schema)")
     p.add_argument("--num-steps", type=int, default=None)
     p.add_argument("--dataset", default=None)
+    p.add_argument("--val-dataset", default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--evaluation-interval", type=int, default=None)
     p.add_argument("--save-interval", type=int, default=None)
@@ -153,30 +168,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pp-micro", type=int, default=0,
                    help="microbatches a --pp step (default 4*pp; the bubble is "
                    "(N-1)/(M+N-1)); a step trains on pp_micro batches")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor parallel over N processes, one a device: each holds 1/N of "
+                   "the sharded weights, their moments and EMA, with the per-tensor "
+                   "optimizer (parallel/tp.py)")
     p.add_argument("--coordinator", default=None,
                    help="host:port of process 0 (multi-process without torchrun)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    for flag, (unset, module) in UNPORTED_FLAGS.items():
-        p.add_argument("--" + flag.replace("_", "-"), default=unset, type=int,
-                       help=f"not ported yet ({module} of the JAX package)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    asked = [f"--{k.replace('_', '-')} ({module})" for k, (unset, module) in UNPORTED_FLAGS.items()
-             if getattr(args, k) != unset]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to the PyTorch driver yet; a later slice brings "
-            "it. --dp, --halo, --ep, --dp-halo and --pp run")
     if args.pp_micro and not args.pp:
         raise ValueError("--pp-micro is the microbatch count of --pp: pass --pp N with it")
-    if os.environ.get("GEMNET_SWEEP_OVERRIDES"):
-        raise NotImplementedError(
-            "GEMNET_SWEEP_OVERRIDES is not read by the PyTorch driver: pass the overrides in "
-            "run()'s config dict")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s (%(levelname)s): %(message)s",
                         datefmt="%Y-%m-%d %H:%M:%S")
     config = {}
@@ -184,14 +190,19 @@ def main(argv=None) -> dict:
         from .config import load_yaml_config
 
         config = load_yaml_config(args.config)
+    if os.environ.get(SWEEP_ENV):
+        config.update(json.loads(os.environ[SWEEP_ENV]))
+    if args.tp:
+        # the shards are per tensor; the flat optimizer's clip is not (train.py:144-146)
+        config["flat_optimizer"] = False
     for key in OVERRIDES:
         val = getattr(args, key)
         if val is not None:
             config[key] = val
     dp_halo = tuple(args.dp_halo) if args.dp_halo is not None else None
-    modes = (args.dp, args.halo, args.ep, dp_halo, args.pp)
+    modes = (args.dp, args.halo, args.ep, dp_halo, args.pp, args.tp)
     if sum(bool(m) for m in modes) > 1:
-        raise ValueError("pick one of --dp / --ep / --halo / --dp-halo / --pp")
+        raise ValueError("pick one of --dp / --ep / --halo / --dp-halo / --pp / --tp")
     device, group = args.device, None
     if any(modes) or args.coordinator:
         group = mesh.initialize_distributed(args.coordinator, args.num_processes,
@@ -203,7 +214,7 @@ def main(argv=None) -> dict:
         best = run(config, device=device, synthetic_molecules=args.synthetic_molecules,
                    export_torch=args.export_torch, steps_per_call=args.steps_per_call,
                    dp=args.dp, halo=args.halo, ep=args.ep, dp_halo=dp_halo, pp=args.pp,
-                   pp_micro=args.pp_micro, group=group)
+                   pp_micro=args.pp_micro, tp=args.tp, group=group)
         if group is not None:
             torch.distributed.barrier(group)  # rank 0's checkpoint is written
         return best
@@ -243,27 +254,28 @@ def run_directory(tcfg, group=None) -> str:
 def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         export_torch: Optional[str] = None, steps_per_call: int = 1, dp: int = 0,
         halo: int = 0, ep: int = 0, dp_halo: Optional[tuple] = None, pp: int = 0,
-        pp_micro: int = 0, group=None) -> dict:
+        pp_micro: int = 0, tp: int = 0, group=None) -> dict:
     """Train from a flat config dict (config.yaml's keys; missing keys take
     the ModelConfig/TrainConfig defaults), up to `steps_per_call` steps per
     host call (one device), or over `group` in one parallel mode:
     data-parallel (`dp`), halo-partitioned (`halo`), row-partitioned (`ep`,
-    rung 2a) or pipelined (`pp` stages, `pp_micro` microbatches a step,
-    default 4*pp) over that many processes, or `dp_halo=(n_dp, n_ep)`, n_dp
-    data-parallel rows each halo-partitioned over n_ep processes; the
-    group's world size must be the mode's count. Returns the best
-    validation metrics as {f"{key}_best": value}, as the repository's
-    train.py does."""
+    rung 2a), pipelined (`pp` stages, `pp_micro` microbatches a step,
+    default 4*pp) or tensor-parallel (`tp`; the config must set
+    `flat_optimizer: false`, as `--tp` does) over that many processes, or
+    `dp_halo=(n_dp, n_ep)`, n_dp data-parallel rows each halo-partitioned
+    over n_ep processes; the group's world size must be the mode's count.
+    Returns the best validation metrics as {f"{key}_best": value}, as the
+    repository's train.py does."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call {steps_per_call} < 1")
-    modes = {"dp": dp, "halo": halo, "ep": ep, "dp_halo": dp_halo, "pp": pp}
+    modes = {"dp": dp, "halo": halo, "ep": ep, "dp_halo": dp_halo, "pp": pp, "tp": tp}
     asked = [k for k, v in modes.items() if v]
     if len(asked) > 1:
-        raise ValueError("pick one of dp / ep / halo / dp_halo / pp")
+        raise ValueError("pick one of dp / ep / halo / dp_halo / pp / tp")
     if pp_micro and not pp:
         raise ValueError("pp_micro without pp")
     pp_micro = pp_micro or 4 * pp
-    n_par = int(np.prod(dp_halo)) if dp_halo else dp or halo or ep or pp
+    n_par = int(np.prod(dp_halo)) if dp_halo else dp or halo or ep or pp or tp
     if n_par:
         if group is None:
             raise ValueError(f"{asked[0]} runs over a process group: pass the one "
@@ -272,7 +284,7 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             raise ValueError(f"{asked[0]}={modes[asked[0]]} needs a group of {n_par} "
                              f"processes, this one has {mesh.world_size(group)}")
     elif group is not None:
-        raise ValueError("a process group without dp, ep, halo, dp_halo or pp")
+        raise ValueError("a process group without dp, ep, halo, dp_halo, pp or tp")
     rank, is_main = (mesh.rank(group), mesh.is_main(group)) if n_par else (0, True)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -317,16 +329,32 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         return m
 
     # --pp: this rank's stage, and a monolithic model for the eval, the
-    # best model and the export, which holds the merged weights
-    pp_trainer = eval_model = None
-    model = new_model(pp_mod.PipelineStage, stage=rank, num_stages=pp) if pp else new_model()
-    logging.info("nParams: %d", sum(p.numel() for p in model.parameters()))
-    trainer = Trainer(model, tcfg)
+    # best model and the export, which holds the merged weights; --tp: this
+    # rank's slices, and a monolithic CPU model for the best model and the
+    # export
+    pp_trainer = eval_model = gather = None
     if pp:
+        model = new_model(pp_mod.PipelineStage, stage=rank, num_stages=pp)
+    elif tp:
+        model = new_model(tp_mod.TPModel, group=group)
+    else:
+        model = new_model()
+    logging.info("nParams: %d", sum(p.numel() for p in model.parameters()))
+    trainer = tp_mod.TPTrainer(model, tcfg) if tp else Trainer(model, tcfg)
+    if tp:
+        state = tp_mod.init_tp_state(trainer)
+        eval_model = GemNet(mcfg, generator=torch.Generator().manual_seed(tcfg.tfseed),
+                            device="cpu")
+        gather = lambda s: tp_mod.checkpoint_tensors(trainer, s)  # noqa: E731
+        logging.info("tensor parallel over %d processes, rank %d holds %d of %d parameters",
+                     tp, rank, sum(p.numel() for p in model.parameters()),
+                     sum(p.numel() for p in eval_model.parameters()))
+    elif pp:
         pp_trainer = pp_mod.PPTrainer(trainer, group, pp_micro)
         state = pp_trainer.init_state()
         eval_model = new_model()
         eval_trainer = Trainer(eval_model, tcfg)
+        gather = pp_trainer.checkpoint_tensors
         logging.info("pipeline over %d stages, %d microbatches; rank %d holds blocks %d-%d",
                      pp, pp_micro, rank, model.start, model.stop - 1)
     else:
@@ -348,6 +376,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     if os.path.exists(ckpt_path):
         if pp:  # every stage's rows: this rank takes its own
             state = pp_trainer.load_checkpoint_tensors(read_checkpoint(ckpt_path, plateau), state)
+        elif tp:  # the merged state: this rank takes its slices
+            state = tp_mod.load_checkpoint_tensors(trainer, read_checkpoint(ckpt_path, plateau),
+                                                   state)
         else:
             state, plateau = restore_checkpoint(ckpt_path, state, plateau)
         best_metrics.restore()
@@ -382,8 +413,14 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         def val_step(state, row, use_ema=True):
             m, c = eval_fn(None, row)
             return halo_mod.broadcast_metrics(m, group), c
-    else:
+    else:  # one device, or --tp: every rank draws the same batches
         train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
+    if tp:
+        eval_fn = trainer.eval_step_fn()
+
+        def val_step(state, row, use_ema=True):
+            m, c = eval_fn(state, row, use_ema)
+            return halo_mod.broadcast_metrics(m, group), c
     if val_iter is None:
         val_iter = provider.get_dataset("val", transform=trainer.packer.pack)
     try:
@@ -425,7 +462,7 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             if step % LOG_INTERVAL == 0:
                 writer.add_scalar("lr_scale", plateau.lr_scale, step)
             if step % tcfg.save_interval == 0:
-                _checkpoint(ckpt_path, state, plateau, is_main, pp_trainer)
+                _checkpoint(ckpt_path, state, plateau, is_main, gather)
             if step % tcfg.evaluation_interval != 0:
                 continue
 
@@ -444,7 +481,7 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
             elif dp_halo:
                 _dp_halo_validation(trainer, state, val_step, val_iter, val_metrics,
                                     n_val_batches, dp_halo[0])
-            elif halo or ep or pp:
+            elif halo or ep or pp or tp:
                 if pp:  # the merged EMA weights into every rank's monolithic model
                     eval_model.load_state_dict(pp_trainer.merged_state_dict(state, ema=True))
                 for _ in range(n_val_batches):
@@ -455,7 +492,9 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
                     trainer.test_on_batch(state, next(val_iter), val_metrics, use_ema=True)
             if val_metrics.loss < best_metrics.loss:
                 best_metrics.update(step, val_metrics)
-                if is_main and pp:
+                if tp:  # the merged EMA weights (collective: every rank decides alike)
+                    eval_model.load_state_dict(tp_mod.merged_state_dict(trainer, state, ema=True))
+                if is_main and (pp or tp):
                     save_params(best_path, eval_model)
                 elif is_main:
                     with trainer.weights(state, use_ema=True):
@@ -478,11 +517,13 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         val_iter.close()
 
     # ---- final checkpoint and export (train.py:610-623) ----
-    _checkpoint(ckpt_path, state, plateau, is_main, pp_trainer)
+    _checkpoint(ckpt_path, state, plateau, is_main, gather)
     if export_torch and pp:  # the merged EMA weights (collective)
         eval_model.load_state_dict(pp_trainer.merged_state_dict(state, ema=True))
+    if export_torch and tp:
+        eval_model.load_state_dict(tp_mod.merged_state_dict(trainer, state, ema=True))
     if is_main and export_torch:
-        if pp:
+        if pp or tp:
             save_reference_checkpoint(export_torch, eval_model, mcfg)
         else:
             with trainer.weights(state, use_ema=True):
@@ -493,11 +534,12 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     return {f"{k}_best": v for k, v in best_metrics.items()}
 
 
-def _checkpoint(path: str, state, plateau, is_main: bool, pp_trainer=None) -> None:
-    """Rank 0 writes the checkpoint; under --pp every rank first sends its
-    stage's rows to it (`PPTrainer.checkpoint_tensors`, collective)."""
-    if pp_trainer is not None:
-        state = pp_trainer.checkpoint_tensors(state)
+def _checkpoint(path: str, state, plateau, is_main: bool, gather=None) -> None:
+    """Rank 0 writes the checkpoint; under --pp and --tp every rank first
+    takes part in `gather(state)`, the collective that merges the state
+    (`PPTrainer.checkpoint_tensors`, `tp.checkpoint_tensors`)."""
+    if gather is not None:
+        state = gather(state)
     if is_main:
         save_checkpoint(path, state, plateau)
 

@@ -61,6 +61,10 @@ and the flat gradient all-reduced once over `grad_group`, the world of
 both. A step whose collectives all run on NCCL groups is captured with
 them in the graph; on a gloo group (collectives on the host)
 `train_step_fn()` and `eval_step_fn()` run the eager step.
+
+A subclass whose own model runs over process groups (tensor parallelism,
+`parallel.tp.TPTrainer`) overrides `process_groups`, `gradients` and
+`grad_norm`.
 """
 
 from __future__ import annotations
@@ -200,10 +204,6 @@ def _reduce_group(group, model, grad_group=None):
         if g is not None:
             return g
     return _model_group(model)
-
-
-def _capturable(group, model, grad_group=None) -> bool:
-    return all(mesh.capturable(g) for g in (group, _model_group(model), grad_group))
 
 
 # ------------------------------------------------------------------- trainer
@@ -386,7 +386,7 @@ class Trainer:
             tree_opt.apply_update(grads, state.opt_state, self.layout, state.params,
                                   state.ema_params, lr_scale, weight_decay=cfg.weight_decay,
                                   agc=cfg.agc, agc_compat_reference=cfg.agc_compat_reference,
-                                  **kw)
+                                  norm_fn=self.grad_norm, **kw)
         state.step += 1
         # in place: a captured step reads and writes the accumulators' address
         state.metric_acc.copy_(self.accumulate_metrics(state.metric_acc, metrics, counts))
@@ -404,21 +404,45 @@ class Trainer:
         if not isinstance(lr_scale, torch.Tensor):
             self._lr_scale.fill_(lr_scale)
             lr_scale = self._lr_scale
-        params = list(self.model.parameters())
-        reduce_group = _reduce_group(group, model, grad_group)
         loss, (metrics, counts) = self._loss_and_metrics(batch, group, model, create_graph=True)
-        if self.flat or reduce_group is not None:
-            # one collective for the whole gradient (dp.py:62); a
-            # partitioned model's loss is replicated over its group
-            grads = flat_gradient(loss, params, reduce_group, replicated=_model_group(model))
-            if not self.flat:  # the per-tensor gradients, split again
-                grads = [v.view_as(p) for v, p in zip(grads.split([p.numel() for p in params]),
-                                                      params)]
-        else:
-            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        grads = self.gradients(loss, group, model, grad_group)
         # detached: a caller holding the metrics holds no autograd graph
         metrics = {k: v.detach() for k, v in metrics.items()}
         return self.apply_update(state, grads, metrics, counts, lr_scale), metrics, counts
+
+    def gradients(self, loss, group=None, model=None, grad_group=None):
+        """The step's gradient of `loss` over the model's parameters, reduced
+        over the step's groups (`train_step`): the flat vector in flat mode,
+        one tensor per parameter in tree mode."""
+        params = list(self.model.parameters())
+        reduce_group = _reduce_group(group, model, grad_group)
+        if not self.flat and reduce_group is None:
+            return torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        # one collective for the whole gradient (dp.py:62); a partitioned
+        # model's loss is replicated over its group
+        grads = flat_gradient(loss, params, reduce_group, replicated=_model_group(model))
+        if self.flat:
+            return grads
+        # the per-tensor gradients, split again
+        return [v.view_as(p) for v, p in zip(grads.split([p.numel() for p in params]), params)]
+
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global norm the tree-mode clip takes of the step's per-tensor
+        gradients (the shared layers' already scaled)."""
+        return tree_opt.global_norm(grads)
+
+    def process_groups(self) -> tuple:
+        """The process groups the trainer's own model runs over in every step
+        (none: data parallelism's and a partitioned view's come with the
+        step)."""
+        return ()
+
+    def _capturable(self, group=None, model=None, grad_group=None) -> bool:
+        """Whether a step runs on the card and every group of it (`group`, a
+        view `model`'s, `grad_group`, the trainer's own) captures into a
+        CUDA graph."""
+        groups = (group, _model_group(model), grad_group, *self.process_groups())
+        return self.device.type == "cuda" and all(mesh.capturable(g) for g in groups)
 
     def _host_row(self, batch) -> np.ndarray:
         """A host batch (numpy dict) packed, or a packed row as it is."""
@@ -466,7 +490,7 @@ class Trainer:
         the step's collectives run on a gloo group (`group`, a partitioned
         `model`'s or `grad_group`), it runs the eager step on the unpacked
         batch."""
-        if self.device.type != "cuda" or not _capturable(group, model, grad_group):
+        if not self._capturable(group, model, grad_group):
             return lambda state, batch, lr_scale: self.train_step(
                 state, self._device_batch(batch), lr_scale, group, model, grad_group)
 
@@ -583,7 +607,7 @@ class Trainer:
         weights `use_ema` selects (the outputs are the graph's, overwritten
         by its next replay); on a CPU trainer, or over a gloo group (as
         `train_step_fn`), it runs `eval_step`."""
-        if self.device.type != "cuda" or not _capturable(group, model):
+        if not self._capturable(group, model):
             return lambda state, batch, use_ema=False: self.eval_step(
                 state, self._device_batch(batch), use_ema, group, model)
 
@@ -603,7 +627,7 @@ class Trainer:
         var_F), `batch` as `eval_step_fn()` takes it. On a CUDA trainer it
         replays the captured predict and returns copies of its outputs; on a
         CPU trainer it runs `predict`."""
-        if self.device.type != "cuda":
+        if not self._capturable():
             return self.predict
 
         def run(state, batch, use_ema=False):

@@ -27,6 +27,12 @@ here is (out, in) (`models/layers.py`), so its norm is over dim 1. Every
 other weight has the JAX layout (the embedding table, the 3-D down
 projection and bilinear weights) and reduces every dim but the last; a 1-D
 tensor takes its whole norm.
+
+Where the tensors are parts of a larger gradient (a tensor-parallel rank's
+slices, `parallel/tp.py`), the caller passes the global norm's function
+(`apply_update(norm_fn=...)`). AGC's units lie along the shard dims (a
+Dense row, the last dim of a 3-D weight, a column of the embedding table),
+so it clips a rank's slices as they are.
 """
 
 from __future__ import annotations
@@ -113,10 +119,16 @@ def scale_shared_grads(grads: Sequence[torch.Tensor], layout: TreeLayout) -> lis
     return [g / d if d != 1 else g for g, d in zip(grads, layout.shared_div)]
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """||g|| over every tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        gnorm: torch.Tensor) -> list[torch.Tensor]:
     """optax.clip_by_global_norm: every gradient times max_norm / ||g|| where
-    the global norm reaches max_norm."""
-    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    the global norm `gnorm` (`global_norm(grads)`, or the norm of the
+    gradient they are parts of) reaches max_norm."""
     factor = torch.where(gnorm < max_norm, torch.ones_like(gnorm), max_norm / gnorm)
     return torch._foreach_mul(list(grads), factor)
 
@@ -195,17 +207,19 @@ def apply_update(
     ema_decay: float,
     agc: bool = False,
     agc_compat_reference: bool = False,
+    norm_fn: Callable = global_norm,
 ) -> None:
     """One step of the chain, in place on the parameters (views of
     `flat_params`), the EMA and the state. The schedule is read at the
     chain's count before the step, as optax's scale_by_learning_rate reads
-    its own; `lr_scale` is a float or a device scalar."""
+    its own; `lr_scale` is a float or a device scalar. `norm_fn`: the
+    global norm of the gradients the clip takes (module docstring)."""
     params = views(flat_params, layout)
     g = scale_shared_grads(grads, layout)
     if agc:
         g = adaptive_gradient_clip(g, params, layout, grad_clip_max, agc_compat_reference)
     else:
-        g = clip_by_global_norm(g, grad_clip_max)
+        g = clip_by_global_norm(g, grad_clip_max, norm_fn(g))
     lr_t = learning_rate * schedule(st.count)
     u = scale_by_amsgrad_torch(g, st)
     u = add_decayed_weights(u, params, layout, weight_decay)

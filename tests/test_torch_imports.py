@@ -128,10 +128,11 @@ def test_package_imports_without_jax(tmp_path):
 def test_parallel_modules_are_checked():
     """The parallel package (process groups and 2-D meshes, the collectives,
     data parallelism, the halo and row-space edge partitions, the hybrid
-    meshes, the pipeline) is among the files checked above, and imports without JAX in
-    the fresh interpreter of `test_package_imports_without_jax`."""
+    meshes, the pipeline, tensor parallelism) and the variant sweep are
+    among the files checked above, and import without JAX in the fresh
+    interpreter of `test_package_imports_without_jax`."""
     rel = {os.path.relpath(p, PORT) for p in _port_files() if p.startswith(PORT)}
     for name in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
                  "parallel/dp.py", "parallel/halo.py", "parallel/ep.py", "parallel/hybrid.py",
-                 "parallel/pp.py"):
+                 "parallel/pp.py", "parallel/tp.py", "scripts/sweep.py"):
         assert name in rel, name

@@ -6,8 +6,10 @@ and checkpoints every 2), where only rank 0 writes the log, the checkpoint and
 the best model, both ranks keep the same best metrics, and a restart of 6
 steps resumes from rank 0's checkpoint on both ranks; under halo, ranks that
 hold other HaloPads (one rank's prefetch met an outlier batch first) agree
-on them before each step; the mode flags' checks; and what stays refused
-(--pp, --pp-micro, --tp)."""
+on them before each step; `train.run` with tp=2: rank 0's checkpoint (the
+single device's tree-mode layout of the merged state), a resume, the
+export of the merged EMA weights; the mode flags' checks; and what stays
+refused (--pp-micro without --pp)."""
 
 import logging
 import os
@@ -181,8 +183,8 @@ def test_run_parallel_checkpoints_on_rank0_and_resumes(tmp_path, mode):
 
 
 def test_run_mode_checks():
-    """Two modes at once, a mode without a group, a group without a mode,
-    and pp_micro without pp raise before anything runs."""
+    """Two modes at once, a mode without a group (tp's too), a group without
+    a mode, and pp_micro without pp raise before anything runs."""
     from gemnet_pytorch_tpu_torch import train
 
     with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo"):
@@ -193,8 +195,12 @@ def test_run_mode_checks():
         train.run(dict(RUN), device="cpu", dp=2)
     with pytest.raises(ValueError, match="process group"):
         train.run(dict(RUN), device="cpu", dp_halo=(2, 2))
-    with pytest.raises(ValueError, match="without dp, ep, halo, dp_halo or pp"):
+    with pytest.raises(ValueError, match="without dp, ep, halo, dp_halo, pp or tp"):
         train.run(dict(RUN), device="cpu", group=object())
+    with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo / pp / tp"):
+        train.run(dict(RUN), device="cpu", tp=2, dp=2)
+    with pytest.raises(ValueError, match="process group"):
+        train.run(dict(RUN), device="cpu", tp=2)
     with pytest.raises(ValueError, match="one of dp / ep / halo / dp_halo / pp"):
         train.run(dict(RUN), device="cpu", pp=2, halo=2)
     with pytest.raises(ValueError, match="process group"):
@@ -219,20 +225,16 @@ def test_run_refuses_ep_axis_alone(tmp_path):
                                   ["--pp-micro", "4"], ["--tp", "2"]],
                          ids=["ep", "dp-halo", "pp", "pp-micro", "tp"])
 def test_main_still_refuses(argv, monkeypatch):
-    """The flag a later slice ports (--tp) raises, and the message names its
-    module of the JAX package; --pp-micro without --pp raises (it is the
-    microbatch count of --pp). --ep, --dp-halo and --pp are ported: they
-    parse and reach `train.run` with the mode and the process group (here
-    stand-ins; tests/test_torch_ep.py, tests/test_torch_hybrid.py and
-    tests/test_torch_pp.py run them on gloo ranks)."""
+    """--pp-micro without --pp raises (it is the microbatch count of --pp).
+    --ep, --dp-halo, --pp and --tp are ported: they parse and reach
+    `train.run` with the mode and the process group (here stand-ins;
+    tests/test_torch_ep.py, tests/test_torch_hybrid.py, tests/test_torch_pp.py
+    and `test_run_tp_checkpoints_on_rank0_and_resumes` run them on gloo
+    ranks), --tp with the per-tensor optimizer."""
     import torch.distributed as dist
 
     from gemnet_pytorch_tpu_torch import train
 
-    if argv[0] == "--tp":
-        with pytest.raises(NotImplementedError, match=r"parallel/tp\.py"):
-            train.main(argv + ["--device", "cpu"])
-        return
     if argv[0] == "--pp-micro":
         with pytest.raises(ValueError, match="--pp-micro .* --pp N"):
             train.main(argv + ["--device", "cpu"])
@@ -240,7 +242,7 @@ def test_main_still_refuses(argv, monkeypatch):
     group, reached = object(), {}
 
     def run(config, **kw):
-        reached.update(kw)
+        reached.update(kw, config=config)
         return {"loss_best": 1.0}
 
     monkeypatch.setattr(train.mesh, "initialize_distributed", lambda *a, **k: group)
@@ -249,6 +251,80 @@ def test_main_still_refuses(argv, monkeypatch):
     monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: None)
     assert train.main(argv + ["--device", "cpu"]) == {"loss_best": 1.0}
     assert reached["group"] is group
-    assert (reached["ep"], reached["dp_halo"], reached["pp"]) == {
-        "--ep": (2, None, 0), "--dp-halo": (0, (2, 2), 0), "--pp": (0, None, 2)}[argv[0]]
+    if argv[0] == "--tp":
+        assert reached["config"]["flat_optimizer"] is False
+    assert (reached["ep"], reached["dp_halo"], reached["pp"], reached["tp"]) == {
+        "--ep": (2, None, 0, 0), "--dp-halo": (0, (2, 2), 0, 0), "--pp": (0, None, 2, 0),
+        "--tp": (0, None, 0, 2)}[argv[0]]
     assert reached["pp_micro"] == 0  # run() takes 4 * pp
+
+
+def _tp_driver_rank(rank, world, directory, group):
+    """`train.run(tp=2)` on this rank: 4 steps, then a restart to 6 with the
+    export, with its restore log lines, what each run returned and the rank's
+    parameter count."""
+    from gemnet_pytorch_tpu_torch import train
+
+    payload = load_payload(directory)
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    root.addHandler(Keep())
+    config = dict(payload["config"], restart=os.path.join(directory, "run"))
+    kw = dict(device="cpu", synthetic_molecules=RUN_MOLECULES, group=group, tp=world)
+    first = train.run(dict(config, num_steps=4), **kw)
+    second = train.run(dict(config, num_steps=6),
+                       export_torch=os.path.join(directory, "export.pth"), **kw)
+    restores = [r.args for r in records if r.msg == "restored checkpoint at step %d"]
+    held = [r.args for r in records if r.msg.startswith("tensor parallel over")]
+    return dict(first=first, second=second, restores=restores, held=held)
+
+
+def test_run_tp_checkpoints_on_rank0_and_resumes(tmp_path):
+    """`train.run(tp=2)` on 2 ranks (GemNet-T at the driver tests' widths,
+    the per-tensor optimizer, 4 steps with eval and checkpoints every 2,
+    then a restart to 6 with the export): the same finite best metrics on
+    both ranks (rank 0's eval metrics broadcast), each rank holding its
+    slices; rank 0 alone wrote the log, the checkpoint and the best model;
+    both ranks resumed at step 4; the checkpoint is the single device's
+    tree-mode checkpoint of the merged state (it restores into a
+    single-device Trainer) and the export is its EMA weights."""
+    from gemnet_pytorch_tpu_torch.compat import strip_reference_aliases
+    from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
+    from gemnet_pytorch_tpu_torch.models import GemNet
+    from gemnet_pytorch_tpu_torch.training import PlateauState, Trainer, restore_checkpoint
+
+    config = dict(CONFIG, flat_optimizer=False)
+    results = spawn(_tp_driver_rank, WORLD, tmp_path, payload=dict(config=config))
+    run_dir = tmp_path / "run"
+    for key in ("first", "second"):
+        assert results[0][key] == results[1][key]
+        assert all(np.isfinite(v) for v in results[0][key].values())
+    assert [r["restores"] for r in results] == [[(4,)], [(4,)]]
+    (tp, rank0, mine, whole), = results[0]["held"][:1]
+    assert (tp, rank0) == (WORLD, 0) and mine < whole
+    assert results[1]["held"][0][1:] == (1, mine, whole)
+    for rel in ("logs/checkpoint", "logs/checkpoint.plateau.npz", "best/model",
+                "best/best_metrics.npz", "logs_p1", "best_p1/best_metrics.npz"):
+        assert (run_dir / rel).exists(), rel
+    assert not (run_dir / "best_p1" / "model").exists()
+    cfg = ModelConfig.from_dict(config)
+    trainer = Trainer(GemNet(cfg, generator=torch.Generator().manual_seed(1), device="cpu"),
+                      TrainConfig.from_dict(config))
+    state, _ = restore_checkpoint(str(run_dir / "logs" / "checkpoint"), trainer.init_state(),
+                                  PlateauState())
+    assert int(state.step) == 6 and int(state.opt_state.count) == 6
+    exported = strip_reference_aliases(torch.load(tmp_path / "export.pth", weights_only=True))
+    with trainer.weights(state, use_ema=True):
+        ema = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    assert sorted(exported) == sorted(ema)
+    for k in ema:
+        if not k.endswith("scale_factor"):
+            assert torch.equal(exported[k], ema[k]), k
+    best = torch.load(run_dir / "best" / "model", weights_only=True)
+    assert sorted(best) == sorted(ema)

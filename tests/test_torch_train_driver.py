@@ -178,48 +178,114 @@ def test_plateau_timing_and_early_stopping(tmp_path, monkeypatch):
     (["--dp", "2", "--ep", "2"], {}), (["--halo", "2", "--tp", "2"], {}),
     (["--dp-halo", "2", "2", "--pp", "2"], {}), (["--pp", "2"], {}), (["--tp", "2"], {}),
     (["--coordinator", "localhost:1234", "--pp-micro", "4"], {}),
-    ([], {"GEMNET_SWEEP_OVERRIDES": "{}"}),
+    ([], {"GEMNET_SWEEP_OVERRIDES": '{"triplets_only": true, "comment": "GemNet-T"}'}),
 ], ids=["dp", "halo", "dp-halo", "pp", "tp", "coordinator", "sweep"])
 def test_main_refuses_unported(monkeypatch, argv, env):
-    """What the driver refuses, before any process group starts: the mode a
-    later slice ports (--tp), also beside the ported --halo, which the
-    message does not name; two modes at once (--dp with --ep, --dp-halo
-    with --pp: "pick one"); --pp-micro without --pp (beside --coordinator);
-    and the sweep variable. --pp alone is ported: it parses and reaches
-    `train.run` with its process group (a stand-in here;
-    tests/test_torch_pp.py runs it on gloo ranks)."""
+    """What the driver refuses, before any process group starts: two modes
+    at once (--dp with --ep, --halo with --tp, --dp-halo with --pp: "pick
+    one"); --pp-micro without --pp (beside --coordinator). Nothing of the
+    repository's train.py is refused as unported any more (UNPORTED_FLAGS
+    is empty): --pp and --tp parse and reach `train.run` with their process
+    group (a stand-in here; tests/test_torch_pp.py and
+    tests/test_torch_parallel_driver.py run them on gloo ranks), --tp with
+    `flat_optimizer: false` in the config (train.py:144-146); the JSON of
+    GEMNET_SWEEP_OVERRIDES reaches `run`'s config (train.py:140-143)."""
     import torch.distributed as dist
 
     from gemnet_pytorch_tpu_torch import train
 
+    assert train.UNPORTED_FLAGS == {}
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if "--ep" in argv or "--dp-halo" in argv:
+    if "--ep" in argv or "--dp-halo" in argv or "--halo" in argv:
         with pytest.raises(ValueError,
-                           match="pick one of --dp / --ep / --halo / --dp-halo / --pp"):
+                           match="pick one of --dp / --ep / --halo / --dp-halo / --pp / --tp"):
             train.main(argv + ["--device", "cpu"])
         return
     if "--pp-micro" in argv:
         with pytest.raises(ValueError, match="--pp-micro .* --pp N"):
             train.main(argv + ["--device", "cpu"])
         return
-    if argv == ["--pp", "2"]:
-        group, reached = object(), {}
-        monkeypatch.setattr(train.mesh, "initialize_distributed", lambda *a, **k: group)
-        monkeypatch.setattr(train, "run", lambda config, **kw: reached.update(kw) or {})
-        monkeypatch.setattr(dist, "barrier", lambda *a, **k: None)
-        monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: None)
-        train.main(argv + ["--device", "cpu"])
-        assert reached["group"] is group and reached["pp"] == 2
-        return
-    with pytest.raises(NotImplementedError) as err:
-        train.main(argv + ["--device", "cpu"])
-    refused = [a for a in argv if a.startswith("--") and a[2:].replace("-", "_")
-               in train.UNPORTED_FLAGS]
-    for flag in refused:
-        assert flag in str(err.value)
-    for flag in ("--dp ", "--halo ", "--dp-halo", "--coordinator"):
-        assert flag not in str(err.value).split(":")[0]
+    group, reached = object(), {}
+    monkeypatch.setattr(train.mesh, "initialize_distributed", lambda *a, **k: group)
+    monkeypatch.setattr(train, "run",
+                        lambda config, **kw: reached.update(kw, config=config) or {})
+    monkeypatch.setattr(dist, "barrier", lambda *a, **k: None)
+    monkeypatch.setattr(dist, "destroy_process_group", lambda *a, **k: None)
+    train.main(argv + ["--device", "cpu"])
+    if argv:
+        flag = argv[0][2:]
+        assert reached["group"] is group and reached[flag] == 2
+        assert reached["config"].get("flat_optimizer", True) is (flag != "tp")
+    else:
+        assert reached["group"] is None
+        assert reached["config"] == {"triplets_only": True, "comment": "GemNet-T"}
+
+
+def test_val_dataset_reaches_the_config(monkeypatch, tmp_path):
+    """`--val-dataset PATH` enters the config as `val_dataset` and so
+    `TrainConfig.val_dataset` (train.py:35, :147-150), as the flags do after
+    the sweep's overrides."""
+    from gemnet_pytorch_tpu_torch import train
+    from gemnet_pytorch_tpu_torch.config import TrainConfig
+
+    reached = {}
+    monkeypatch.setattr(train, "run", lambda config, **kw: reached.update(config) or {})
+    monkeypatch.setenv("GEMNET_SWEEP_OVERRIDES", '{"val_dataset": "sweep.npz"}')
+    path = str(tmp_path / "val.npz")
+    train.main(["--val-dataset", path, "--device", "cpu"])
+    assert reached["val_dataset"] == path
+    assert TrainConfig.from_dict(reached).val_dataset == path
+
+
+def test_sweep_runs_the_jax_grid(monkeypatch, tmp_path):
+    """`python -m gemnet_pytorch_tpu_torch.scripts.sweep` trains the four
+    variants of the repository's scripts/sweep.py GRID (loaded by path, not
+    run) in its order, each through `train.run` with the variant's overrides
+    on the config file's keys and the sweep's flags after them (steps, eval
+    interval, checkpoints every 10 x steps, batch size, a log directory per
+    variant), on the given device, and writes each run's best metrics to
+    one JSON report."""
+    import importlib.util
+    import json
+
+    import yaml
+
+    from gemnet_pytorch_tpu_torch import train
+    from gemnet_pytorch_tpu_torch.scripts import sweep
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_sweep", os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts",
+                                  "sweep.py"))
+    jax_sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_sweep)
+    assert sweep.GRID == jax_sweep.GRID
+    calls = []
+
+    def run(config, **kw):
+        calls.append((config, kw))
+        return {"loss_val_best": float(len(calls)), "step_best": 2}
+
+    monkeypatch.setattr(train, "run", run)
+    cfg_path = tmp_path / "config.yaml"
+    cfg_path.write_text(yaml.safe_dump(dict(RUN, rho_force=0.5, triplets_only=False)))
+    out = tmp_path / "sweep.json"
+    results = sweep.main(["--config", str(cfg_path), "--num-steps", "3",
+                          "--evaluation-interval", "1", "--batch-size", "4",
+                          "--logdir", str(tmp_path / "logs"), "--out", str(out),
+                          "--device", "cpu"])
+    assert [c["comment"] for c, _ in calls] == [g["comment"] for g in jax_sweep.GRID]
+    for (config, kw), grid in zip(calls, jax_sweep.GRID):
+        assert kw == {"device": "cpu"}
+        assert {k: config[k] for k in grid} == grid
+        assert config["rho_force"] == 0.5
+        assert (config["num_steps"], config["evaluation_interval"], config["save_interval"],
+                config["batch_size"]) == (3, 1, 30, 4)
+        assert config["logdir"] == str(tmp_path / "logs" / grid["comment"])
+    with open(out) as f:
+        assert json.load(f) == results == {
+            g["comment"]: {"loss_val_best": float(i + 1), "step_best": 2}
+            for i, g in enumerate(jax_sweep.GRID)}
 
 
 def test_steps_per_call_chunks_and_matches_single_steps(tmp_path, monkeypatch):
