@@ -4354,10 +4354,6 @@ def main() -> int:
     log(f"  built {', '.join(_cuda.SOURCES)} in {seconds:.1f} s")
     t0 = time.perf_counter()
     log(f"  the native graph builder: {native.build()} in {time.perf_counter() - t0:.1f} s")
-    for source, text in _cuda.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  [{source}] {line.strip()}")
 
     cfg = ModelConfig()
     mols = bench.molecules("small")

@@ -7,6 +7,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..perf import spans
 from .graph import GraphArrays, build_graph
 from .padding import PadDims, pad_batch, scale_graph_dims
 
@@ -108,5 +109,7 @@ class Molecule:
                 n_quads=0 if self.triplets_only else 512,
                 kmax4=0 if self.triplets_only else 4,
             )
+            if self.dims is not None:
+                spans.count("pad.grow")
             self.dims = base.grow_to(scale_graph_dims(g, 1.25), 1, len(self.Z))
         return pad_batch(g, self.Z, self.R, self.dims, triplets_only=self.triplets_only)

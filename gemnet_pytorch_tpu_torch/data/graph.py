@@ -26,6 +26,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import scipy.sparse as sp
 
+from ..perf import spans
+
 INT = np.int32
 
 
@@ -161,7 +163,8 @@ def build_graph(
     molecule; cutoff: edge cutoff; int_cutoff: quadruplet interaction cutoff.
     """
     N = _check_sizes(R, N)
-    return _build_graph_native(R, N, cutoff, int_cutoff, triplets_only)
+    with spans.span("graph.build"):
+        return _build_graph_native(R, N, cutoff, int_cutoff, triplets_only)
 
 
 def build_graph_numpy(

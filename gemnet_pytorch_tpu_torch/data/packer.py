@@ -32,6 +32,7 @@ import threading
 import numpy as np
 import torch
 
+from ..perf import spans
 from .batch import PLAN_ARRAYS, SEGMENT_PLANS, make_plan, plan_arrays, plan_capacity
 from .padding import SORT_META_KEYS
 
@@ -109,25 +110,26 @@ class BatchPacker:
     def pack(self, batch) -> np.ndarray:
         """The batch and its capacity plans in one int32 array of `total`
         words (thread-safe: the provider's prefetch threads pack)."""
-        entries = _entries(batch)
-        with self._lock:
-            if self.layout is None:
-                self._freeze(batch, entries)
-            elif self._shapes_of(batch) != self._shapes:
-                # the pad dims grew (a rare outlier batch): captured steps
-                # see the new version and capture again
-                self._freeze(batch, entries)
-                self.version += 1
-            layout = self.layout
-            total = self.total
-        buf = np.zeros(total, np.int32)
-        u8 = buf.view(np.uint8)
-        for (key, arr), (lkey, off, nb, shape, dtype) in zip(entries, layout):
-            if key != lkey or arr.shape != shape or arr.dtype != dtype:
-                raise ValueError(f"{key} {arr.shape} {arr.dtype} does not fit the layout's "
-                                 f"{lkey} {shape} {dtype}")
-            u8[off:off + nb] = np.ascontiguousarray(arr).view(np.uint8).ravel()
-        return buf
+        with spans.span("pack"):
+            entries = _entries(batch)
+            with self._lock:
+                if self.layout is None:
+                    self._freeze(batch, entries)
+                elif self._shapes_of(batch) != self._shapes:
+                    # the pad dims grew (a rare outlier batch): captured steps
+                    # see the new version and capture again
+                    self._freeze(batch, entries)
+                    self.version += 1
+                layout = self.layout
+                total = self.total
+            buf = np.zeros(total, np.int32)
+            u8 = buf.view(np.uint8)
+            for (key, arr), (lkey, off, nb, shape, dtype) in zip(entries, layout):
+                if key != lkey or arr.shape != shape or arr.dtype != dtype:
+                    raise ValueError(f"{key} {arr.shape} {arr.dtype} does not fit the layout's "
+                                     f"{lkey} {shape} {dtype}")
+                u8[off:off + nb] = np.ascontiguousarray(arr).view(np.uint8).ravel()
+            return buf
 
     def zero_masks(self, row: np.ndarray) -> np.ndarray:
         """A copy of a packed row with mol_mask and atom_mask zeroed: a batch
@@ -185,24 +187,26 @@ class BatchPacker:
         """Packed rows (one row, or a (K, total) stack) as an int32 tensor on
         `device`: on the CPU the array itself; on a CUDA device, through a
         pinned staging buffer in one non-blocking copy into `out` (or a new
-        tensor)."""
-        rows = np.ascontiguousarray(rows, dtype=np.int32)
-        device = torch.device(device)
-        if device.type != "cuda":
-            src = torch.from_numpy(rows)
-            return src if out is None else out.copy_(src)
-        ring = self._staging.setdefault(rows.size, [])
-        if len(ring) < STAGING_DEPTH:
-            ring.append([torch.empty(rows.size, dtype=torch.int32, pin_memory=True), None])
-        slot = ring.pop(0)
-        ring.append(slot)
-        staging, event = slot
-        if event is not None:
-            event.synchronize()  # its last copy has left the buffer
-        np.copyto(staging.numpy(), rows.reshape(-1))
-        if out is None:
-            out = torch.empty(rows.shape, dtype=torch.int32, device=device)
-        out.view(-1).copy_(staging, non_blocking=True)
-        slot[1] = torch.cuda.Event()
-        slot[1].record(torch.cuda.current_stream(device))
-        return out
+        tensor). The wait for a staging buffer is the span `upload.wait`."""
+        with spans.span("upload"):
+            rows = np.ascontiguousarray(rows, dtype=np.int32)
+            device = torch.device(device)
+            if device.type != "cuda":
+                src = torch.from_numpy(rows)
+                return src if out is None else out.copy_(src)
+            ring = self._staging.setdefault(rows.size, [])
+            if len(ring) < STAGING_DEPTH:
+                ring.append([torch.empty(rows.size, dtype=torch.int32, pin_memory=True), None])
+            slot = ring.pop(0)
+            ring.append(slot)
+            staging, event = slot
+            if event is not None:
+                with spans.span("upload.wait"):
+                    event.synchronize()  # its last copy has left the buffer
+            np.copyto(staging.numpy(), rows.reshape(-1))
+            if out is None:
+                out = torch.empty(rows.shape, dtype=torch.int32, device=device)
+            out.view(-1).copy_(staging, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(torch.cuda.current_stream(device))
+            return out

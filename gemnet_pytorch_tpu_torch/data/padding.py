@@ -25,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..perf import spans
 from .graph import GraphArrays, INT
 
 EDGE_BLOCK = 32   # segment ids per `*_row_splits` entry (batch layout contract)
@@ -145,7 +146,16 @@ def pad_batch(
     triplets_only: bool = False,
 ) -> dict[str, np.ndarray]:
     """Pad one canonical batch to static shapes: a dict of numpy arrays
-    (model inputs, optional targets, masks, sort metadata)."""
+    (model inputs, optional targets, masks, sort metadata). Counts the
+    triplet and quadruplet rows before and after padding."""
+    with spans.span("pad"):
+        out = _pad_batch(g, Z, R, dims, E, F, triplets_only)
+    spans.count("pad.real_rows", g.n_triplets + g.n_quads)
+    spans.count("pad.padded_rows", dims.n_triplets + (0 if triplets_only else dims.n_quads))
+    return out
+
+
+def _pad_batch(g, Z, R, dims, E, F, triplets_only) -> dict[str, np.ndarray]:
     n_mol = int(g.batch_seg.max()) + 1 if len(g.batch_seg) else 0
     n_atoms = len(Z)
     assert dims.fits(g, n_mol, n_atoms), (

@@ -17,6 +17,7 @@ from typing import Iterator, Optional, Union
 
 import numpy as np
 
+from ..perf import spans
 from .containers import DataContainer
 from .padding import PadDims, estimate_pad_dims, pad_batch, scale_graph_dims
 
@@ -116,6 +117,7 @@ class DataProvider:
             self.pad_dims = self.pad_dims.grow_to(
                 scale_graph_dims(g, 1.25), n_mol, int(len(Z) * 1.25)
             )
+            spans.count("pad.grow")
         return pad_batch(
             g, Z, R, self.pad_dims, E=E, F=F,
             triplets_only=self.data_container.triplets_only,
@@ -145,15 +147,18 @@ class DataProvider:
         (the JAX provider's, provider.py:125-153): the trainer's
         `packer.pack` yields packed int32 rows. `raw_transform(g, Z, R, E, F)`
         instead replaces the padding and receives the raw batched graph (the
-        halo partitioner builds its own layout, parallel/halo.py)."""
+        halo partitioner builds its own layout, parallel/halo.py). The spans
+        of a batch (`perf.spans`), in the thread that builds it and in the
+        consumer's after it is yielded, carry its sequence number."""
         if split not in self.idx:
             raise KeyError(f"no split {split!r}")
         if transform is not None and raw_transform is not None:
             raise ValueError("pass transform or raw_transform, not both")
         batch_size = batch_size or self.batch_size
-        sels = self._selections(split, batch_size)
+        batches = enumerate(self._selections(split, batch_size))
 
-        def build(sel):
+        def build(seq, sel):
+            spans.tag(seq)
             if raw_transform is not None:
                 return raw_transform(*self.data_container.build(sel))
             batch = self._build_padded(sel)
@@ -161,8 +166,8 @@ class DataProvider:
 
         if prefetch_workers <= 0:
             def generator():
-                for sel in sels:
-                    yield build(sel)
+                for seq, sel in batches:
+                    yield build(seq, sel)
 
             return generator()
 
@@ -170,12 +175,20 @@ class DataProvider:
 
         def generator():
             pool = ThreadPoolExecutor(max_workers=prefetch_workers)
+
+            def submit():
+                seq, sel = next(batches)
+                return seq, pool.submit(build, seq, sel)
+
             try:
-                pending = [pool.submit(build, next(sels)) for _ in range(PREFETCH_DEPTH)]
+                pending = [submit() for _ in range(PREFETCH_DEPTH)]
                 while True:
-                    fut = pending.pop(0)
-                    pending.append(pool.submit(build, next(sels)))
-                    yield fut.result()
+                    seq, fut = pending.pop(0)
+                    pending.append(submit())
+                    with spans.span("data.wait", id=seq):
+                        batch = fut.result()
+                    spans.tag(seq)
+                    yield batch
             finally:
                 # non-blocking, errors swallowed: the generator may be
                 # finalized during interpreter shutdown, where the threading/

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import torch
 
 from .ops import _cuda
+from .perf import spans
 
 # eager calls on a side stream before a capture
 WARMUP_CALLS = 2
@@ -44,7 +45,7 @@ class Captured:
     graph: torch.cuda.CUDAGraph
     outputs: object  # what the captured call returned: tensors of the pool
     launches: collections.Counter  # hand-written kernel launches, by (C entry, shape)
-    seconds: float  # wall time of the warm-up and the capture
+    seconds: float  # wall time of the warm-up and the capture (the span `capture`)
 
 
 def capture(fn, device, before_capture=None, warmup: int = WARMUP_CALLS,
@@ -52,35 +53,37 @@ def capture(fn, device, before_capture=None, warmup: int = WARMUP_CALLS,
     """fn() `warmup` times on a side stream, then `before_capture()` (the
     caller restores what the warm-up changed), then fn() captured into a new
     CUDA graph. `debug` keeps the graph for `kernel_nodes`. The launches the
-    capture recorded are counted in `_cuda.LAUNCHES` as any launch is."""
-    import time
-
-    t0 = time.perf_counter()
-    device = torch.device(device)
-    current = torch.cuda.current_stream(device)
-    side = _WARMUP_STREAMS.get(device)
-    if side is None:
-        side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.device(device), torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    current.wait_stream(side)
-    if before_capture is not None:
-        before_capture()
-    # debug: keep the cudaGraph_t (instantiated below) for its DOT dump
-    graph = torch.cuda.CUDAGraph(keep_graph=True) if debug else torch.cuda.CUDAGraph()
-    if debug:
-        graph.enable_debug_mode()
-    before = collections.Counter(_cuda.LAUNCHES)
-    with torch.cuda.device(device), torch.cuda.graph(graph):
-        outputs = fn()
-    launches = collections.Counter(_cuda.LAUNCHES)
-    launches.subtract(before)
-    if debug:
-        graph.instantiate()
-    torch.cuda.synchronize(device)
-    return Captured(graph, outputs, +launches, time.perf_counter() - t0)
+    capture recorded are counted in `_cuda.LAUNCHES` as any launch is; the
+    capture is the span `capture` and the counters `captures` and
+    `capture_s` (`perf.spans`)."""
+    with spans.timed("capture") as timer:
+        device = torch.device(device)
+        current = torch.cuda.current_stream(device)
+        side = _WARMUP_STREAMS.get(device)
+        if side is None:
+            side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        current.wait_stream(side)
+        if before_capture is not None:
+            before_capture()
+        # debug: keep the cudaGraph_t (instantiated below) for its DOT dump
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if debug else torch.cuda.CUDAGraph()
+        if debug:
+            graph.enable_debug_mode()
+        before = collections.Counter(_cuda.LAUNCHES)
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            outputs = fn()
+        launches = collections.Counter(_cuda.LAUNCHES)
+        launches.subtract(before)
+        if debug:
+            graph.instantiate()
+        torch.cuda.synchronize(device)
+    spans.count("captures")
+    spans.count("capture_s", timer.seconds)
+    return Captured(graph, outputs, +launches, timer.seconds)
 
 
 def kernel_nodes(graph: torch.cuda.CUDAGraph, path: str) -> tuple[int, int]:

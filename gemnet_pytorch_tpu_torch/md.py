@@ -32,6 +32,7 @@ from .data.batch import to_torch
 from .data.containers import Molecule
 from .data.packer import BatchPacker
 from .models.gemnet import GemNet, energy_and_forces
+from .perf import spans
 
 # ASE units: eV, Angstrom, amu; kB in eV/K; fs = 0.09822694788... sqrt(amu A^2/eV)
 KB_EV_PER_K = 8.617330337217213e-05
@@ -94,7 +95,8 @@ class CapturedPredict:
         else:
             fill(self._captured[2])
         cap = self._captured[1]
-        cap.graph.replay()
+        with spans.span("replay"):
+            cap.graph.replay()
         return cap.outputs
 
 
@@ -113,6 +115,7 @@ class GemNetCalculator:
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.add_atom_energies = add_atom_energies
         self._shape_key = None  # the padded batch's (key, shape) pairs
+        self.calls = 0  # the id of each call's spans
         self.captured = (CapturedPredict(self.model, self.device)
                          if self.device.type == "cuda" else None)
 
@@ -124,15 +127,19 @@ class GemNetCalculator:
 
     def calculate(self, R: Optional[np.ndarray] = None) -> tuple[float, np.ndarray]:
         """Returns (energy, forces (nAtoms, 3)) for positions R (or the
-        molecule's current ones)."""
-        if R is not None:
-            self.molecule.update(np.asarray(R, np.float32))
-        batch_np = self.molecule.get()
-        self._shape_key = tuple(sorted((k, v.shape) for k, v in batch_np.items()))
-        E, F = self._predict(batch_np)
-        n = len(self.molecule.Z)
-        energy = float(E[0, 0])
-        forces = F[:n, 0, :].detach().cpu().numpy()
+        molecule's current ones). The call is the span `md.calculate`, the
+        fetch of E and F its child `md.fetch`."""
+        self.calls += 1
+        with spans.span("md.calculate", id=self.calls):
+            if R is not None:
+                self.molecule.update(np.asarray(R, np.float32))
+            batch_np = self.molecule.get()
+            self._shape_key = tuple(sorted((k, v.shape) for k, v in batch_np.items()))
+            E, F = self._predict(batch_np)
+            n = len(self.molecule.Z)
+            with spans.span("md.fetch"):
+                energy = float(E[0, 0])
+                forces = F[:n, 0, :].detach().cpu().numpy()
         if self.add_atom_energies:
             energy += float(sum(ATOM_ENERGIES[int(z)] for z in self.molecule.Z))
         return energy, forces

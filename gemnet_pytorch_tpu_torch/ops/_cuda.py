@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("segment_outer.cu", "expand_gather.cu", "row_gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -71,8 +71,6 @@ _FUNCTIONS = {
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each source built here
-BUILD_LOG: dict[str, str] = {}
 # kernel launches by (C function, shape); see `kernel_launches`
 LAUNCHES: collections.Counter = collections.Counter()
 # the open kernel censuses (`perf.roofline.kernel_census`): lists that
@@ -144,7 +142,6 @@ def build(sources=SOURCES) -> float:
     failed = []
     for source, proc, tmp, out in jobs:
         log, _ = proc.communicate()
-        BUILD_LOG[source] = log
         if proc.returncode:
             failed.append(f"nvcc failed on {source}:\n{log}")
         else:

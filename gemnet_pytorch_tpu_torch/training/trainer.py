@@ -82,6 +82,7 @@ from ..data.packer import BatchPacker
 from ..models.gemnet import GemNet, energy_and_forces
 from ..parallel import mesh
 from ..parallel.collectives import all_reduce_
+from ..perf import spans
 from . import flat_opt, tree_opt
 from .schedules import linear_warmup_exponential_decay
 
@@ -504,7 +505,8 @@ class Trainer:
                     state, lambda buf: self.packer.to_device(row, self.device, out=buf),
                     group, model, grad_group)
             self._lr_scale.fill_(lr_scale)
-            cap.graph.replay()
+            with spans.span("replay"):
+                cap.graph.replay()
             return (state, *cap.outputs)
 
         return step
@@ -537,7 +539,8 @@ class Trainer:
             self._lr_scale.fill_(lr_scale)
             for k in range(rows.shape[0]):
                 cap = self._step_graph(state, lambda buf: buf.copy_(rows[k]))
-                cap.graph.replay()
+                with spans.span("replay"):
+                    cap.graph.replay()
             return (state, *cap.outputs)
 
         return multi
@@ -650,16 +653,17 @@ class Trainer:
         batch or its packed row; on a CPU trainer a batch of tensors runs the
         eager step as it is. Pass a Metrics instance to also drain this
         step's metrics at once (a host sync). Returns (state, loss): a device
-        scalar, or a float with `metrics`."""
+        scalar, or a float with `metrics`. The call is the span `train.step`."""
         if (self.device.type == "cuda" and isinstance(batch, dict)
                 and isinstance(batch["Z"], torch.Tensor)):
             raise TypeError("train_on_batch on a CUDA trainer takes the host batch (or its "
                             "packed row); the eager step on tensors is train_step")
-        state, step_metrics, counts = self.train_step_fn()(state, batch, lr_scale)
-        if metrics is not None:
-            self._update_metrics(metrics, step_metrics, counts)
-            return state, float(step_metrics["loss"])
-        return state, step_metrics["loss"].clone()
+        with spans.span("train.step"):
+            state, step_metrics, counts = self.train_step_fn()(state, batch, lr_scale)
+            if metrics is not None:
+                self._update_metrics(metrics, step_metrics, counts)
+                return state, float(step_metrics["loss"])
+            return state, step_metrics["loss"].clone()
 
     def drain_metrics(self, state: TrainState, metrics) -> TrainState:
         """Move the device-side accumulators into a host Metrics object and
