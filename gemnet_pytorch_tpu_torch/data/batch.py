@@ -98,24 +98,50 @@ def merge_tree(merge_ptr: np.ndarray, merge_seg: np.ndarray,
     MERGE_FAN consecutive slots, each group a node whose sum takes a new slot
     (numbered from n_partials on); those slots are grouped again, and so on,
     until one group is left, the root, which writes the segment's output.
-    Every node's children are consecutive slots."""
-    nodes, parent = [], np.full(n_partials, -1, np.int64)
-    next_slot = n_partials
-    for j, seg in enumerate(merge_seg):
-        level = np.arange(merge_ptr[j], merge_ptr[j + 1])
-        while True:
-            groups = [level[i:i + MERGE_FAN] for i in range(0, len(level), MERGE_FAN)]
-            root = len(groups) == 1
-            outs = np.arange(next_slot, next_slot + (0 if root else len(groups)))
-            next_slot += len(outs)
-            parent = np.concatenate([parent, np.full(len(outs), -1)])
-            for k, grp in enumerate(groups):
-                parent[grp] = len(nodes)
-                nodes.append((grp[0], grp[-1] + 1, -1 if root else outs[k], seg))
-            if root:
-                break
-            level = outs
-    return np.asarray(nodes, np.int64).reshape(-1, 4), parent
+    Every node's children are consecutive slots.
+
+    Nodes are numbered segment by segment, level by level within a segment
+    and group by group within a level, and the non-root nodes' slots follow
+    the same order, so a segment's tree takes one run of node numbers and
+    one run of slots. All segments are built at once: a loop over the tree
+    levels (at most 5 up to 2^20 items) lists each segment's level sizes,
+    c_0 = ceil(k / 16), c_1 = ceil(c_0 / 16), ... down to its root, and from
+    those sizes every node and every `parent` entry is filled in one
+    vectorized step over all segments and levels."""
+    merge_ptr = np.asarray(merge_ptr, np.int64)
+    merge_seg = np.asarray(merge_seg, np.int64)
+    # one block per segment and level: the segment, its children there, its
+    # nodes there (1: the root), the segment's nodes before the block and
+    # before its children's level (-1 at level 0: the children are items)
+    blocks, active, width = [], np.arange(len(merge_seg)), np.diff(merge_ptr)
+    per_seg = np.zeros(len(merge_seg), np.int64)
+    last = np.full(len(merge_seg), -1, np.int64)
+    while True:
+        n = -(-width // MERGE_FAN)
+        blocks.append((active, width, n, per_seg[active], last[active]))
+        last[active] = per_seg[active]
+        per_seg[active] += n
+        active, width = active[n > 1], n[n > 1]
+        if not len(active):
+            break
+    seg, width, n, before, children_before = map(np.concatenate, zip(*blocks))
+    node_base = np.cumsum(per_seg) - per_seg
+    first_node = node_base[seg] + before
+    # a non-root node's slot: one per node before it, less one root per earlier segment
+    out_base = n_partials + node_base[seg] - seg
+    first_child = np.where(children_before < 0, merge_ptr[seg], out_base + children_before)
+    nodes = np.empty((int(per_seg.sum()), 4), np.int64)
+    parent = np.full(n_partials + len(nodes) - len(merge_seg), -1, np.int64)
+    # slot first_child + c feeds the block's node c // MERGE_FAN
+    b, c = np.repeat(np.arange(len(seg)), width), ragged_range(width)
+    parent[first_child[b] + c] = first_node[b] + c // MERGE_FAN
+    # node g adds slots [first_child + g MERGE_FAN, first_child + min((g + 1) MERGE_FAN, width))
+    b, g = np.repeat(np.arange(len(seg)), n), ragged_range(n)
+    first = first_child[b] + g * MERGE_FAN
+    nodes[first_node[b] + g] = np.stack([
+        first, np.minimum(first + MERGE_FAN, (first_child + width)[b]),
+        np.where(n[b] > 1, (out_base + before)[b] + g, -1), merge_seg[seg[b]]], 1)
+    return nodes, parent
 
 
 def plan_capacity(n_rows: int, n_segments: int, item_rows: int) -> PlanCapacity:

@@ -3,7 +3,9 @@ on the row count, the segment count and the item size alone; the bounds
 `plan_capacity` derives from `merge_tree` hold for every plan drawn; and a numpy
 emulation of the kernels' item and merge semantics (a padding item or merge,
 segment -1, skipped) sums to the same fp32 bits over the capacity plan as
-over the exact one."""
+over the exact one. `merge_tree` builds every split segment's tree at once;
+`_merge_tree_loop`, one segment at a time, is the oracle of its numbering,
+held array for array and through the packer's words."""
 
 import numpy as np
 import pytest
@@ -165,3 +167,91 @@ def test_capacity_bounds_are_reached_or_near(item_rows):
     cap = plan_capacity(n_rows, n_seg, item_rows)
     assert len(exact["items"]) == n_seg - 1 + -(-n_rows // item_rows) <= cap.items
     assert n_partials == -(-n_rows // item_rows) <= cap.partials
+
+
+def _merge_tree_loop(merge_ptr, merge_seg, n_partials):
+    """`merge_tree`'s (nodes, parent), one split segment and one level at a
+    time: the oracle of its numbering (segment by segment, level by level,
+    group by group; the non-root slots in the same order)."""
+    from gemnet_pytorch_tpu_torch.data.batch import MERGE_FAN
+
+    nodes, parent = [], np.full(n_partials, -1, np.int64)
+    next_slot = n_partials
+    for j, seg in enumerate(merge_seg):
+        level = np.arange(merge_ptr[j], merge_ptr[j + 1])
+        while True:
+            groups = [level[i:i + MERGE_FAN] for i in range(0, len(level), MERGE_FAN)]
+            root = len(groups) == 1
+            outs = np.arange(next_slot, next_slot + (0 if root else len(groups)))
+            next_slot += len(outs)
+            parent = np.concatenate([parent, np.full(len(outs), -1)])
+            for k, grp in enumerate(groups):
+                parent[grp] = len(nodes)
+                nodes.append((grp[0], grp[-1] + 1, -1 if root else outs[k], seg))
+            if root:
+                break
+            level = outs
+    return np.asarray(nodes, np.int64).reshape(-1, 4), parent
+
+
+def _split_segments(items):
+    """(merge_ptr, merge_seg, n_partials) of split segments of `items` items
+    each, as `plan_arrays` lays them out: segment ids ascending with gaps
+    (the unsplit segments between them), every item slot in a segment."""
+    merge_ptr = np.concatenate([[0], np.cumsum(np.asarray(items, np.int64))])
+    merge_seg = 3 * np.arange(len(items), dtype=np.int64) + 1
+    return merge_ptr, merge_seg, int(merge_ptr[-1])
+
+
+def _assert_trees_equal(merge_ptr, merge_seg, n_partials):
+    from gemnet_pytorch_tpu_torch.data.batch import merge_tree
+
+    got = merge_tree(merge_ptr, merge_seg, n_partials)
+    ref = _merge_tree_loop(merge_ptr, merge_seg, n_partials)
+    for name, a, b in zip(("nodes", "parent"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+# md128's id3_reduce_ca plan: 7,920 real edge segments of 2-9 items and the
+# padded rows' segment of 8,659 items, the last
+_MD128_ID3 = np.concatenate([np.random.default_rng(0).integers(2, 10, 7920), [8659]])
+MERGE_CASES = {"no_split": [], "k2": [2], "k16": [16], "k17": [17], "k256": [256],
+               "k257": [257], "k4097": [4097], "md128_id3_reduce_ca": _MD128_ID3}
+
+
+@pytest.mark.parametrize("items", list(MERGE_CASES.values()), ids=list(MERGE_CASES))
+def test_merge_tree_matches_the_loop(items):
+    """The trees built for all segments at once: the loop's nodes and
+    parents, array for array, at the level boundaries (16, 256, 4096 items
+    and one past) and at md128's triplet plan."""
+    _assert_trees_equal(*_split_segments(items))
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.lists(st.one_of(st.integers(2, 40), st.integers(2, 5000)), max_size=40))
+def test_merge_tree_matches_the_loop_drawn(items):
+    """Drawn item counts, many small segments beside a few deep trees."""
+    _assert_trees_equal(*_split_segments(items))
+
+
+def test_packer_words_match_the_loops_trees(monkeypatch):
+    """A dense triplet batch (a random 48-atom cluster, most edge segments
+    split in the 16-row plan): `BatchPacker.pack` gives the same int32
+    words with `merge_tree` as with the loop's trees in its place."""
+    from gemnet_pytorch_tpu_torch.data import batch as batch_module
+    from gemnet_pytorch_tpu_torch.data.containers import Molecule
+    from gemnet_pytorch_tpu_torch.data.packer import BatchPacker
+
+    rng = np.random.default_rng(3)
+    n_atoms = 48
+    R = rng.uniform(0.0, 6.0, (n_atoms, 3)).astype(np.float32)
+    Z = rng.integers(1, 10, n_atoms).astype(np.int32)
+    batch = Molecule(R, Z, cutoff=5.0, int_cutoff=10.0, triplets_only=True).get()
+    arrays, _, _ = batch_module.plan_arrays(batch["id3_reduce_ca"], len(batch["id_c"]), 16)
+    assert (arrays["merge_seg"] >= 0).sum() > batch["edge_mask"].sum() // 2
+    words = BatchPacker().pack(batch)
+    monkeypatch.setattr(batch_module, "merge_tree", _merge_tree_loop)
+    loop_words = BatchPacker().pack(batch)
+    assert words.dtype == loop_words.dtype == np.int32
+    np.testing.assert_array_equal(words, loop_words)
