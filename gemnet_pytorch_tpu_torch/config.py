@@ -55,10 +55,36 @@ class ModelConfig:
     ep_axis: Optional[str] = None
     ep_halo: bool = False
     remat_blocks: bool = False
+    # the bases, by OCP's names (ocpmodels/models/gemnet/layers/
+    # radial_basis.py, spherical_basis.py): rbf "gaussian" with cbf
+    # "spherical_harmonics" is OCP's GemNet-T, its direct-force head
+    # included, the defaults "bessel" and "bessel" TUM's; no other pair
+    # runs. The envelope is the polynomial one of `envelope_exponent`
+    rbf: str = "bessel"
+    cbf: str = "bessel"
+    # the edges a target atom keeps, nearest first (OCP's max_neighbors;
+    # periodic systems only)
+    max_neighbors: Optional[int] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "ModelConfig":
+        """The fields of `d` that name one; OCP's basis dicts ({"name": ...})
+        as the name, and its envelope ({"name": "polynomial", "exponent":
+        p}) as `envelope_exponent`."""
         names = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d)
+        for key in ("rbf", "cbf", "envelope"):
+            if isinstance(d.get(key), dict):
+                spec = dict(d.pop(key))
+                name = spec.pop("name")
+                if key == "envelope":
+                    if name != "polynomial":
+                        raise ValueError(f"envelope {name!r}: the port has 'polynomial'")
+                    d["envelope_exponent"] = spec.pop("exponent", d.get("envelope_exponent", 5))
+                else:
+                    d[key] = name
+                if spec:
+                    raise ValueError(f"{key}: unsupported parameters {sorted(spec)}")
         return cls(**{k: v for k, v in d.items() if k in names})
 
 
@@ -79,6 +105,11 @@ class TrainConfig:
     ema_decay: float = 0.999
     rho_force: float = 0.999
     loss: str = "rmse"  # "mae" | "rmse" (force loss; energy always MAE)
+    # OCP's loss (ocpmodels/trainers/forces_trainer.py): energy_coefficient ·
+    # MAE(E) + force_coefficient · the force loss, in place of rho_force's
+    # weights where both are set; OCP's `loss_force` "l2mae" is `loss` "rmse"
+    energy_coefficient: Optional[float] = None
+    force_coefficient: Optional[float] = None
     mve: bool = False
     agc: bool = False
     # AGC's reference-parity selection (training/tree_opt.py) and the
@@ -102,7 +133,14 @@ class TrainConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "TrainConfig":
+        """The fields of `d` that name one; OCP's `loss_energy` (MAE only)
+        and `loss_force` ("l2mae" or "mae") as `loss`."""
         names = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d)
+        if d.get("loss_energy", "mae") != "mae":
+            raise ValueError(f"loss_energy {d['loss_energy']!r}: only 'mae'")
+        if "loss_force" in d:
+            d["loss"] = {"l2mae": "rmse", "mae": "mae"}[d["loss_force"]]
         return cls(**{k: v for k, v in d.items() if k in names})
 
 

@@ -2,7 +2,8 @@
 
 `pad_batch` emits some index columns as int16 (`padding._shrink_ids`), which
 torch indexing rejects. `to_torch` widens every index column to int64, keeps
-the sort metadata (`*_perm`/`*_sorted`, kernel inputs) as int32, and adds one
+the sort metadata (`*_perm`/`*_sorted`, kernel inputs) as int32 and the
+periodic cell offsets (NARROW_KEYS) as int8, and adds one
 `SegmentPlan` per sorted id column the CUDA segment kernels reduce over,
 computed once per batch on the host.
 
@@ -43,6 +44,10 @@ import torch
 
 from .graph import ragged_range
 from .padding import SORT_META_KEYS
+
+# integer keys the model reads at their own width (not widened to int64):
+# the periodic edges' int8 cell offsets
+NARROW_KEYS = frozenset({"edge_offset"})
 
 
 class PlanCapacity(NamedTuple):
@@ -270,6 +275,8 @@ def to_torch(batch: dict[str, np.ndarray], device, capacity: bool = True) -> dic
         v = np.asarray(v)
         if k in SORT_META_KEYS:
             v = v.astype(np.int32)
+        elif k in NARROW_KEYS:
+            pass
         elif np.issubdtype(v.dtype, np.integer):
             v = v.astype(np.int64)
         elif np.issubdtype(v.dtype, np.floating):

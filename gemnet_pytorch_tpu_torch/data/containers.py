@@ -14,7 +14,12 @@ from .padding import PadDims, pad_batch, scale_graph_dims
 
 class DataContainer:
     """npz-backed dataset (keys N, Z, R, F, E; reference
-    data_container.py:61,93-113) with on-the-fly padded-batch construction."""
+    data_container.py:61,93-113) with on-the-fly padded-batch construction.
+
+    Periodic systems (OC20's): an optional `cell` (nMol, 3, 3), each row a
+    cell vector, makes the graph periodic (`graph.build_graph`), and optional
+    `tags` (nAtoms) mark the free atoms (tag > 0), the ones the force loss
+    counts; `max_neighbors` caps the edges of a target atom."""
 
     def __init__(
         self,
@@ -22,16 +27,20 @@ class DataContainer:
         cutoff: float,
         int_cutoff: float,
         triplets_only: bool = False,
+        max_neighbors: Optional[int] = None,
     ):
         self.cutoff = cutoff
         self.int_cutoff = int_cutoff
         self.triplets_only = triplets_only
+        self.max_neighbors = max_neighbors
         with np.load(path, allow_pickle=True) as data:
             self.N = data["N"].astype(np.int64)
             self.Z = data["Z"].astype(np.int32)
             self.R = data["R"].astype(np.float32)
             self.F = data["F"].astype(np.float32) if "F" in data else None
             self.E = data["E"].astype(np.float32)
+            self.cell = data["cell"].astype(np.float32) if "cell" in data else None
+            self.tags = data["tags"].astype(np.int64) if "tags" in data else None
         assert len(self.E) > 0
         if self.E.ndim == 1:
             self.E = self.E[:, None]
@@ -40,11 +49,14 @@ class DataContainer:
     def __len__(self) -> int:
         return len(self.N)
 
+    def _atoms(self, idx) -> np.ndarray:
+        segs = [np.arange(self.N_cumsum[i], self.N_cumsum[i + 1]) for i in idx]
+        return np.concatenate(segs) if segs else np.zeros(0, dtype=np.int64)
+
     def gather_molecules(self, idx: Sequence[int]):
         """Concatenate raw per-molecule arrays for the given molecule ids."""
         idx = np.asarray(idx, dtype=np.int64)
-        segs = [np.arange(self.N_cumsum[i], self.N_cumsum[i + 1]) for i in idx]
-        atom_idx = np.concatenate(segs) if segs else np.zeros(0, dtype=np.int64)
+        atom_idx = self._atoms(idx)
         N = self.N[idx]
         Z = self.Z[atom_idx]
         R = self.R[atom_idx]
@@ -55,7 +67,11 @@ class DataContainer:
     def build(self, idx: Sequence[int]) -> tuple[GraphArrays, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Canonical (unpadded) batch graph for molecule ids."""
         N, Z, R, E, F = self.gather_molecules(idx)
-        g = build_graph(R, N, self.cutoff, self.int_cutoff, triplets_only=self.triplets_only)
+        cell = None if self.cell is None else self.cell[np.asarray(idx, dtype=np.int64)]
+        g = build_graph(R, N, self.cutoff, self.int_cutoff, triplets_only=self.triplets_only,
+                        cell=cell, max_neighbors=self.max_neighbors)
+        if self.tags is not None:
+            g.free = self.tags[self._atoms(idx)] > 0
         return g, Z, R, E, F
 
     def get_padded(self, idx: Sequence[int], dims: PadDims) -> dict[str, np.ndarray]:

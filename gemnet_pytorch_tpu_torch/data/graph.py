@@ -17,11 +17,32 @@ Index vocabulary (the interchange schema, identical to the reference):
   b->a<-c, sorted by ``id3_reduce_ca``; ``Kidx3`` the rank within a group.
 - ``id4_*``: the quadruplet hierarchy c->a-b<-d over the interaction edges
   a-b and the two intermediate triplet spaces, sorted by ``id4_reduce_ca``.
+
+Periodic systems (a ``cell`` per system, OCP's GemNetT graph; triplets
+only): an edge s -> t runs from the image of s at R[s] + o.cell, ``o`` its
+integer cell offset (``edge_offset``); the search covers the image shells
+that each cell vector's height asks for, so a cell narrower than the cutoff
+gives edges to images two and more cells away, and an atom's edges to its
+own images. ``max_neighbors`` keeps each target's nearest, ties broken by
+(distance, source index, offset). The shells are searched around the
+atoms' positions wrapped into the cell, so an atom outside it finds every
+image as well; the offsets are from the atoms' own positions, so moving an
+atom by a lattice vector changes its edges' offsets and nothing else.
+Then OCP's symmetric selection (``GemNetT.reorder_symmetric_edges``): an
+edge is kept where s < t, or s == t and o is lexicographically negative,
+and the reverse (t -> s, -o) of every kept edge follows, so ``id_swap``
+keeps its meaning. Triplets pair
+two distinct edges sharing a target: b == c through two images is one.
+The span ``graph.neighbours`` covers the search, the cap and the
+selection; the counters ``graph.cap_candidates``, ``graph.cap_dropped``
+and ``graph.image_edges`` count the edges within the cutoff, those the cap
+removed and the kept edges with a non-zero offset.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -91,6 +112,12 @@ class GraphArrays:
     id4_expand_intm_db: np.ndarray = field(default_factory=lambda: np.zeros(0, INT))
     id4_reduce_intm_ab: np.ndarray = field(default_factory=lambda: np.zeros(0, INT))
     id4_expand_intm_ab: np.ndarray = field(default_factory=lambda: np.zeros(0, INT))
+    # periodic systems: each edge's source image offset (int8, (nEdges, 3)),
+    # each system's cell (float32, (nMol, 3, 3), rows the cell vectors)
+    edge_offset: Optional[np.ndarray] = None
+    cell: Optional[np.ndarray] = None
+    # each atom's free flag (OC20's tags > 0), set by the container
+    free: Optional[np.ndarray] = None
 
     @property
     def n_edges(self) -> int:
@@ -154,17 +181,24 @@ def build_graph(
     cutoff: float,
     int_cutoff: float | None = None,
     triplets_only: bool = False,
+    cell: np.ndarray | None = None,
+    max_neighbors: int | None = None,
 ) -> GraphArrays:
     """Build the full index hierarchy for a batch of molecules with the
     native C++ builder (`native.py`, built at first use; a failed build
     raises, nothing falls back to numpy).
 
     R: (nAtoms, 3) concatenated positions; N: (nMolecules,) atoms per
-    molecule; cutoff: edge cutoff; int_cutoff: quadruplet interaction cutoff.
+    molecule; cutoff: edge cutoff; int_cutoff: quadruplet interaction cutoff;
+    cell: (nMolecules, 3, 3) periodic cells (module docstring), with
+    max_neighbors the cap of edges a target atom (a cap needs a cell).
     """
     N = _check_sizes(R, N)
     with spans.span("graph.build"):
-        return _build_graph_native(R, N, cutoff, int_cutoff, triplets_only)
+        if cell is None and max_neighbors is None:
+            return _build_graph_native(R, N, cutoff, int_cutoff, triplets_only)
+        return _build_periodic(R, N, _check_cell(cell, N), cutoff, max_neighbors,
+                               triplets_only)
 
 
 def build_graph_numpy(
@@ -174,8 +208,9 @@ def build_graph_numpy(
     int_cutoff: float | None = None,
     triplets_only: bool = False,
 ) -> GraphArrays:
-    """`build_graph`'s arrays from numpy and scipy: the reference the
-    native builder is held against, array for array."""
+    """`build_graph`'s arrays from numpy and scipy for molecules: the
+    reference the native builder is held against, array for array (the
+    periodic graph's is the benchmark's `reference/graph_pbc.py`)."""
     N = _check_sizes(R, N)
     n_atoms = int(N.sum())
     batch_seg = np.repeat(np.arange(len(N), dtype=INT), N)
@@ -307,3 +342,38 @@ def _build_graph_native(R, N, cutoff, int_cutoff, triplets_only) -> GraphArrays:
                     "id4_expand_intm_db", "id4_reduce_intm_ab", "id4_expand_intm_ab"):
             setattr(g, key, raw[key])
     return g
+
+
+# ------------------------------------------------------------ periodic systems
+
+
+def _check_cell(cell, N) -> np.ndarray:
+    """The cells as float32 (nMol, 3, 3)."""
+    if cell is None:
+        raise ValueError("max_neighbors caps the periodic graph: pass the systems' cells")
+    cell = np.asarray(cell, np.float32)
+    if cell.shape != (len(N), 3, 3):
+        raise ValueError(f"cell has shape {cell.shape}, N holds {len(N)} systems")
+    return cell
+
+
+def _build_periodic(R, N, cell, cutoff, max_neighbors, triplets_only) -> GraphArrays:
+    from .native import edge_triplets, pbc_neighbours
+
+    if not triplets_only:
+        raise NotImplementedError("periodic systems build triplets only")
+    n_atoms = int(N.sum())
+    with spans.span("graph.neighbours"):
+        e = pbc_neighbours(R, N, cell, cutoff, max_neighbors)
+    spans.count("graph.cap_candidates", e["candidates"])
+    spans.count("graph.cap_dropped", e["dropped"])
+    spans.count("graph.image_edges", int(np.any(e["offset"] != 0, axis=1).sum()))
+    t = edge_triplets(e["id_c"], e["id_a"], n_atoms)
+    n_undir = len(e["id_c"]) // 2
+    ind = np.arange(n_undir, dtype=INT)
+    return GraphArrays(
+        batch_seg=np.repeat(np.arange(len(N), dtype=INT), N),
+        id_c=e["id_c"], id_a=e["id_a"],
+        id_undir=np.concatenate([ind, ind]), id_swap=np.concatenate([ind + n_undir, ind]),
+        id3_expand_ba=t["id3_expand_ba"], id3_reduce_ca=t["id3_reduce_ca"], Kidx3=t["Kidx3"],
+        edge_offset=e["offset"], cell=cell)

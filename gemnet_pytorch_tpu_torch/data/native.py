@@ -46,6 +46,12 @@ class _GraphResult(ctypes.Structure):
     )
 
 
+class _PbcEdges(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_int64) for n in ("n_edges", "n_candidates", "n_dropped")]
+                + [(n, ctypes.POINTER(ctypes.c_int32)) for n in ("id_c", "id_a")]
+                + [("offset", ctypes.POINTER(ctypes.c_int8))])
+
+
 def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     try:
         return subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -93,6 +99,18 @@ def _load() -> ctypes.CDLL:
             ]
             lib.free_graph_native.argtypes = [ctypes.POINTER(_GraphResult)]
             lib.free_graph_native.restype = None
+            lib.pbc_neighbours.restype = ctypes.POINTER(_PbcEdges)
+            lib.pbc_neighbours.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_float), ctypes.c_double, ctypes.c_int64,
+            ]
+            lib.free_pbc_edges.argtypes = [ctypes.POINTER(_PbcEdges)]
+            lib.free_pbc_edges.restype = None
+            lib.edge_triplets.restype = ctypes.POINTER(_GraphResult)
+            lib.edge_triplets.argtypes = [
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+                ctypes.c_int64,
+            ]
             _lib = lib
         return _lib
 
@@ -137,5 +155,49 @@ def build_graph_native(R: np.ndarray, N: np.ndarray, cutoff: float, int_cutoff: 
             id4_expand_abd=_arr(g.q_abd, g.n_quads),
             Kidx4=_arr(g.kidx4, g.n_quads),
         )
+    finally:
+        lib.free_graph_native(res)
+
+
+def pbc_neighbours(R: np.ndarray, N: np.ndarray, cell: np.ndarray, cutoff: float,
+                   max_neighbors: int | None) -> dict:
+    """The edges of periodic systems (`graph.build_graph` with a cell): id_c,
+    id_a, the source images' cell offsets (int8, (nEdges, 3)) and the counts
+    of candidate and capped-off edges. R (sum(N), 3), cell (len(N), 3, 3),
+    its rows the cell vectors."""
+    lib = _load()
+    R = np.ascontiguousarray(R, np.float32)
+    N = np.ascontiguousarray(N, np.int64)
+    cell = np.ascontiguousarray(cell, np.float32)
+    if cell.shape != (len(N), 3, 3) or R.shape != (int(N.sum()), 3):
+        raise ValueError(f"R {R.shape} and cell {cell.shape} do not fit N of {len(N)} systems")
+    res = lib.pbc_neighbours(
+        R.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        N.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(N),
+        cell.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), float(cutoff),
+        -1 if max_neighbors is None else int(max_neighbors))
+    try:
+        e = res.contents
+        offset = (np.ctypeslib.as_array(e.offset, shape=(e.n_edges, 3)).copy()
+                  if e.n_edges else np.zeros((0, 3), np.int8))
+        return dict(id_c=_arr(e.id_c, e.n_edges), id_a=_arr(e.id_a, e.n_edges), offset=offset,
+                    candidates=int(e.n_candidates), dropped=int(e.n_dropped))
+    finally:
+        lib.free_pbc_edges(res)
+
+
+def edge_triplets(id_c: np.ndarray, id_a: np.ndarray, n_atoms: int) -> dict:
+    """Triplets of two distinct edges sharing a target (`graph.build_graph`
+    with a cell): id3_expand_ba, id3_reduce_ca and Kidx3."""
+    lib = _load()
+    id_c = np.ascontiguousarray(id_c, np.int32)
+    id_a = np.ascontiguousarray(id_a, np.int32)
+    res = lib.edge_triplets(id_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                            id_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(id_c),
+                            int(n_atoms))
+    try:
+        g = res.contents
+        return dict(id3_expand_ba=_arr(g.id3_expand, g.n_trip),
+                    id3_reduce_ca=_arr(g.id3_reduce, g.n_trip), Kidx3=_arr(g.kidx3, g.n_trip))
     finally:
         lib.free_graph_native(res)

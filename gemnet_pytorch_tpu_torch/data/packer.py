@@ -4,10 +4,11 @@ package's `BatchPacker` (gemnet_pytorch_tpu/training/trainer.py:56-153).
 `pack` lays a padded numpy batch and its capacity segment plans
 (`data.batch.plan_arrays`) into ONE int32 host buffer, at the widths
 `data.to_torch` hands the model: int64 index columns, int32 sort metadata
-and plans, fp32 floats, bool masks. `unpack` turns one buffer (on the CPU or
-the card) into the batch dict of `to_torch` as zero-copy views: each key a
-slice of words viewed as its dtype. A CUDA graph captured on the views of a
-static device buffer replays on every batch copied into it.
+and plans, int8 cell offsets, fp32 floats, bool masks. `unpack` turns one
+buffer (on the CPU or the card) into the batch dict of `to_torch` as
+zero-copy views: each key a slice of words viewed as its dtype. A CUDA
+graph captured on the views of a static device buffer replays on every
+batch copied into it.
 
 The layout is frozen on first use: the keys in sorted order, the keys the
 model never reads (`UNUSED_DEVICE_KEYS`) skipped, then each plan's arrays;
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..perf import spans
-from .batch import PLAN_ARRAYS, SEGMENT_PLANS, make_plan, plan_arrays, plan_capacity
+from .batch import NARROW_KEYS, PLAN_ARRAYS, SEGMENT_PLANS, make_plan, plan_arrays, plan_capacity
 from .padding import SORT_META_KEYS
 
 # batch keys the model never reads, left out of the buffer (trainer.py:43-46)
@@ -47,7 +48,8 @@ ALIGN = 256
 # pinned staging buffers per size: one filled while the other is in flight
 STAGING_DEPTH = 2
 _TORCH_DTYPE = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
-                np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool}
+                np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool,
+                np.dtype(np.int8): torch.int8}
 
 
 def device_width(key: str, value: np.ndarray) -> np.ndarray:
@@ -55,6 +57,8 @@ def device_width(key: str, value: np.ndarray) -> np.ndarray:
     value = np.asarray(value)
     if key in SORT_META_KEYS:
         return value.astype(np.int32)
+    if key in NARROW_KEYS:
+        return value
     if np.issubdtype(value.dtype, np.integer):
         return value.astype(np.int64)
     if np.issubdtype(value.dtype, np.floating):
@@ -157,8 +161,8 @@ class BatchPacker:
         for key, off, nb, shape, dtype in self.layout:
             raw = words[off // 4:off // 4 + (nb + 3) // 4]
             tdt = _TORCH_DTYPE[np.dtype(dtype)]
-            if tdt == torch.bool:
-                arr = raw.view(torch.uint8)[:nb].view(torch.bool)
+            if tdt in (torch.bool, torch.int8):
+                arr = raw.view(torch.uint8)[:nb].view(tdt)
             else:
                 arr = raw.view(tdt)
             arr = arr.reshape(shape)

@@ -10,6 +10,9 @@ Padding convention (load-bearing, used throughout the model):
 - Real edges stay contiguous at [0, nE); padding sits at [nE, P). Padded
   triplet/quad rows carry reduce id min(nE, P-1), so the reduce columns stay
   sorted, which the CUDA segment kernels require.
+- Periodic batches carry ``edge_offset`` (int8, (P, 3), padded rows 0),
+  ``cell`` (float32, (n_mol, 3, 3), padded systems zero) and, where the
+  container has tags, ``free_mask`` (padded atoms False).
 - The ``*_perm``/``*_sorted`` sort metadata (SORT_META_KEYS) is a
   single-device layout contract: any re-slicing of a row space invalidates
   it and must strip it.
@@ -195,6 +198,13 @@ def _pad_batch(g, Z, R, dims, E, F, triplets_only) -> dict[str, np.ndarray]:
     out["trip_ba_perm"] = perm
     out["trip_ba_sorted"] = out["id3_expand_ba"][perm].astype(np.int32)
     out["kmax3_static"] = np.zeros(dims.kmax3, np.bool_)
+
+    if g.edge_offset is not None:
+        # periodic systems: padded edges take offset 0, padded systems a cell of zeros
+        out["edge_offset"] = _pad1(g.edge_offset.astype(np.int8), P)
+        out["cell"] = _pad1(g.cell.astype(np.float32), dims.n_mol)
+    if g.free is not None:
+        out["free_mask"] = _pad1(g.free.astype(np.bool_), dims.n_atoms)
 
     if E is not None:
         out["E"] = _pad1(E.reshape(n_mol, -1).astype(np.float32), dims.n_mol)

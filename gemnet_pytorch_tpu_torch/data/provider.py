@@ -118,10 +118,12 @@ class DataProvider:
                 scale_graph_dims(g, 1.25), n_mol, int(len(Z) * 1.25)
             )
             spans.count("pad.grow")
-        return pad_batch(
-            g, Z, R, self.pad_dims, E=E, F=F,
-            triplets_only=self.data_container.triplets_only,
-        )
+        return self.pad(g, Z, R, E, F, self.pad_dims)
+
+    def pad(self, g, Z, R, E, F, dims: PadDims) -> dict[str, np.ndarray]:
+        """A raw batch (`DataContainer.build`'s) padded to `dims`."""
+        return pad_batch(g, Z, R, dims, E=E, F=F,
+                         triplets_only=self.data_container.triplets_only)
 
     def _selections(self, split: str, batch_size: int):
         shuffle = self.shuffle if split == "train" else False
@@ -136,7 +138,7 @@ class DataProvider:
 
     def get_dataset(
         self, split: str, batch_size: Optional[int] = None, prefetch_workers: int = 2,
-        transform=None, raw_transform=None,
+        transform=None, raw_transform=None, shard: Optional[tuple[int, int]] = None,
     ) -> Iterator[dict[str, np.ndarray]]:
         """Infinite padded-batch iterator. With prefetch_workers > 0, batches
         are built by background threads ahead of consumption (numpy padding
@@ -149,13 +151,19 @@ class DataProvider:
         instead replaces the padding and receives the raw batched graph (the
         halo partitioner builds its own layout, parallel/halo.py). The spans
         of a batch (`perf.spans`), in the thread that builds it and in the
-        consumer's after it is yielded, carry its sequence number."""
+        consumer's after it is yielded, carry its sequence number.
+        `shard=(rank, ranks)`: of the batches every process draws alike,
+        this one builds and yields only every ranks-th, from `rank` on
+        (data parallelism's shard, `parallel.dp.ShardFeed`)."""
         if split not in self.idx:
             raise KeyError(f"no split {split!r}")
         if transform is not None and raw_transform is not None:
             raise ValueError("pass transform or raw_transform, not both")
         batch_size = batch_size or self.batch_size
         batches = enumerate(self._selections(split, batch_size))
+        if shard is not None:
+            rank, ranks = shard
+            batches = ((seq, sel) for seq, sel in batches if seq % ranks == rank)
 
         def build(seq, sel):
             spans.tag(seq)

@@ -130,6 +130,28 @@ class RadialBasis(nn.Module):
         return env * self.norm_const * torch.sin(self.frequencies[None, :] * d_scaled) / d
 
 
+class GaussianBasis(nn.Module):
+    """OCP's Gaussian radial basis (ocpmodels/models/gemnet/layers/
+    radial_basis.py, RadialBasis with rbf "gaussian"): `num_radial` Gaussians
+    of d/cutoff centred evenly on [0, 1], exp(-0.5 (x - mu)^2 / delta^2),
+    times the polynomial envelope. No parameters."""
+
+    def __init__(self, num_radial: int, cutoff: float, envelope_exponent: int = 5):
+        super().__init__()
+        self.inv_cutoff = 1.0 / cutoff
+        self.envelope = Envelope(envelope_exponent)
+        offset = torch.linspace(0, 1, num_radial)
+        self.coeff = -0.5 / (offset[1] - offset[0]).item() ** 2
+        self.register_buffer("offset", offset, persistent=False)
+
+    def forward(self, d):
+        """d: (nEdges,) guarded distances -> (nEdges, num_radial)."""
+        d_scaled = d * self.inv_cutoff
+        env = self.envelope(d_scaled)
+        x = d_scaled[:, None] - self.offset[None, :]
+        return env[:, None] * torch.exp(self.coeff * torch.pow(x, 2))
+
+
 class _BesselEnvBase(nn.Module):
     """Shared radial part of the 2D/3D bases: j̃_{ln}(d/c)·envelope·c^-1.5."""
 
@@ -164,11 +186,13 @@ class _BesselEnvBase(nn.Module):
         return rbf * self.norm_const * u[:, None, None]
 
 
-class CircularBasis(_BesselEnvBase):
-    """2D Fourier-Bessel basis j̃_{ln}(d)·Y_l0(angle) (reference basis_layers.py:52-162)."""
+class CircularHarmonics:
+    """Y_l0, l < num_spherical, of an angle or of its cosine, by Horner
+    evaluation of the Legendre polynomials' coefficients: TUM's circular
+    basis' angular part, and OCP's cbf "spherical_harmonics" alone
+    (ocpmodels/models/gemnet/layers/spherical_basis.py)."""
 
-    def __init__(self, num_spherical, num_radial, cutoff, envelope_exponent=5):
-        super().__init__(num_spherical, num_radial, cutoff, envelope_exponent)
+    def __init__(self, num_spherical: int):
         # Legendre polynomial coefficients P_l(z), z = cos(angle)
         coeffs = [np.array([1.0]), np.array([0.0, 1.0])]
         for l in range(2, num_spherical):
@@ -180,7 +204,10 @@ class CircularBasis(_BesselEnvBase):
 
     def cbf(self, angle):
         """Y_l0(angle): (N,) -> (N, num_spherical)."""
-        z = torch.cos(angle)
+        return self.cbf_cos(torch.cos(angle))
+
+    def cbf_cos(self, z):
+        """Y_l0 of the angles' cosines z: (N,) -> (N, num_spherical)."""
         outs = []
         for c in self._leg:
             acc = torch.full_like(z, float(c[-1]))
@@ -188,6 +215,14 @@ class CircularBasis(_BesselEnvBase):
                 acc = acc * z + float(coef)
             outs.append(acc)
         return torch.stack(outs, dim=1)
+
+
+class CircularBasis(_BesselEnvBase, CircularHarmonics):
+    """2D Fourier-Bessel basis j̃_{ln}(d)·Y_l0(angle) (reference basis_layers.py:52-162)."""
+
+    def __init__(self, num_spherical, num_radial, cutoff, envelope_exponent=5):
+        _BesselEnvBase.__init__(self, num_spherical, num_radial, cutoff, envelope_exponent)
+        CircularHarmonics.__init__(self, num_spherical)
 
 
 class SphericalBasis(_BesselEnvBase):

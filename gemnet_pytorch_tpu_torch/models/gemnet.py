@@ -15,6 +15,16 @@ otherwise. The batch must carry the sort metadata (SORT_META_KEYS) and the
 segment plans of `to_torch`: the expand gathers and the bilinear
 reductions run on them.
 
+A periodic batch (`edge_offset` and `cell`, `data.graph`) runs OCP's
+GemNet-T geometry: each edge's vector from its source's image, R[t] - R[s]
+- o.cell, and the triplet angles from the edges' unit vectors. The bases
+follow the configuration's `rbf` and `cbf`: TUM's Bessel bases by default,
+or OCP's GemNetT (`rbf` "gaussian", `cbf` "spherical_harmonics": the
+circular basis is Y_l0 of the angle's cosine over the radial basis' rows,
+shared by every order, so the down-projection takes (nEdges, num_radial)
+rows), whose direct-force head is also OCP's (`OutputBlock`'s
+`ocp_forces`).
+
 compute_dtype="bfloat16" is the JAX package's mixed-precision mode
 (`gemnet_pytorch_tpu/models/gemnet.py:90-101`): geometry and basis
 generation stay fp32; the basis outputs and every layer compute in bf16
@@ -94,7 +104,13 @@ from ..ops import _cuda, geometry
 from ..ops.segment import masked_segment_mean, masked_segment_sum
 from ..parallel import mesh
 from ..parallel.collectives import psum
-from .basis import CircularBasis, RadialBasis, SphericalBasis
+from .basis import (
+    CircularBasis,
+    CircularHarmonics,
+    GaussianBasis,
+    RadialBasis,
+    SphericalBasis,
+)
 from .interaction import InteractionBlock
 from .layers import (
     AtomEmbedding,
@@ -117,9 +133,22 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.ep_halo and cfg.ep_axis is None:
         raise ValueError("ep_halo needs ep_axis (the axis name; parallel.halo.halo_model sets "
                          "both)")
+    if (cfg.rbf, cfg.cbf) not in (("bessel", "bessel"), ("gaussian", "spherical_harmonics")):
+        raise NotImplementedError(f"rbf={cfg.rbf!r}, cbf={cfg.cbf!r}: the port has TUM's bases "
+                                  "('bessel', 'bessel') or OCP's ('gaussian', "
+                                  "'spherical_harmonics')")
+    if _ocp(cfg) and cfg.ep_axis is not None:
+        raise NotImplementedError("OCP's GemNet-T runs on one device or under dp")
+    if _ocp(cfg) and not cfg.triplets_only:
+        raise NotImplementedError("OCP's bases are ported for GemNet-(d)T only")
     if cfg.bilinear_implementation not in _cuda.IMPLEMENTATIONS:
         raise ValueError(f"bilinear_implementation={cfg.bilinear_implementation!r}: one of "
                          f"{_cuda.IMPLEMENTATIONS}")
+
+
+def _ocp(cfg: ModelConfig) -> bool:
+    """OCP's GemNet-T (its bases, and its direct-force head), not TUM's."""
+    return cfg.rbf == "gaussian"
 
 
 def _required(batch: dict, keys) -> None:
@@ -156,9 +185,17 @@ class GemNet(nn.Module):
         self.cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         kw = dict(generator=generator, dtype=self.cdt)
         S, Rn = cfg.num_spherical, cfg.num_radial
-        self.rbf_basis = RadialBasis(Rn, cutoff=cfg.cutoff, envelope_exponent=cfg.envelope_exponent)
-        self.cbf_basis3 = CircularBasis(S, Rn, cutoff=cfg.cutoff,
-                                        envelope_exponent=cfg.envelope_exponent)
+        if cfg.rbf == "gaussian":
+            self.rbf_basis = GaussianBasis(Rn, cfg.cutoff, cfg.envelope_exponent)
+        else:
+            self.rbf_basis = RadialBasis(Rn, cutoff=cfg.cutoff,
+                                         envelope_exponent=cfg.envelope_exponent)
+        if cfg.cbf == "spherical_harmonics":
+            # OCP's circular basis: Y_l0(cos) over the radial basis' rows
+            self.cbf_basis3 = CircularHarmonics(S)
+        else:
+            self.cbf_basis3 = CircularBasis(S, Rn, cutoff=cfg.cutoff,
+                                            envelope_exponent=cfg.envelope_exponent)
         if not cfg.triplets_only:
             # 2D basis over interaction edges (dense mode, int_cutoff)
             self.cbf_basis = CircularBasis(S, Rn, cutoff=cfg.int_cutoff,
@@ -188,7 +225,7 @@ class GemNet(nn.Module):
             OutputBlock(
                 cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_rbf, cfg.num_atom,
                 cfg.num_targets, cfg.activation, cfg.direct_forces, cfg.output_init,
-                f"OutBlock_{i}", **kw)
+                f"OutBlock_{i}", ocp_forces=_ocp(cfg), **kw)
             for i in range(cfg.num_blocks + 1)])
         self.to(device)
 
@@ -242,8 +279,20 @@ class GemNet(nn.Module):
         masks = {"edge": edge_mask, "atom": atom_mask, "trip": batch["trip_mask"]}
 
         # ---- geometry ----
-        D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask)
-        if halo:
+        periodic = "edge_offset" in batch
+        if periodic and cfg.ep_axis is not None:
+            raise NotImplementedError("periodic batches run on one device or under dp")
+        shift = (geometry.edge_shifts(batch["edge_offset"], batch["cell"], batch["batch_seg"],
+                                      id_a) if periodic else None)
+        D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask, shift)
+        harmonics = cfg.cbf == "spherical_harmonics"
+        if harmonics:
+            # OCP's cos of the angle from the edges' unit vectors
+            angles3 = geometry.triplet_cosines(V_ca, batch["id3_reduce_ca"],
+                                               batch["id3_expand_ba"])
+        elif periodic:
+            raise NotImplementedError("periodic batches take cbf 'spherical_harmonics' (OCP's)")
+        elif halo:
             # the expand edge's source atom, precomputed per local triplet row
             angles3 = geometry.triplet_angles_halo(R, id_c, id_a, batch["id3_reduce_ca"],
                                                    batch["trip_b_atom"])
@@ -253,8 +302,12 @@ class GemNet(nn.Module):
 
         # ---- basis: triplets ----
         rbf = self.rbf_basis(D_ca) * edge_mask[:, None].to(R.dtype)
-        cbf3_env = self.cbf_basis3.rbf_env(D_ca, edge_mask)  # (E, S, R)
-        sph3 = self.cbf_basis3.cbf(angles3)  # (T, S): rows feed kernel K1
+        if harmonics:
+            cbf3_env = rbf  # (E, R), shared by the S orders
+            sph3 = self.cbf_basis3.cbf_cos(angles3)  # (T, S): rows feed kernel K1
+        else:
+            cbf3_env = self.cbf_basis3.rbf_env(D_ca, edge_mask)  # (E, S, R)
+            sph3 = self.cbf_basis3.cbf(angles3)  # (T, S): rows feed kernel K1
 
         basis = {}
         if not cfg.triplets_only:

@@ -175,7 +175,7 @@ class EfficientInteractionDownProjection(nn.Module):
         self.dtype = dtype
 
     def forward(self, rbf_env):
-        """(nEdges, S, R) -> (nEdges, I, S)."""
+        """(nEdges, S, R), or (nEdges, R) shared by the S orders -> (nEdges, I, S)."""
         return bil_ops.down_projection(_cast(rbf_env, self.dtype), _cast(self.weight, self.dtype))
 
 
@@ -239,13 +239,18 @@ class OutputBlock(nn.Module):
     """Atom update + energy head, and the direct per-edge force head when
     `direct_forces` (reference atom_update_block.py:75-193); `psum_group`
     as AtomUpdateBlock's (JAX `models/layers.py:263-285`): the energy's
-    per-atom accumulator is psum'd, the per-edge force heads stay local."""
+    per-atom accumulator is psum'd, the per-edge force heads stay local.
+
+    TUM's force head runs its MLP on the energy head's m * Dense(rbf);
+    with `ocp_forces` it is OCP's GemNetT head (ocpmodels/models/gemnet/
+    layers/atom_update_block.py OutputBlock): the MLP on m, then times a
+    Dense of its own of rbf (`dense_rbf_F`), scaled ("_had")."""
 
     def __init__(self, emb_size_atom: int, emb_size_edge: int, emb_size_rbf: int,
                  n_hidden: int, num_targets: int, activation: Optional[str] = None,
                  direct_forces: bool = True, output_init: str = "HeOrthogonal",
                  scale_prefix: str = "OutBlock_0", *, generator: torch.Generator,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, ocp_forces: bool = False):
         super().__init__()
         if output_init.lower() not in ("heorthogonal", "zeros"):
             raise ValueError(f"Unknown output_init: {output_init}")
@@ -265,6 +270,9 @@ class OutputBlock(nn.Module):
                                         dtype)
             self.out_forces = Dense(emb_size_edge, num_targets, generator=g, zero_init=zero,
                                     dtype=dtype)
+            if ocp_forces:
+                self.dense_rbf_F = Dense(emb_size_rbf, emb_size_edge, generator=g, dtype=dtype)
+        self.ocp_forces = ocp_forces
 
     def forward(self, h, m, rbf, id_target, edge_mask, atom_mask, psum_group=None):
         x = m * self.dense_rbf(rbf)
@@ -275,7 +283,13 @@ class OutputBlock(nn.Module):
             x_E = layer(x_E)
         x_E = self.out_energy(x_E)
 
-        if self.direct_forces:
+        if self.direct_forces and self.ocp_forces:
+            x_F = m
+            for layer in self.seq_forces:
+                x_F = layer(x_F)
+            x_F = self.scale_rbf(x_F * self.dense_rbf_F(rbf), x_F, edge_mask, edge_mask)
+            x_F = self.out_forces(x_F)
+        elif self.direct_forces:
             x_F = self.scale_rbf(x, m, edge_mask, edge_mask)
             for layer in self.seq_forces:
                 x_F = layer(x_F)

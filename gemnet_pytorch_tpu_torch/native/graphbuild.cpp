@@ -201,6 +201,198 @@ GraphResult* build_graph_native(const float* R, const int64_t* N, int64_t n_mol,
     return out;
 }
 
+// ---- periodic systems (OCP's GemNetT graph) ----
+//
+// pbc_neighbours: every directed edge s -> t whose source image R[s] + o.cell
+// lies within the cutoff of R[t] (squared distance in (1e-4, cutoff^2], in
+// double, OCP's radius_graph_pbc), over the image shells each cell vector's
+// height asks for; per target the max_neighbors nearest, ties broken by
+// (distance, source, offset); then OCP's symmetric selection
+// (GemNetT.reorder_symmetric_edges): an edge is kept where s < t, or s == t
+// and its offset is lexicographically negative, and the reverses of the kept
+// edges (t -> s, -o) follow them. Kept edges come in (target, source, offset)
+// order. The shells are searched around the atoms' positions wrapped into
+// the cell, so atoms outside it find every image too; o is the offset from
+// the atoms' own positions. The distance vector is (R[s] - R[t]) + o.cell
+// with o.cell summed per axis in order: the images o and -o of one atom are
+// at exactly equal distances, as data/graph.py's numpy builder computes them.
+
+struct PbcEdges {
+    int64_t n_edges, n_candidates, n_dropped;
+    int32_t *id_c, *id_a;
+    int8_t* offset;  // (n_edges, 3)
+};
+
+// The cross product of the cell vectors after `axis` (b x c, c x a, a x b)
+// and the cell vector `axis` dotted with it (the signed volume).
+static void cell_cross(const double* C, int axis, double* cr, double* vol) {
+    const double* a = C + 3 * ((axis + 1) % 3);
+    const double* b = C + 3 * ((axis + 2) % 3);
+    cr[0] = a[1] * b[2] - a[2] * b[1];
+    cr[1] = a[2] * b[0] - a[0] * b[2];
+    cr[2] = a[0] * b[1] - a[1] * b[0];
+    const double* c = C + 3 * axis;
+    *vol = c[0] * cr[0] + c[1] * cr[1] + c[2] * cr[2];
+}
+
+__attribute__((optimize("fp-contract=off")))
+PbcEdges* pbc_neighbours(const float* R, const int64_t* N, int64_t n_mol, const float* cell,
+                         double cutoff, int64_t max_neighbors) {
+    struct Cand { double d2; int32_t s; int32_t o[3]; };
+    std::vector<int32_t> kept_t, kept_s;
+    std::vector<int8_t> kept_o;
+    int64_t n_cand = 0, n_drop = 0;
+    const double cut2 = cutoff * cutoff;
+    int64_t off = 0;
+    for (int64_t m = 0; m < n_mol; ++m) {
+        const int64_t n = N[m];
+        double C[9];
+        for (int i = 0; i < 9; ++i) C[i] = static_cast<double>(cell[9 * m + i]);
+        // image shells ceil(cutoff / height) of each cell vector (OCP's
+        // rep_a), searched around each atom's position wrapped into the
+        // cell: w = floor of its fractional coordinates
+        int reps[3];
+        std::vector<int32_t> w(3 * n, 0);
+        for (int ax = 0; ax < 3; ++ax) {
+            double cr[3], vol;
+            cell_cross(C, ax, cr, &vol);
+            const double area = std::sqrt(cr[0] * cr[0] + cr[1] * cr[1] + cr[2] * cr[2]);
+            reps[ax] = vol != 0 ? static_cast<int>(std::ceil(cutoff * area / std::fabs(vol))) : 0;
+            if (vol == 0) continue;
+            for (int64_t i = 0; i < n; ++i) {
+                const float* r = R + 3 * (off + i);
+                double f = static_cast<double>(r[0]) * cr[0];
+                f = f + static_cast<double>(r[1]) * cr[1];
+                f = f + static_cast<double>(r[2]) * cr[2];
+                w[3 * i + ax] = static_cast<int32_t>(std::floor(f / vol));
+            }
+        }
+        std::vector<Cand> cand;
+        for (int64_t t = 0; t < n; ++t) {
+            cand.clear();
+            const float* rt = R + 3 * (off + t);
+            for (int64_t s = 0; s < n; ++s) {
+                const float* rs = R + 3 * (off + s);
+                const double bx = static_cast<double>(rs[0]) - static_cast<double>(rt[0]);
+                const double by = static_cast<double>(rs[1]) - static_cast<double>(rt[1]);
+                const double bz = static_cast<double>(rs[2]) - static_cast<double>(rt[2]);
+                // the wrapped images' offsets, lexicographic; o the true one
+                for (int i = -reps[0]; i <= reps[0]; ++i)
+                    for (int j = -reps[1]; j <= reps[1]; ++j)
+                        for (int k = -reps[2]; k <= reps[2]; ++k) {
+                            const int32_t o[3] = {i - w[3 * s] + w[3 * t],
+                                                  j - w[3 * s + 1] + w[3 * t + 1],
+                                                  k - w[3 * s + 2] + w[3 * t + 2]};
+                            double sh[3];
+                            for (int x = 0; x < 3; ++x) {
+                                double v = static_cast<double>(o[0]) * C[x];
+                                v = v + static_cast<double>(o[1]) * C[3 + x];
+                                v = v + static_cast<double>(o[2]) * C[6 + x];
+                                sh[x] = v;
+                            }
+                            const double dx = bx + sh[0], dy = by + sh[1], dz = bz + sh[2];
+                            double d2 = dx * dx;
+                            d2 = d2 + dy * dy;
+                            d2 = d2 + dz * dz;
+                            if (d2 <= cut2 && d2 > 1e-4)
+                                cand.push_back({d2, static_cast<int32_t>(s), {o[0], o[1], o[2]}});
+                        }
+            }
+            n_cand += static_cast<int64_t>(cand.size());
+            std::vector<char> keep(cand.size(), 1);
+            if (max_neighbors >= 0 && static_cast<int64_t>(cand.size()) > max_neighbors) {
+                std::vector<int32_t> order(cand.size());
+                for (size_t i = 0; i < cand.size(); ++i) order[i] = static_cast<int32_t>(i);
+                std::sort(order.begin(), order.end(), [&](int32_t x, int32_t y) {
+                    const Cand &a = cand[x], &b = cand[y];
+                    if (a.d2 != b.d2) return a.d2 < b.d2;
+                    if (a.s != b.s) return a.s < b.s;
+                    return std::lexicographical_compare(a.o, a.o + 3, b.o, b.o + 3);
+                });
+                for (size_t i = max_neighbors; i < order.size(); ++i) keep[order[i]] = 0;
+                n_drop += static_cast<int64_t>(cand.size()) - max_neighbors;
+            }
+            for (size_t i = 0; i < cand.size(); ++i) {
+                if (!keep[i]) continue;
+                const int32_t s = cand[i].s;
+                const int32_t* o = cand[i].o;
+                const bool negative =
+                    o[0] < 0 || (o[0] == 0 && (o[1] < 0 || (o[1] == 0 && o[2] < 0)));
+                if (s < t || (s == t && negative)) {
+                    kept_t.push_back(static_cast<int32_t>(off + t));
+                    kept_s.push_back(static_cast<int32_t>(off + s));
+                    for (int x = 0; x < 3; ++x) kept_o.push_back(static_cast<int8_t>(o[x]));
+                }
+            }
+        }
+        off += n;
+    }
+    const int64_t half = static_cast<int64_t>(kept_t.size());
+    std::vector<int32_t> id_c(2 * half), id_a(2 * half);
+    std::vector<int8_t> offset(6 * half);
+    for (int64_t e = 0; e < half; ++e) {
+        id_a[e] = kept_t[e]; id_c[e] = kept_s[e];
+        id_a[half + e] = kept_s[e]; id_c[half + e] = kept_t[e];
+        for (int x = 0; x < 3; ++x) {
+            offset[3 * e + x] = kept_o[3 * e + x];
+            offset[3 * (half + e) + x] = static_cast<int8_t>(-kept_o[3 * e + x]);
+        }
+    }
+    auto* out = static_cast<PbcEdges*>(malloc(sizeof(PbcEdges)));
+    out->n_edges = 2 * half;
+    out->n_candidates = n_cand;
+    out->n_dropped = n_drop;
+    out->id_c = copy_out(id_c);
+    out->id_a = copy_out(id_a);
+    out->offset = static_cast<int8_t*>(malloc(offset.empty() ? 1 : offset.size()));
+    if (!offset.empty()) memcpy(out->offset, offset.data(), offset.size());
+    return out;
+}
+
+void free_pbc_edges(PbcEdges* e) {
+    if (!e) return;
+    free(e->id_c); free(e->id_a); free(e->offset);
+    free(e);
+}
+
+// edge_triplets: every pair of distinct edges b -> a, c -> a sharing their
+// target, reduce edge c -> a major, the expand edges b -> a in (source, edge)
+// order; b == c is a triplet where the two edges differ (two images of one
+// atom, GemNetT.get_triplets). Returned in GraphResult's triplet fields.
+GraphResult* edge_triplets(const int32_t* id_c, const int32_t* id_a, int64_t n_edges,
+                           int64_t n_atoms) {
+    Builder b;
+    std::vector<std::vector<int32_t>> incoming(n_atoms);
+    for (int64_t e = 0; e < n_edges; ++e) incoming[id_a[e]].push_back(static_cast<int32_t>(e));
+    for (auto& lst : incoming) {
+        std::sort(lst.begin(), lst.end(), [&](int32_t x, int32_t y) {
+            return id_c[x] != id_c[y] ? id_c[x] < id_c[y] : x < y;
+        });
+    }
+    int64_t total = 0;
+    for (int64_t r = 0; r < n_edges; ++r)
+        total += static_cast<int64_t>(incoming[id_a[r]].size()) - 1;
+    b.id3_reduce.reserve(total);
+    b.id3_expand.reserve(total);
+    b.kidx3.reserve(total);
+    for (int64_t r = 0; r < n_edges; ++r) {
+        int32_t k = 0;
+        for (int32_t x : incoming[id_a[r]]) {
+            if (x == r) continue;
+            b.id3_reduce.push_back(static_cast<int32_t>(r));
+            b.id3_expand.push_back(x);
+            b.kidx3.push_back(k++);
+        }
+    }
+    auto* out = static_cast<GraphResult*>(calloc(1, sizeof(GraphResult)));
+    out->n_edges = n_edges;
+    out->n_trip = static_cast<int64_t>(b.id3_reduce.size());
+    out->id3_expand = copy_out(b.id3_expand);
+    out->id3_reduce = copy_out(b.id3_reduce);
+    out->kidx3 = copy_out(b.kidx3);
+    return out;
+}
+
 void free_graph_native(GraphResult* g) {
     if (!g) return;
     free(g->id_c); free(g->id_a);

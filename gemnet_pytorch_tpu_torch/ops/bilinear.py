@@ -15,7 +15,10 @@ from .segment_outer import segment_outer_sum
 
 
 def down_projection(rbf_env, weight):
-    """Per-order radial down-projection: (nEdges, S, R) x (S, R, I) -> (nEdges, I, S)."""
+    """Per-order radial down-projection: (nEdges, S, R) x (S, R, I) -> (nEdges, I, S);
+    or (nEdges, R) rows that every order shares (OCP's (1, nEdges, R))."""
+    if rbf_env.dim() == 2:
+        return torch.einsum("er,sri->eis", rbf_env, weight)
     return torch.einsum("esr,sri->eis", rbf_env, weight)
 
 

@@ -15,12 +15,16 @@ from .expand_gather import expand_gather
 _EPS_SQ = 1e-18  # guards |cross|^2; matches the reference's y >= 1e-9 clamp
 
 
-def interatomic_vectors(R, id_s, id_t, mask):
+def interatomic_vectors(R, id_s, id_t, mask, shift=None):
     """Distances and unit directions s->t per edge (reference gemnet.py:262-286).
+    `shift` (nEdges, 3): where the source is an image at R[s] + shift
+    (periodic systems, `edge_shifts`).
 
     Padded edges (mask False) get D=1, V=0 with zero gradient into R.
     """
     V = R[id_t] - R[id_s]
+    if shift is not None:
+        V = V - shift
     V = torch.where(mask[:, None], V, torch.zeros_like(V))
     d2 = torch.sum(V * V, dim=1)
     d2 = torch.where(mask, d2, torch.ones_like(d2))  # guarded: sqrt'(1) finite
@@ -45,6 +49,21 @@ def vector_rejection(R_ab, P_n):
     a_dot_n = torch.sum(R_ab * P_n, dim=-1)
     n_dot_n = torch.clamp_min(torch.sum(P_n * P_n, dim=-1), _EPS_SQ)
     return R_ab - (a_dot_n / n_dot_n)[:, None] * P_n
+
+
+def edge_shifts(edge_offset, cell, batch_seg, id_t):
+    """o.cell of each edge's source image: its integer cell offset (int8,
+    (nEdges, 3)) times the cell of its target's system ((nMol, 3, 3), rows
+    the cell vectors), summed over the three vectors."""
+    C = cell[batch_seg[id_t]]  # (nEdges, 3, 3)
+    return torch.sum(edge_offset.to(C.dtype)[:, :, None] * C, dim=1)
+
+
+def triplet_cosines(V, id3_reduce_ca, id3_expand_ba):
+    """cos of the angle c<-a->b from the two edges' unit vectors, clamped
+    to [-1, 1] (OCP's inner_product_normalized): right across a cell
+    boundary, where the atoms' positions are not."""
+    return torch.clamp(torch.sum(V[id3_reduce_ca] * V[id3_expand_ba], dim=-1), -1.0, 1.0)
 
 
 def triplet_angles(R, id_c, id_a, id3_reduce_ca, id3_expand_ba):

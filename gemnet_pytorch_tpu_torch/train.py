@@ -50,8 +50,9 @@ coordinator flags (process 0's host:port, the process count, this
 process's id); the process group's backend follows the device (NCCL on
 the card, gloo on the CPU). `--dp N` (N = the world size, as train.py
 asserts; `--coordinator` alone takes the world size) gives each rank one of
-N batches drawn by every process alike, and runs the data-parallel step
-(`parallel.dp`); `--halo N` partitions each batch over the N ranks in the
+N batches drawn by every process alike, which it alone builds, with the
+pad dims agreed across the ranks before each step (`DPBatches`), and runs
+the data-parallel step (`parallel.dp`); `--halo N` partitions each batch over the N ranks in the
 prefetch threads, with HaloPads estimated from sample batches, grown on an
 outlier batch and agreed across the ranks before each step (`HaloBatches`),
 and runs the halo step (`parallel.halo`). `--dp-halo DP EP` cuts the
@@ -110,6 +111,7 @@ import torch
 from .compat import save_reference_checkpoint
 from .config import ModelConfig, TrainConfig
 from .data import DataContainer, DataProvider, make_dataset
+from .data.packer import BatchPacker
 from .data.padding import ROW_BLOCK, pad_batch, round_up, scale_graph_dims
 from .models import GemNet
 from .models.scaling import load_scales_from_json
@@ -313,7 +315,8 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
         logging.warning("dataset missing; generating synthetic data at %s", dataset)
         make_dataset(dataset, n_molecules=synthetic_molecules, seed=tcfg.data_seed)
     container = DataContainer(dataset, cutoff=mcfg.cutoff, int_cutoff=mcfg.int_cutoff,
-                              triplets_only=mcfg.triplets_only)
+                              triplets_only=mcfg.triplets_only,
+                              max_neighbors=mcfg.max_neighbors)
     num_train = tcfg.num_train or int(0.9 * len(container))
     num_val = tcfg.num_val or len(container) - num_train
     provider = DataProvider(container, num_train, num_val, tcfg.batch_size,
@@ -392,8 +395,11 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
     if dp:
         from .parallel import dp as dp_mod
 
-        train_iter = provider.get_dataset("train", transform=trainer.packer.pack)
-        step_fn = dp_mod.make_dp_train_step(trainer, group)
+        dp_batches = DPBatches(trainer, provider, group)
+        train_iter = provider.get_dataset("train", raw_transform=dp_batches.prepare,
+                                          shard=(rank, dp))
+        dp_step = dp_mod.make_dp_train_step(trainer, group)
+        step_fn = lambda state, item, lr: dp_step(state, dp_batches.row(item), lr)  # noqa: E731
         val_step = dp_mod.make_dp_eval_step(trainer, group)
         logging.info("data parallel over %d processes, rank %d", dp, rank)
     elif halo or dp_halo:
@@ -440,9 +446,8 @@ def run(config: dict, *, device="cuda", synthetic_molecules: int = 512,
                             lr_eff != plateau.lr_scale)
             step += k
             # metrics accumulate on the device, drained at eval intervals
-            if dp:
-                # every process draws the same dp batches and steps on its own
-                state, _, _ = step_fn(state, [next(train_iter) for _ in range(dp)][rank], lr_eff)
+            if dp:  # this rank's shard of the dp batches every process draws
+                state, _, _ = step_fn(state, next(train_iter), lr_eff)
             elif dp_halo:  # a batch for each dp row
                 state, _ = step_fn(state, [next(train_iter) for _ in range(dp_halo[0])], lr_eff)
             elif halo or ep:
@@ -571,6 +576,54 @@ def _dp_halo_validation(trainer, state, val_step, val_iter, val_metrics, n_batch
         done += take
         m, c = val_step(state, [next(val_iter) for _ in range(take)], use_ema=True)
         trainer._update_metrics(val_metrics, m, c)
+
+
+class DPBatches:
+    """--dp's batches. Every process draws the same global batches and
+    builds only its own (`get_dataset(shard=(rank, dp))`). `prepare(g, Z,
+    R, E, F)` runs in the provider's threads: it pads the batch at the
+    agreed PadDims and packs it with a packer of its own for those dims
+    (the layout is a function of the dims, so the words are the trainer's
+    packer's), or, for an outlier that outgrows them, only names the dims
+    it wants (headroom 1.25). `row(item)` runs on the main thread before
+    each step: the ranks agree on the dims (`mesh.agree_max`, on a gloo
+    group beside an NCCL one, so the host does not wait for the card),
+    since an outlier is drawn by one rank alone; every rank then steps in
+    one layout and captures at the same step. A batch behind the agreed
+    dims is padded and packed again there, by the trainer's packer, whose
+    layout changes on the main thread alone."""
+
+    def __init__(self, trainer, provider, group):
+        import torch.distributed as dist
+
+        self._trainer, self._provider = trainer, provider
+        self._group = group if mesh.backend(group) == "gloo" else dist.new_group(
+            dist.get_process_group_ranks(group), timeout=mesh.TIMEOUT, backend="gloo")
+        self._dims = provider.pad_dims
+        self._frozen = None  # the dims the trainer's packer was frozen at
+        self._packers: dict = {}
+        self._lock = threading.Lock()
+
+    def prepare(self, g, Z, R, E, F):
+        raw = (g, Z, R, E, F)
+        with self._lock:
+            dims = self._dims
+            packer = self._packers.setdefault(dims, BatchPacker())
+        if not dims.fits(g, len(E), len(Z)):
+            return raw, dims.grow_to(scale_graph_dims(g, 1.25), len(E), int(len(Z) * 1.25)), None
+        return raw, dims, packer.pack(self._provider.pad(*raw, dims))
+
+    def row(self, item) -> np.ndarray:
+        raw, dims, row = item
+        agreed = _dims_max(mesh.agree_max(dims, self._group), self._dims)
+        if agreed != self._dims:
+            logging.info("pad dims agreed across ranks: %s", agreed)
+            with self._lock:
+                self._dims = self._provider.pad_dims = agreed
+        if row is None or dims != agreed or self._frozen != agreed:
+            row = self._trainer.packer.pack(self._provider.pad(*raw, agreed))
+            self._frozen = agreed
+        return row
 
 
 class HaloBatches:

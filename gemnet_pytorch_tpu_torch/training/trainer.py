@@ -2,9 +2,12 @@
 `gemnet_pytorch_tpu/training/trainer.py`; reference
 gemnet/training/trainer.py).
 
-- loss = (1-rho_force)·MAE(E) + rho_force·{MAE|RMSE}(F), or under MVE
-  (`mve=True`, num_targets=2) the Gaussian NLL of both, with softplus
-  variances (reference trainer.py:292-343), masked over padded rows;
+- loss = (1-rho_force)·MAE(E) + rho_force·{MAE|RMSE}(F), or with OCP's
+  `energy_coefficient` and `force_coefficient` their weights in place of
+  rho_force's, or under MVE (`mve=True`, num_targets=2) the Gaussian NLL of
+  both, with softplus variances (reference trainer.py:292-343), masked
+  over padded rows; a batch with a `free_mask` (OC20's tags) counts the
+  free atoms' forces alone, in the loss and the force metrics;
 - the flat optimizer (`flat_opt.apply_update`: shared-gradient scaling,
   global-norm clip, AdamW/Adam(amsgrad), EMA) over one flat fp32 buffer
   whose views are the model's parameters; or, with `flat_optimizer=False`
@@ -226,6 +229,15 @@ class Trainer:
         self.cfg = cfg
         self.model_cfg = model.cfg
         self.rho_force = float(cfg.rho_force)
+        coefficients = (cfg.energy_coefficient, cfg.force_coefficient)
+        if (coefficients[0] is None) != (coefficients[1] is None):
+            raise ValueError("set both energy_coefficient and force_coefficient, or neither")
+        if coefficients[0] is not None and cfg.mve:
+            raise ValueError("OCP's loss coefficients do not apply to MVE's NLL")
+        # (energy, force) weights of the loss: OCP's coefficients, else rho_force's
+        self.loss_weights = ((float(coefficients[0]), float(coefficients[1]))
+                             if coefficients[0] is not None
+                             else (1 - self.rho_force, self.rho_force))
         self.mve = cfg.mve
         # JAX runs AGC in tree mode only (trainer.py:422)
         self.flat = cfg.flat_optimizer and not cfg.agc
@@ -324,7 +336,10 @@ class Trainer:
         denominators, every metric (MVE's variances too) and count global
         (`_ratios`)."""
         tE, tF = batch["E"], batch["F"]
-        mol_mask, atom_mask = batch["mol_mask"], batch["atom_mask"]
+        mol_mask = batch["mol_mask"]
+        # the forces of the free atoms alone where the batch marks them
+        # (OC20's train_on_free_atoms): its padded atoms are not free
+        atom_mask = batch.get("free_mask", batch["atom_mask"])
         e_mae_loc, energy_mae = _ratios(_mae_parts(mean_E, tE, mol_mask), group)
         f_mae_loc, force_mae = _ratios(_mae_parts(mean_F, tF, atom_mask), group)
         f_rmse_loc, force_rmse = _ratios(_rmse_parts(mean_F, tF, atom_mask), group)
@@ -350,10 +365,10 @@ class Trainer:
         else:
             f_loc = f_mae_loc if self.cfg.loss == "mae" else f_rmse_loc
             f_glob = force_mae if self.cfg.loss == "mae" else force_rmse
-            loss = (1 - self.rho_force) * e_mae_loc + self.rho_force * f_loc
+            w_e, w_f = self.loss_weights
+            loss = w_e * e_mae_loc + w_f * f_loc
             metrics = {
-                "loss": (loss if group is None else
-                         (1 - self.rho_force) * energy_mae + self.rho_force * f_glob),
+                "loss": loss if group is None else w_e * energy_mae + w_f * f_glob,
                 "energy_mae": energy_mae,
                 "force_mae": force_mae,
                 "force_rmse": force_rmse,

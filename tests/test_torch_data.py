@@ -293,4 +293,9 @@ def test_model_config_fields_equal_jax():
     from gemnet_pytorch_tpu.config import ModelConfig as JaxConfig
     from gemnet_pytorch_tpu_torch.config import ModelConfig
 
-    assert dataclasses.asdict(ModelConfig()) == dataclasses.asdict(JaxConfig())
+    # the port's fields are JAX's and the periodic GemNet-dT ones (OCP's bases
+    # and neighbour cap), whose defaults keep JAX's model
+    port, ref = dataclasses.asdict(ModelConfig()), dataclasses.asdict(JaxConfig())
+    assert {k: v for k, v in port.items() if k in ref} == ref
+    assert {k: v for k, v in port.items() if k not in ref} == dict(
+        rbf="bessel", cbf="bessel", max_neighbors=None)

@@ -182,6 +182,90 @@ def test_run_parallel_checkpoints_on_rank0_and_resumes(tmp_path, mode):
     assert int(ckpt["step"]) == 6 and int(ckpt["opt_state.count"]) == 6
 
 
+def _dp_rows_rank(rank, world, directory, group):
+    """`train.DPBatches` on this rank, fed its own shard of the payload's
+    batches, all prepared ahead as the prefetch threads do: rank 1's second
+    batch is an outlier that outgrows the dims, which rank 0 cannot see;
+    both ranks prepared their third batch at the old dims. Each rank
+    then steps on its rows in order: the packed widths, the (global)
+    losses, the dims after, and the log lines of dims agreed."""
+    from gemnet_pytorch_tpu_torch import train
+    from gemnet_pytorch_tpu_torch.config import TrainConfig
+    from gemnet_pytorch_tpu_torch.data import DataContainer, DataProvider, make_dataset
+    from gemnet_pytorch_tpu_torch.parallel import dp
+    from gemnet_pytorch_tpu_torch.training import Trainer
+
+    payload = load_payload(directory)
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.msg)
+
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    root.addHandler(Keep())
+    path = os.path.join(directory, f"molecules{rank}.npz")
+    make_dataset(path, n_molecules=8, seed=0)
+    provider = DataProvider(DataContainer(path, 5.0, 10.0, True), 8, 0, 4, seed=0,
+                            pad_dims=payload["dims"])
+    trainer = Trainer(port_model("T", payload["sd"]), TrainConfig(**HALO_TRAIN))
+    state = trainer.init_state()
+    batches = train.DPBatches(trainer, provider, group)
+    items = [batches.prepare(*raw) for raw in payload["raws"][rank]]
+    step = dp.make_dp_train_step(trainer, group)
+    widths, losses = [], []
+    for item in items:
+        row = batches.row(item)
+        state, metrics, _ = step(state, row, 1.0)
+        widths.append(row.size)
+        losses.append(float(metrics["loss"]))
+    return dict(widths=widths, losses=losses, dims=provider.pad_dims, log=records)
+
+
+def test_dp_pads_agree_across_ranks(tmp_path):
+    """Under --dp each rank builds only its own batch, so an outlier grows
+    one rank's dims: the ranks agree on them before each step (the same
+    packed widths on both, and losses, which are the global batch's), the
+    dims end grown past the estimate on both, both ranks grew them at the
+    same step, and packed their later batch again at the agreed dims. Without the agreement the ranks
+    would capture their steps at different calls, and their warm-up
+    all-reduces would pair with each other's steps."""
+    from gemnet_pytorch_tpu_torch.data.padding import PadDims, estimate_pad_dims
+
+    normal = [_random_graph(True, seed, n_mol=4) for seed in (3, 4, 5, 6, 7)]
+    outlier = _random_graph(True, 20, n_mol=9)
+    raws = [[normal[0], normal[1], normal[2]], [normal[3], outlier, normal[4]]]
+    dims = estimate_pad_dims([r[0] for r in normal[:2]], n_mol=4,
+                             n_atoms_list=[len(r[1]) for r in normal[:2]], triplets_only=True,
+                             headroom=1.0)
+    sd = {k: v.detach().clone() for k, v in port_model("T").state_dict().items()}
+    r0, r1 = spawn(_dp_rows_rank, WORLD, tmp_path, payload=dict(raws=raws, dims=dims, sd=sd))
+    assert r0["widths"] == r1["widths"] and r0["losses"] == r1["losses"]
+    assert all(np.isfinite(r0["losses"]))
+    assert r0["widths"][0] < r0["widths"][1] == r0["widths"][2]
+    assert r0["dims"] == r1["dims"] != dims and isinstance(r0["dims"], PadDims)
+    assert r0["log"].count("pad dims agreed across ranks: %s") == 1 == r1["log"].count(
+        "pad dims agreed across ranks: %s")
+
+
+def test_provider_shard(tmp_path):
+    """`get_dataset(shard=(rank, ranks))` yields every ranks-th batch of
+    what every process draws alike, from `rank` on."""
+    from gemnet_pytorch_tpu_torch.data import DataContainer, DataProvider, make_dataset
+
+    path = str(tmp_path / "m.npz")
+    make_dataset(path, n_molecules=12, seed=0)
+    provider = DataProvider(DataContainer(path, 5.0, 10.0, True), 12, 0, 2, seed=3)
+    whole = provider.get_dataset("train", prefetch_workers=0)
+    batches = [next(whole)["R"] for _ in range(9)]
+    for rank in range(3):
+        it = provider.get_dataset("train", prefetch_workers=2, shard=(rank, 3))
+        for k in range(3):
+            np.testing.assert_array_equal(next(it)["R"], batches[3 * k + rank])
+        it.close()
+
+
 def test_run_mode_checks():
     """Two modes at once, a mode without a group (tp's too), a group without
     a mode, and pp_micro without pp raise before anything runs."""
