@@ -12,7 +12,9 @@ Phases:
      K3 sorted segment sum, on fp32 and on bf16 streams; K4, the split3 mode
      of K1 and K2; the row-gather probe kernels P1 and P2) against its plain
      PyTorch version on the card, at the shapes the serving path, the train
-     step and the probe give it (K4 also against the exact fp32 K1/K2; K1
+     step and the probe give it (K3 among them with no perm over the
+     ascending id3_reduce_ca, and over the edges' plan by id_a and id_c at
+     widths 3 and emb_size_atom; K4 also against the exact fp32 K1/K2; K1
      and K4, forward and backward at both shapes, bit-equal across two
      replays of one captured CUDA graph, their merge trees' counters back
      at zero, the triplet K4 forward's tree among them; K1, K2, K3 and K4
@@ -32,10 +34,10 @@ Phases:
      over the published peaks); at both batches' shapes;
   5. serve GemNet-Q at the config.yaml widths (random weights from a seed):
      one predict of the 32-molecule bench-small batch with the launch
-     counters read around it (8 / 8 / 14 launches of K1 / K2 / K3), E and F
+     counters read around it (8 / 8 / 28 launches of K1 / K2 / K3), E and F
      against the same model on the CPU (first 8 molecules), then 10 timed
      requests; then one predict in matmul_precision="high" (8 / 8 split3
-     K1 / K2, 14 fp32 K3, no exact K1/K2), against the CPU, and profiled;
+     K1 / K2, 28 fp32 K3, no exact K1/K2), against the CPU, and profiled;
      then the bench-large batch's first 32-atom system (~580k quadruplets)
      served on the card against the CPU;
   6. the serving calculator on a benzonitrile molecule, 5 perturbed
@@ -58,7 +60,7 @@ Phases:
      into its forward and backward);
   8. the training entry point in matmul_precision="high": one step on the
      card (captured) against the CPU, the eager step's launch census (24 / 24
-     split3 K1 / K2, 26 fp32 K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.
+     split3 K1 / K2, 50 fp32 K3, no exact K1/K2), `gemnet_pytorch_tpu_torch.
      train.run` with 4 steps per call on a synthetic dataset (20 steps, eval
      and checkpoint every 10), resumed from its checkpoint with the state
      equal bit for bit, its reference export loaded back, and 10 timed eager
@@ -269,25 +271,27 @@ TEST_BF16_WIDTHS = dict(
     emb_size_bil_quad=8, emb_size_bil_trip=8)
 # launches of each kernel entry in one train step, from the autograd graph:
 # forward 8 K1 (4 blocks x triplet + quadruplet bilinear); the -dE/dR
-# backward 8 K2 and 14 K3 (4 blocks x trip_ba, intm_db, quad_abd + the two
-# geometry gathers); the loss backward 8 K2 (the forward K1s), 2 K1 + 1 K2
-# for each of the 8 first-backward K2s, and 12 K3 (the forward's 12 network
-# gathers; the geometry gathers lead to R only). In bf16 the geometry K3s
-# stay fp32.
+# backward 8 K2 and 28 K3 (4 blocks x trip_ba, intm_db, quad_abd and the
+# concat layer's h[id_c], h[id_a], + 8 geometry gathers: the edges' R[id_c],
+# R[id_a] twice, the triplet rows' 2, the quadruplet angles' 2); the loss
+# backward 8 K2 (the forward K1s), 2 K1 + 1 K2 for each of the 8
+# first-backward K2s, and 22 K3 (the forward's 20 block gathers and the
+# embedding's h[id_c], h[id_a]; the geometry gathers lead to R only). In
+# bf16 the geometry K3s stay fp32.
 TRAIN_LAUNCHES = {
     "float32": {"gemnet_segment_outer_sum_f32": 24, "gemnet_segment_gather_contract_f32": 24,
-                "gemnet_sorted_segsum_f32": 26},
+                "gemnet_sorted_segsum_f32": 50},
     "bfloat16": {"gemnet_segment_outer_sum_bf16": 24, "gemnet_segment_gather_contract_bf16": 24,
-                 "gemnet_sorted_segsum_bf16": 24, "gemnet_sorted_segsum_f32": 2},
+                 "gemnet_sorted_segsum_bf16": 42, "gemnet_sorted_segsum_f32": 8},
     # matmul_precision="high": every K1/K2 in split3, the K3s exact fp32
     "high": {"gemnet_segment_outer_sum_split3": 24,
-             "gemnet_segment_gather_contract_split3": 24, "gemnet_sorted_segsum_f32": 26},
+             "gemnet_segment_gather_contract_split3": 24, "gemnet_sorted_segsum_f32": 50},
 }
 SERVE_LAUNCHES = {
     "default": {"gemnet_segment_outer_sum_f32": 8, "gemnet_segment_gather_contract_f32": 8,
-                "gemnet_sorted_segsum_f32": 14},
+                "gemnet_sorted_segsum_f32": 28},
     "high": {"gemnet_segment_outer_sum_split3": 8, "gemnet_segment_gather_contract_split3": 8,
-             "gemnet_sorted_segsum_f32": 14},
+             "gemnet_sorted_segsum_f32": 28},
 }
 # phases 3 and 4 at the bench-large batch: the shapes it gives the
 # quadruplet K1/K2/K4 (2454528 rows, 3456 segments) and K3's quad_abd row
@@ -327,19 +331,19 @@ CAPTURED_STEPS = 5
 CAPTURED_LOSS_RTOL = 1e-5
 CAPTURED_UPDATE_REL_L2 = 1e-4
 # phase 12: MVE (num_targets=2). Launches of one MVE step, from the autograd
-# graph: forward 8 K1; each of the two -dE/dR backwards 8 K2 and 14 K3; the
+# graph: forward 8 K1; each of the two -dE/dR backwards 8 K2 and 28 K3; the
 # loss backward through both force graphs: 8 K2 (the forward K1s, whose
 # cotangents from both graphs sum first), 2 K1 + 1 K2 for each of the 16
-# first-backward K2s, and 12 K3 (the forward's network gathers). In bf16 the
-# geometry K3s (2 per backward) stay fp32
+# first-backward K2s, and 22 K3 (the forward's network gathers). In bf16 the
+# geometry K3s (8 per backward) stay fp32
 MVE_TRAIN = dict(mve=True)
 MVE_LAUNCHES = {
     "float32": {"gemnet_segment_outer_sum_f32": 40, "gemnet_segment_gather_contract_f32": 40,
-                "gemnet_sorted_segsum_f32": 40},
+                "gemnet_sorted_segsum_f32": 78},
     "bfloat16": {"gemnet_segment_outer_sum_bf16": 40, "gemnet_segment_gather_contract_bf16": 40,
-                 "gemnet_sorted_segsum_bf16": 36, "gemnet_sorted_segsum_f32": 4},
+                 "gemnet_sorted_segsum_bf16": 62, "gemnet_sorted_segsum_f32": 16},
     "high": {"gemnet_segment_outer_sum_split3": 40,
-             "gemnet_segment_gather_contract_split3": 40, "gemnet_sorted_segsum_f32": 40},
+             "gemnet_segment_gather_contract_split3": 40, "gemnet_sorted_segsum_f32": 78},
 }
 # phase 12: the per-tensor optimizer and AGC (config.yaml's clip factor 10)
 TREE_MODES = {"tree": dict(flat_optimizer=False), "agc": dict(agc=True),
@@ -526,6 +530,7 @@ def kernel_cases(cfg, batch, device, seed: int = 0, tags=None):
     M3, M4 = cfg.emb_size_trip, cfg.emb_size_quad
     n_e = batch["id_c"].shape[0]
     n_intm = batch["id4_reduce_intm_ca"].shape[0]
+    n_atoms = batch["Z"].shape[0]
     cases = []
     for dtype in ("f32", "bf16", "split3"):
         cast = (lambda t: t.bfloat16()) if dtype == "bf16" else (lambda t: t)
@@ -541,21 +546,35 @@ def kernel_cases(cfg, batch, device, seed: int = 0, tags=None):
                           shape=(n, S, M, n_e))
             cases.append(dict(kernel="K1", **common))
             cases.append(dict(kernel="K2", cot=cast(rand(S, n_e, M)), **common))
-        for tag, sort, idx, M, n_src in (
-            ("trip_ba", "trip_ba", "id3_expand_ba", M3, n_e),
-            ("intm_db", "intm_db", "id4_expand_intm_db", M4, n_e),
-            ("quad_abd", "quad_abd", "id4_expand_abd", M4, n_intm),
-            ("geometry_abd", "quad_abd", "id4_expand_abd", 3, n_intm),
-            ("geometry_cab", "quad_cab", "id4_reduce_cab", 4, n_intm),
+        # (tag, gathered column, perm (None: the column is ascending), sorted
+        # column, plan, width, table rows)
+        for tag, idx, perm, srt, plan, M, n_src in (
+            ("trip_ba", "id3_expand_ba", "trip_ba_perm", "trip_ba_sorted", "trip_ba_plan",
+             M3, n_e),
+            ("intm_db", "id4_expand_intm_db", "intm_db_perm", "intm_db_sorted", "intm_db_plan",
+             M4, n_e),
+            ("quad_abd", "id4_expand_abd", "quad_abd_perm", "quad_abd_sorted", "quad_abd_plan",
+             M4, n_intm),
+            ("edge_a", "id_a", "edge_a_perm", "edge_sorted", "edge_plan", cfg.emb_size_atom,
+             n_atoms),
+            ("edge_c", "id_c", "edge_c_perm", "edge_sorted", "edge_plan", cfg.emb_size_atom,
+             n_atoms),
+            ("geometry_abd", "id4_expand_abd", "quad_abd_perm", "quad_abd_sorted",
+             "quad_abd_plan", 3, n_intm),
+            ("geometry_cab", "id4_reduce_cab", "quad_cab_perm", "quad_cab_sorted",
+             "quad_cab_plan", 4, n_intm),
+            ("geometry_ca", "id3_reduce_ca", None, "id3_reduce_ca", "id3_reduce_ca_plan", 3,
+             n_e),
+            ("geometry_edge_a", "id_a", "edge_a_perm", "edge_sorted", "edge_plan", 3, n_atoms),
+            ("geometry_edge_c", "id_c", "edge_c_perm", "edge_sorted", "edge_plan", 3, n_atoms),
         ):
             if (dtype == "split3" or (dtype == "bf16" and tag.startswith("geometry"))
                     or (tags is not None and tag not in tags)):
                 continue
             n = batch[idx].shape[0]
             cases.append(dict(kernel="K3", tag=tag, dtype=dtype, x=cast(rand(n, M)),
-                              idx=batch[idx], perm=batch[f"{sort}_perm"],
-                              sorted=batch[f"{sort}_sorted"], plan=batch[f"{sort}_plan"],
-                              shape=(n, M, n_src)))
+                              idx=batch[idx], perm=None if perm is None else batch[perm],
+                              sorted=batch[srt], plan=batch[plan], shape=(n, M, n_src)))
     if tags is not None and "probe" not in tags:
         return cases
     table, tableT, idx = gather_probe.inputs(device)
@@ -633,8 +652,9 @@ def case_functions(case):
                 (lambda: (table.index_select(1, idx),)))
     x, idx, perm, srt, plan = case["x"], case["idx"], case["perm"], case["sorted"], case["plan"]
     n_seg = plan.n_segments
+    xp = x if perm is None else x[perm.long()]
     return ((lambda: (eg.sorted_segsum_values(x, perm, srt, plan),)),
-            (lambda: (eg._segsum_plain(x[perm.long()], srt, n_seg),)),
+            (lambda: (eg._segsum_plain(xp, srt, n_seg),)),
             (lambda: (torch.zeros(n_seg, x.shape[1], device=x.device, dtype=x.dtype)
                       .index_add_(0, idx, x),)))
 
@@ -1272,8 +1292,9 @@ def capacity_plans(cfg, device):
 
     from gemnet_pytorch_tpu_torch.data import to_torch
 
-    small_tags = ("triplet", "quadruplet", "trip_ba", "intm_db", "quad_abd", "geometry_abd",
-                  "geometry_cab")
+    small_tags = ("triplet", "quadruplet", "trip_ba", "intm_db", "quad_abd", "edge_a", "edge_c",
+                  "geometry_abd", "geometry_cab", "geometry_ca", "geometry_edge_a",
+                  "geometry_edge_c")
     n_cases = 0
     for kind, tags in (("small", small_tags), ("large", LARGE_TAGS)):
         batch_np, _, _ = bench.padded_batch(cfg, bench.molecules(kind))
@@ -1901,15 +1922,28 @@ def rest_phase(cfg, mols, device, workdir: str) -> dict:
 
 # ---------------------------------------------------------------- the rest of the single-device stack
 
+def _build_graph_numpy(R, N, cutoff, int_cutoff=None, triplets_only=False, cell=None,
+                       max_neighbors=None):
+    """`build_graph_numpy` under `build_graph`'s signature, as the data
+    containers call it: molecules only (no cell, no neighbour cap)."""
+    check(cell is None and max_neighbors is None, "the numpy builder takes molecules only")
+    return build_graph_numpy(R, N, cutoff, int_cutoff, triplets_only)
+
+
 # phase 13's graph builders: the native one and the numpy reference
-BUILDERS = {"native": build_graph, "numpy": build_graph_numpy}
+BUILDERS = {"native": build_graph, "numpy": _build_graph_numpy}
 
 def graph_fields_equal(a, b) -> bool:
+    """Every field of two graphs the same array (dtype and values), or
+    unset (None) in both: a molecule's periodic fields."""
     import dataclasses
 
-    return all(getattr(a, f.name).dtype == getattr(b, f.name).dtype
-               and np.array_equal(getattr(a, f.name), getattr(b, f.name))
-               for f in dataclasses.fields(a))
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return x.dtype == y.dtype and np.array_equal(x, y)
+
+    return all(same(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
 
 
 def host_ms(fn, n: int = BUILDER_REPEATS) -> float:
@@ -3330,11 +3364,13 @@ def pp_launches(cfg, n_stages: int, n_micro: int) -> dict:
     """Launches of one fp32 pp train step on each rank (PP_LAUNCHES): its
     stage runs on every one of the T = M + S - 1 ticks (`parallel/pp.py`),
     and each block of each tick launches what a block of the single-device
-    step does (TRAIN_LAUNCHES / 4 blocks: 6 K1, 6 K2, 6 K3); the preamble
-    adds each microbatch's 2 geometry K3s of -dE/dR."""
-    per = 6 * (cfg.num_blocks // n_stages) * (n_micro + n_stages - 1)
-    return {"gemnet_segment_outer_sum_f32": per, "gemnet_segment_gather_contract_f32": per,
-            "gemnet_sorted_segsum_f32": per + 2 * n_micro}
+    step does (TRAIN_LAUNCHES less its once-a-step K3s, / 4 blocks: 6 K1,
+    6 K2, 10 K3); the preamble adds each microbatch's 8 geometry K3s of
+    -dE/dR and the embedding's 2 of the loss's backward."""
+    ticks = (cfg.num_blocks // n_stages) * (n_micro + n_stages - 1)
+    return {"gemnet_segment_outer_sum_f32": 6 * ticks,
+            "gemnet_segment_gather_contract_f32": 6 * ticks,
+            "gemnet_sorted_segsum_f32": 10 * ticks + 10 * n_micro}
 
 
 def pp_ef_loss(E, F, batch):

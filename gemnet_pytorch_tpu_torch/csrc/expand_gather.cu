@@ -5,6 +5,7 @@
 //   the VJP of every sorted expand gather x = table[idx]; replaces
 //   gemnet_pytorch_tpu/ops/pallas/expand_gather.py::_segsum_pallas (its inner
 //   `kernel`), together with the `x[perm]` gather that precedes it there.
+//   A null perm is the identity: idx itself is ascending (a reduce column).
 //
 // Types follow the JAX package's contract (expand_gather.py:61-68,83-86,177):
 // fp32 rows give an fp32 output; bf16 rows (compute_dtype="bfloat16") are
@@ -216,9 +217,10 @@ sorted_segsum_kernel(const T* __restrict__ x, const int* __restrict__ perm,
     for (int j = 0; j < V; ++j) acc[j] = 0.f;
     for (int base = item.y; base < item.z; base += 64) {
       const int nr = min(64, item.z - base);
-      // the perm entries of 64 rows, ahead of the row loads
-      const int p0 = lane < nr ? perm[base + lane] : 0;
-      const int p1 = lane + 32 < nr ? perm[base + 32 + lane] : 0;
+      // the perm entries of 64 rows, ahead of the row loads (no perm: the
+      // rows are in order already)
+      const int p0 = lane < nr ? (perm ? perm[base + lane] : base + lane) : 0;
+      const int p1 = lane + 32 < nr ? (perm ? perm[base + 32 + lane] : base + 32 + lane) : 0;
       const int n_loads = (nr + R - 1) / R;  // per lane; warp-uniform
       for (int k0 = 0; k0 < n_loads; k0 += kBatch) {
         const int nu = min(kBatch, n_loads - k0);

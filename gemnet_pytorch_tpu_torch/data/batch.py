@@ -3,9 +3,10 @@
 `pad_batch` emits some index columns as int16 (`padding._shrink_ids`), which
 torch indexing rejects. `to_torch` widens every index column to int64, keeps
 the sort metadata (`*_perm`/`*_sorted`, kernel inputs) as int32 and the
-periodic cell offsets (NARROW_KEYS) as int8, and adds one
-`SegmentPlan` per sorted id column the CUDA segment kernels reduce over,
-computed once per batch on the host.
+periodic cell offsets (NARROW_KEYS) as int8, adds the edges' sort metadata
+(`edge_sort_metadata`) to a batch that carries the single-device sort
+metadata, and adds one `SegmentPlan` per sorted id column the CUDA segment
+kernels reduce over, computed once per batch on the host.
 
 A plan cuts each segment's rows into work items of at most `item_rows` rows.
 The kernels run one item at a time per thread block (K1, K2 and K4 at the
@@ -43,11 +44,13 @@ import numpy as np
 import torch
 
 from .graph import ragged_range
-from .padding import SORT_META_KEYS
+from .padding import EDGE_SORT_KEYS, SORT_META_KEYS
 
 # integer keys the model reads at their own width (not widened to int64):
 # the periodic edges' int8 cell offsets
 NARROW_KEYS = frozenset({"edge_offset"})
+# integer keys the kernels read as int32: the sort metadata
+INT32_KEYS = frozenset(SORT_META_KEYS + EDGE_SORT_KEYS)
 
 
 class PlanCapacity(NamedTuple):
@@ -194,7 +197,8 @@ def _pad_rows(x: np.ndarray, n: int, fill) -> np.ndarray:
 # backward takes any item size. A K3 item is one warp's work, 64 rows at
 # most (two loads of 32 perm entries), so the padded segment's ~9600 rows
 # at the bench quad shape spread over ~150 warps and the last of them adds
-# ~150 partial rows.
+# ~150 partial rows. K3 also reduces over `id3_reduce_ca_plan`'s 16-row
+# items (the triplet geometry's gather by the ascending reduce column).
 SEGMENT_PLANS = {
     "id3_reduce_ca_plan": ("id3_reduce_ca", "id_c", 16),
     "id4_reduce_ca_plan": ("id4_reduce_ca", "id_c", 128),
@@ -202,7 +206,40 @@ SEGMENT_PLANS = {
     "intm_db_plan": ("intm_db_sorted", "id_c", 64),
     "quad_abd_plan": ("quad_abd_sorted", "id4_reduce_intm_ca", 64),
     "quad_cab_plan": ("quad_cab_sorted", "id4_reduce_intm_ca", 64),
+    "edge_plan": ("edge_sorted", "Z", 64),
 }
+
+
+def edge_sort_metadata(batch: dict) -> dict[str, np.ndarray]:
+    """The sort metadata (EDGE_SORT_KEYS, int32) of the model's gathers of
+    atom rows to edge rows, h[id_c], h[id_a], R[id_c], R[id_a], over the
+    padded edges: `edge_a_perm`, the stable argsort of id_a; `edge_sorted`,
+    id_a in that order; `edge_c_perm` = id_swap[edge_a_perm], which sorts
+    id_c into the same column, so both gathers share one column and one
+    plan with no second sort.
+
+    That holds because every edge's reverse is its id_swap row,
+    id_c[id_swap] == id_a (a padded edge is its own reverse, with id_c =
+    id_a = 0), as `data.graph` builds every graph. Raises where a batch
+    breaks that, or where id_swap is not an involution, which
+    `ops.expand_gather.swap_rows` relies on."""
+    id_c, id_a, swap = (np.asarray(batch[k], np.int64) for k in ("id_c", "id_a", "id_swap"))
+    if not np.array_equal(swap[swap], np.arange(len(swap))):
+        raise ValueError("id_swap is not an involution")
+    if not np.array_equal(id_c[swap], id_a):
+        raise ValueError("id_c[id_swap] != id_a: an edge's reverse is not at its id_swap row")
+    perm_a = np.argsort(id_a, kind="stable")
+    return {"edge_a_perm": perm_a.astype(np.int32), "edge_c_perm": swap[perm_a].astype(np.int32),
+            "edge_sorted": id_a[perm_a].astype(np.int32)}
+
+
+def with_edge_sort_metadata(batch: dict) -> dict:
+    """`batch` and its `edge_sort_metadata` where it carries the
+    single-device sort metadata (a halo or ep shard's re-sliced rows do
+    not) and not yet the edges'; else `batch` itself."""
+    if "trip_ba_perm" not in batch or "edge_a_perm" in batch:
+        return batch
+    return {**batch, **edge_sort_metadata(batch)}
 
 
 # the plan's int32 arrays, in the order SegmentPlan holds them; the arrival
@@ -268,12 +305,14 @@ def make_plan(arrays: dict, n_segments: int, n_partials: int, n_tree_slots: int,
 
 
 def to_torch(batch: dict[str, np.ndarray], device, capacity: bool = True) -> dict:
-    """Padded numpy batch -> tensors on `device`, plus the segment plans (at
-    capacity, or exact with `capacity=False`)."""
+    """Padded numpy batch -> tensors on `device`, plus the edges' sort
+    metadata (`with_edge_sort_metadata`) and the segment plans (at capacity,
+    or exact with `capacity=False`)."""
+    batch = with_edge_sort_metadata(batch)
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
-        if k in SORT_META_KEYS:
+        if k in INT32_KEYS:
             v = v.astype(np.int32)
         elif k in NARROW_KEYS:
             pass

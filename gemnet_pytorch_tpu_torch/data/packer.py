@@ -11,7 +11,8 @@ graph captured on the views of a static device buffer replays on every
 batch copied into it.
 
 The layout is frozen on first use: the keys in sorted order, the keys the
-model never reads (`UNUSED_DEVICE_KEYS`) skipped, then each plan's arrays;
+model never reads (`UNUSED_DEVICE_KEYS`) skipped, then the edges' sort
+metadata (`data.batch.with_edge_sort_metadata`), then each plan's arrays;
 every key starts on a 256-byte boundary, as a tensor of PyTorch's caching
 allocator does: the kernels read the plans' items as 16-byte vectors, and
 an int64 view of int32 words needs an even word offset (the JAX packer's
@@ -34,8 +35,9 @@ import numpy as np
 import torch
 
 from ..perf import spans
-from .batch import NARROW_KEYS, PLAN_ARRAYS, SEGMENT_PLANS, make_plan, plan_arrays, plan_capacity
-from .padding import SORT_META_KEYS
+from .batch import (INT32_KEYS, NARROW_KEYS, PLAN_ARRAYS, SEGMENT_PLANS, make_plan, plan_arrays,
+                    plan_capacity, with_edge_sort_metadata)
+from .padding import EDGE_SORT_KEYS
 
 # batch keys the model never reads, left out of the buffer (trainer.py:43-46)
 UNUSED_DEVICE_KEYS = frozenset({
@@ -55,7 +57,7 @@ _TORCH_DTYPE = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32
 def device_width(key: str, value: np.ndarray) -> np.ndarray:
     """`value` at the width `data.to_torch` gives key `key`."""
     value = np.asarray(value)
-    if key in SORT_META_KEYS:
+    if key in INT32_KEYS:
         return value.astype(np.int32)
     if key in NARROW_KEYS:
         return value
@@ -67,9 +69,12 @@ def device_width(key: str, value: np.ndarray) -> np.ndarray:
 
 
 def _entries(batch) -> list[tuple[str, np.ndarray]]:
-    """(key, array) of everything packed, in layout order: the batch's keys
-    sorted, then each plan's arrays as "<plan key>.<array>"."""
-    out = [(k, device_width(k, batch[k])) for k in sorted(batch) if k not in UNUSED_DEVICE_KEYS]
+    """(key, array) of everything packed, in layout order: the padded batch's
+    keys sorted, then the edges' sort metadata (`with_edge_sort_metadata`,
+    already in `batch`), then each plan's arrays as "<plan key>.<array>"."""
+    keys = [k for k in sorted(batch) if k not in UNUSED_DEVICE_KEYS and k not in EDGE_SORT_KEYS]
+    keys += [k for k in EDGE_SORT_KEYS if k in batch]
+    out = [(k, device_width(k, batch[k])) for k in keys]
     for key, (ids_key, size_key, item_rows) in SEGMENT_PLANS.items():
         if ids_key in batch:
             arrays, _, _ = plan_arrays(batch[ids_key], len(batch[size_key]), item_rows)
@@ -115,6 +120,7 @@ class BatchPacker:
         """The batch and its capacity plans in one int32 array of `total`
         words (thread-safe: the provider's prefetch threads pack)."""
         with spans.span("pack"):
+            batch = with_edge_sort_metadata(batch)
             entries = _entries(batch)
             with self._lock:
                 if self.layout is None:

@@ -15,7 +15,8 @@ Padding convention (load-bearing, used throughout the model):
   container has tags, ``free_mask`` (padded atoms False).
 - The ``*_perm``/``*_sorted`` sort metadata (SORT_META_KEYS) is a
   single-device layout contract: any re-slicing of a row space invalidates
-  it and must strip it.
+  it and must strip it. So is the edges' (EDGE_SORT_KEYS), which
+  `data.batch` derives from a padded batch, not `pad_batch`.
 
 Left out of the copy: the TPU-only Pallas segment-block choice
 (``seg_block3``/``seg_block4`` and their shape carriers).
@@ -96,9 +97,15 @@ SORT_META_KEYS = (
 )
 
 
+# the sort metadata of the gathers of atom rows to edge rows by id_a and by
+# id_c (`data.batch.edge_sort_metadata`; its plan is `edge_plan`)
+EDGE_SORT_KEYS = ("edge_a_perm", "edge_c_perm", "edge_sorted")
+
+
 def strip_sort_metadata(batch: dict) -> dict:
-    """Drop the sort metadata from `batch` in place (and return it)."""
-    for k in SORT_META_KEYS:
+    """Drop the sort metadata, the edges' and its plan included, from
+    `batch` in place (and return it)."""
+    for k in SORT_META_KEYS + EDGE_SORT_KEYS + ("edge_plan",):
         batch.pop(k, None)
     return batch
 

@@ -13,7 +13,9 @@ per-molecule energies plus, with direct forces, per-atom forces.
 `energy_and_forces` derives F = -dE/dR with `torch.autograd.grad`
 otherwise. The batch must carry the sort metadata (SORT_META_KEYS) and the
 segment plans of `to_torch`: the expand gathers and the bilinear
-reductions run on them.
+reductions run on them. The edges' sort metadata (EDGE_SORT_KEYS, which
+`to_torch` and the packer derive) sends the gathers of atom rows to edge
+rows through the same sorted VJP; without it they stay plain gathers.
 
 A periodic batch (`edge_offset` and `cell`, `data.graph`) runs OCP's
 GemNet-T geometry: each edge's vector from its source's image, R[t] - R[s]
@@ -211,7 +213,8 @@ class GemNet(nn.Module):
         self.mlp_rbf_out = Dense(Rn, cfg.emb_size_rbf, **kw)
         self.atom_emb = AtomEmbedding(cfg.emb_size_atom, **kw)
         self.edge_emb = EdgeEmbedding(2 * cfg.emb_size_atom + Rn, cfg.emb_size_edge,
-                                      cfg.activation, **kw)
+                                      cfg.activation,
+                                      implementation=cfg.bilinear_implementation, **kw)
         self.int_blocks = nn.ModuleList([
             InteractionBlock(
                 cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_trip, cfg.emb_size_quad,
@@ -284,7 +287,13 @@ class GemNet(nn.Module):
             raise NotImplementedError("periodic batches run on one device or under dp")
         shift = (geometry.edge_shifts(batch["edge_offset"], batch["cell"], batch["batch_seg"],
                                       id_a) if periodic else None)
-        D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask, shift)
+        edge_sorts = _edge_sorts(batch)
+        # the triplet rows' gathers of edge rows, by id3_reduce_ca (ascending:
+        # no perm) and id3_expand_ba; plain on a halo or ep shard
+        trip_sorts = (None, None) if cfg.ep_axis is not None else (
+            (None, batch["id3_reduce_ca"], batch["id3_reduce_ca_plan"]),
+            (batch["trip_ba_perm"], batch["trip_ba_sorted"], batch["trip_ba_plan"]))
+        D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask, shift, edge_sorts)
         harmonics = cfg.cbf == "spherical_harmonics"
         if harmonics:
             # OCP's cos of the angle from the edges' unit vectors
@@ -297,8 +306,14 @@ class GemNet(nn.Module):
             angles3 = geometry.triplet_angles_halo(R, id_c, id_a, batch["id3_reduce_ca"],
                                                    batch["trip_b_atom"])
         else:
-            angles3 = geometry.triplet_angles(R, id_c, id_a, batch["id3_reduce_ca"],
-                                              batch["id3_expand_ba"])
+            # the edges' R[a] - R[c] again, not the distances': each path's
+            # part of -dE/dR then reaches R through its own gathers, as in
+            # the JAX package; one shared difference sums them per edge
+            # first, and that fp32 order alone takes the AGC trajectory of
+            # tests/test_torch_tp.py past its gate against JAX
+            angles3 = geometry.triplet_angles(geometry.edge_vectors(R, id_c, id_a, edge_sorts),
+                                              batch["id3_reduce_ca"], batch["id3_expand_ba"],
+                                              *trip_sorts)
 
         # ---- basis: triplets ----
         rbf = self.rbf_basis(D_ca) * edge_mask[:, None].to(R.dtype)
@@ -363,10 +378,11 @@ class GemNet(nn.Module):
 
         # ---- embeddings ----
         h = self.atom_emb(Z)
-        m = self.edge_emb(h, rbf, id_c, id_a)
+        m = self.edge_emb(h, rbf, id_c, id_a, edge_sorts)
 
         ind = {k: batch[k] for k in ("id_c", "id_a", "id_swap", "id3_expand_ba",
                                      "id3_reduce_ca", "id3_reduce_ca_plan")}
+        ind["edge_sorts"] = edge_sorts
         if not cfg.triplets_only:
             ind.update({k: batch[k] for k in ("id4_reduce_ca", "id4_reduce_ca_plan",
                                               "id4_expand_intm_db", "id4_expand_abd")})
@@ -380,8 +396,7 @@ class GemNet(nn.Module):
             # the bilinear outputs' psum; plain expand gathers (no sort keys)
             ind["ep_group"] = self.group
         else:
-            ind["trip_ba_sort"] = (batch["trip_ba_perm"], batch["trip_ba_sorted"],
-                                   batch["trip_ba_plan"])
+            ind["trip_ba_sort"] = trip_sorts[1]
             if not cfg.triplets_only:
                 ind["quad_abd_sort"] = (batch["quad_abd_perm"], batch["quad_abd_sorted"],
                                         batch["quad_abd_plan"])
@@ -411,6 +426,17 @@ class GemNet(nn.Module):
             E_a = E_a + E
             F_ca = F_ca + F
         return h, m, E_a, F_ca
+
+
+def _edge_sorts(batch: dict) -> tuple:
+    """The sort metadata of the gathers of atom rows to edge rows by id_c and
+    by id_a (`data.batch.edge_sort_metadata`: one sorted column and plan,
+    two perms), or (None, None), plain gathers, where the batch carries
+    none (the halo and ep shards)."""
+    if "edge_a_perm" not in batch:
+        return None, None
+    ids, plan = batch["edge_sorted"], batch["edge_plan"]
+    return (batch["edge_c_perm"], ids, plan), (batch["edge_a_perm"], ids, plan)
 
 
 def _call(block, *args):

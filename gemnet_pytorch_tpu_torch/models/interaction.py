@@ -4,7 +4,10 @@ Port of `gemnet_pytorch_tpu/models/interaction.py` (reference
 interaction_block.py), single-device path. Merge scalings (1/sqrt(3) with
 quadruplets, 1/sqrt(2) without; reference interaction_block.py:202-203,
 390-391) and every skip's 1/sqrt(2) match the reference. The expand gathers
-carry their sort metadata, so their VJPs run as the sorted segment sum K3.
+carry their sort metadata, so their VJPs run as the sorted segment sum K3,
+and so do the concat layer's gathers of atom rows to edge rows
+(`ind["edge_sorts"]`); the reverse edges' rows x[id_swap] take the
+permutation's own VJP (`ops.expand_gather.swap_rows`) on every path.
 `dtype` is every layer's compute dtype (None: fp32; torch.bfloat16 in the
 bf16 mode), passed through as `gemnet_pytorch_tpu/models/interaction.py`
 does; `precision` is the bilinears' kernel mode ("split3" when
@@ -19,8 +22,9 @@ layers up to the activations that are the halo payload) and `finish` (the
 expand gather, the bilinear, the up-projections); the block issues the edge
 exchange after the triplet prelude, then the quadruplet prelude and the
 intermediate exchange, then both finishes, in the JAX package's order. The
-expand gathers there are plain gathers: the sort metadata of a global
-batch is invalid for a shard's re-sliced rows (JAX `:64-70`, `:86-98`).
+expand and concat gathers there are plain gathers: the sort metadata of a
+global batch is invalid for a shard's re-sliced rows (JAX `:64-70`,
+`:86-98`).
 
 Rung 2a (`parallel/ep.py`): `ind["ep_group"]` is set, the row columns are
 a shard's chunk with global edge ids, the gathers are plain for the same
@@ -37,7 +41,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.expand_gather import expand_gather
+from ..ops.expand_gather import gather, swap_rows
 from ..parallel.collectives import psum
 from ..parallel.halo import halo_extend
 from .layers import (
@@ -52,15 +56,6 @@ from .layers import (
 
 _INV_SQRT2 = 2.0**-0.5
 _INV_SQRT3 = 3.0**-0.5
-
-
-def _gather(x, idx, sort, implementation):
-    """x[idx]: the sorted expand gather where `sort` (its perm, sorted ids
-    and plan) is given, whose VJP is K3; a plain gather without it (the halo
-    and ep shards)."""
-    if sort is None:
-        return x[idx]
-    return expand_gather(x, idx, *sort, implementation=implementation)
 
 
 class QuadrupletInteraction(nn.Module):
@@ -94,15 +89,15 @@ class QuadrupletInteraction(nn.Module):
 
         # circular basis hadamard on the intermediate d->b space (halo: the
         # intm_db rows live with their d->b edge, so the gather is local)
-        x_db = _gather(x_db, ind["id4_expand_intm_db"], ind.get("intm_db_sort"),
-                       self.implementation)
+        x_db = gather(x_db, ind["id4_expand_intm_db"], ind.get("intm_db_sort"),
+                      self.implementation)
         return self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
 
     def finish(self, x_db, sbf, ind, masks):
         """From the (halo-extended) intermediate-db activations on."""
         # spherical basis bilinear over quadruplets -> edges
-        x_db = _gather(x_db, ind["id4_expand_abd"], ind.get("quad_abd_sort"),
-                       self.implementation)
+        x_db = gather(x_db, ind["id4_expand_abd"], ind.get("quad_abd_sort"),
+                      self.implementation)
         rbf_W1, sph_rows = sbf
         x = self.mlp_sbf(rbf_W1, sph_rows, x_db, ind["id4_reduce_ca"],
                          ind["id4_reduce_ca_plan"], mask=masks["quad"])
@@ -110,7 +105,7 @@ class QuadrupletInteraction(nn.Module):
         x = self.scale_sbf_sum(x, x_db, masks["quad"], masks["edge"])
 
         x_ca = self.up_projection_ca(x)
-        x_ac = self.up_projection_ac(x)[ind["id_swap"]]
+        x_ac = swap_rows(self.up_projection_ac(x), ind["id_swap"])
         return scale(x_ca + x_ac, _INV_SQRT2)
 
     def forward(self, m, rbf, cbf, sbf, ind, masks):
@@ -146,7 +141,7 @@ class TripletInteraction(nn.Module):
 
     def finish(self, x_ba, cbf3, ind, masks):
         """From the (halo-extended) edge activations on."""
-        x_ba = _gather(x_ba, ind["id3_expand_ba"], ind.get("trip_ba_sort"), self.implementation)
+        x_ba = gather(x_ba, ind["id3_expand_ba"], ind.get("trip_ba_sort"), self.implementation)
         rbf_W1, sph_rows = cbf3
         x = self.mlp_cbf(rbf_W1, sph_rows, x_ba, ind["id3_reduce_ca"],
                          ind["id3_reduce_ca_plan"], mask=masks["trip"])
@@ -154,7 +149,7 @@ class TripletInteraction(nn.Module):
         x = self.scale_cbf_sum(x, x_ba, masks["trip"], masks["edge"])
 
         x_ca = self.up_projection_ca(x)
-        x_ac = self.up_projection_ac(x)[ind["id_swap"]]
+        x_ac = swap_rows(self.up_projection_ac(x), ind["id_swap"])
         return scale(x_ca + x_ac, _INV_SQRT2)
 
     def forward(self, m, rbf3, cbf3, ind, masks):
@@ -192,7 +187,8 @@ class InteractionBlock(nn.Module):
             emb_size_atom, emb_size_edge, emb_size_rbf, num_atom, activation,
             f"AtomUpdate_{block_nr}_sum", **kw)
         self.concat_layer = EdgeEmbedding(
-            2 * emb_size_atom + emb_size_edge, emb_size_edge, activation, **kw)
+            2 * emb_size_atom + emb_size_edge, emb_size_edge, activation,
+            implementation=implementation, **kw)
         self.residual_m = nn.ModuleList(
             [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_concat)])
 
@@ -230,7 +226,7 @@ class InteractionBlock(nn.Module):
                               psum_group=group)
         h = scale(h + h2, _INV_SQRT2)
 
-        m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"])
+        m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"], ind["edge_sorts"])
         for layer in self.residual_m:
             m2 = layer(m2)
         m = scale(m + m2, _INV_SQRT2)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bilinear as bil_ops
+from ..ops.expand_gather import gather
 from ..ops.segment import masked_segment_sum
 from ..parallel.collectives import psum
 from .initializers import atom_embedding_, he_orthogonal_
@@ -107,16 +108,22 @@ class AtomEmbedding(nn.Module):
 
 class EdgeEmbedding(nn.Module):
     """Dense over [h[id_first] ‖ h[id_second] ‖ m] (reference embedding_block.py:37-75);
-    also the interaction block's concat layer."""
+    also the interaction block's concat layer. `sorts`: the sort metadata of
+    the two gathers (`ops.expand_gather.gather`), None for plain gathers;
+    `implementation` chooses their VJP's kernel or plain version."""
 
     def __init__(self, in_features: int, out_features: int, activation: Optional[str] = None,
-                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
+                 implementation: str = "auto"):
         super().__init__()
         self.dense = Dense(in_features, out_features, activation, generator=generator,
                            dtype=dtype)
+        self.implementation = implementation
 
-    def forward(self, h, m_rbf, id_first, id_second):
-        return self.dense(torch.cat([h[id_first], h[id_second], m_rbf], dim=-1))
+    def forward(self, h, m_rbf, id_first, id_second, sorts=(None, None)):
+        first, second = (gather(h, idx, sort, self.implementation)
+                         for idx, sort in zip((id_first, id_second), sorts))
+        return self.dense(torch.cat([first, second, m_rbf], dim=-1))
 
 
 def _masked_feature_var(t, mask):

@@ -10,19 +10,27 @@ from __future__ import annotations
 
 import torch
 
-from .expand_gather import expand_gather
+from .expand_gather import gather
 
 _EPS_SQ = 1e-18  # guards |cross|^2; matches the reference's y >= 1e-9 clamp
 
 
-def interatomic_vectors(R, id_s, id_t, mask, shift=None):
+def edge_vectors(R, id_s, id_t, sorts=(None, None)):
+    """R[id_t] - R[id_s], each edge's vector s->t from the atoms' positions
+    (no image shift, no mask). `sorts`: the sort metadata of the gathers
+    R[id_s] and R[id_t] (`expand_gather.gather`), None for plain."""
+    s_sort, t_sort = sorts
+    return gather(R, id_t, t_sort) - gather(R, id_s, s_sort)
+
+
+def interatomic_vectors(R, id_s, id_t, mask, shift=None, sorts=(None, None)):
     """Distances and unit directions s->t per edge (reference gemnet.py:262-286).
     `shift` (nEdges, 3): where the source is an image at R[s] + shift
-    (periodic systems, `edge_shifts`).
+    (periodic systems, `edge_shifts`). `sorts`: as `edge_vectors`'.
 
     Padded edges (mask False) get D=1, V=0 with zero gradient into R.
     """
-    V = R[id_t] - R[id_s]
+    V = edge_vectors(R, id_s, id_t, sorts)
     if shift is not None:
         V = V - shift
     V = torch.where(mask[:, None], V, torch.zeros_like(V))
@@ -66,17 +74,18 @@ def triplet_cosines(V, id3_reduce_ca, id3_expand_ba):
     return torch.clamp(torch.sum(V[id3_reduce_ca] * V[id3_expand_ba], dim=-1), -1.0, 1.0)
 
 
-def triplet_angles(R, id_c, id_a, id3_reduce_ca, id3_expand_ba):
-    """Angles c<-a->b for triplet message passing (reference gemnet.py:420-451)."""
-    Rc = R[id_c[id3_reduce_ca]]
-    Ra = R[id_a[id3_reduce_ca]]
-    Rb = R[id_c[id3_expand_ba]]
-    return neighbor_angles(Rc - Ra, Rb - Ra)
+def triplet_angles(V, id3_reduce_ca, id3_expand_ba, ca_sort=None, ba_sort=None):
+    """Angles c<-a->b for triplet message passing (reference gemnet.py:420-451),
+    from the edges' vectors c->a, V = R[id_a] - R[id_c] (`edge_vectors`),
+    gathered to the triplet rows by both edges.
 
-
-def _sorted_gather(x, idx, sort):
-    """x[idx], through the sorted expand gather where its metadata is given."""
-    return x[idx] if sort is None else expand_gather(x, idx, *sort)
+    A triplet's two edges share their atom a (id_a[id3_expand_ba] ==
+    id_a[id3_reduce_ca] on every real row), so its rows of V are
+    -(R[c] - R[a]) and -(R[b] - R[a]) bit for bit, and the angle between
+    two negated vectors is the same floats: every product in
+    `neighbor_angles` takes both signs. `ca_sort` and `ba_sort` are the
+    gathers' sort metadata (`expand_gather.gather`), None for plain."""
+    return neighbor_angles(gather(V, id3_reduce_ca, ca_sort), gather(V, id3_expand_ba, ba_sort))
 
 
 def quadruplet_angles(
@@ -96,8 +105,7 @@ def quadruplet_angles(
     R_ba = Ra - Rb
     R_bd = Rd - Rb
     angle_abd = neighbor_angles(R_ba, R_bd)
-    R_bd_proj = _sorted_gather(vector_rejection(R_bd, R_ba), id4_expand_abd,
-                               abd_sort)  # -> quad space
+    R_bd_proj = gather(vector_rejection(R_bd, R_ba), id4_expand_abd, abd_sort)  # -> quad space
 
     # c -> a <- b (intermediate ca space); one (n_intm, 4) gather for
     # [angle_cab ; R_ac_proj], as the JAX package does
@@ -108,7 +116,7 @@ def quadruplet_angles(
     R_ab = Rb - Ra
     packed = torch.cat(
         [neighbor_angles(R_ab, R_ac)[:, None], vector_rejection(R_ac, R_ab)], dim=1)
-    packed = _sorted_gather(packed, id4_reduce_cab, cab_sort)  # -> quad space
+    packed = gather(packed, id4_reduce_cab, cab_sort)  # -> quad space
     angle_cab = packed[:, 0]
     R_ac_proj = packed[:, 1:]
 

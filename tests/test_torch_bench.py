@@ -67,8 +67,8 @@ def _run(capsys, flags):
 
 def test_cpu_run_prints_the_json_line(capsys):
     """bf16 headline, fp32 A/B and the roofline on the CPU: every key, the
-    kernel census of a 1-block bf16 step (6 K1, 6 K2, 6 bf16 and 2 fp32
-    geometry K3), and no device share."""
+    kernel census of a 1-block bf16 step (6 K1, 6 K2, 12 bf16 K3 and the
+    geometry's 8 fp32 K3), and no device share."""
     out = _run(capsys, [])
     f32_keys = {"f32_small_agg", "f32_small_ms", "f32_small_ms_spread"}
     assert KEYS | ROOFLINE_KEYS | f32_keys <= set(out)
@@ -80,7 +80,7 @@ def test_cpu_run_prints_the_json_line(capsys):
     assert (bench.parse_args([]).steps_per_call, bench.parse_args([]).large_scan) == (1, 4)
     assert out["large_scan"] is None and out["steps_per_call"] == 1 and out["windows"] == 1
     assert "scan_agg_per_s" not in out
-    assert out["kernel_calls"] == 20
+    assert out["kernel_calls"] == 32
     assert 0 < out["sol_ms_lo"] <= out["sol_ms_hi"]
     for key in SHARES:
         assert out[key] is None, key

@@ -44,9 +44,11 @@ def test_xla_bit_equal_to_auto_on_cpu(triplets_only):
         np.testing.assert_array_equal(g1[name], g0[name], err_msg=name)
     kernels = collections.Counter(r["kernel"] for r in census["auto"])
     assert kernels["K1"] > 0 and kernels["K2"] > 0 and kernels["K3"] > 0
-    # the two geometry gathers of the quadruplet angles, in -dE/dR
+    # the geometry's gathers, in -dE/dR: the edges' R[id_c], R[id_a] (for the
+    # distances and for the triplet angles), the triplet rows' two, and the
+    # quadruplet angles' two
     assert collections.Counter(r["kernel"] for r in census["xla"]) == (
-        {} if triplets_only else {"K3": 2})
+        {"K3": 6} if triplets_only else {"K3": 8})
 
 
 def test_xla_raises_on_cuda_device():

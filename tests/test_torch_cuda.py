@@ -235,6 +235,39 @@ def test_sorted_segsum_kernel_matches_plain(device, M, dtype):
     assert _cuda.kernel_launches() == {f"gemnet_sorted_segsum_{_cuda.DTYPE_SUFFIX[dt]}": 2}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [3, 512])
+def test_sorted_segsum_without_perm_matches_plain(device, M, dtype):
+    """K3 with no perm (rows already in sorted order, as the triplet
+    geometry's gather by the ascending reduce column) on 16-row items (its
+    plan, id3_reduce_ca_plan's), a 10 000-row segment and empty ones:
+    against the plain version and bit-equal to the kernel with an identity
+    perm."""
+    from gemnet_pytorch_tpu_torch.data import segment_plan
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.ops import expand_gather as eg
+
+    rng = np.random.default_rng(M)
+    n_src = 1000
+    srt = np.sort(np.concatenate([rng.integers(5, n_src - 7, 3000),
+                                  np.full(10_000, n_src - 3)])).astype(np.int32)
+    plan = segment_plan(srt, n_src, SEGMENT_PLANS["id3_reduce_ca_plan"][2], device)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.normal(size=(len(srt), M)).astype(np.float32)).to(device).to(dt)
+    tsrt = torch.from_numpy(srt).to(device)
+    out = eg.sorted_segsum_values(x, None, tsrt, plan)
+    ident = eg.sorted_segsum_values(
+        x, torch.arange(len(srt), dtype=torch.int32, device=device), tsrt, plan)
+    ref = eg._segsum_plain(x, tsrt, n_src)
+    if dt == torch.bfloat16:
+        _assert_close_bf16(out, ref)
+    else:
+        _assert_close(out, ref)
+    assert torch.equal(out, ident)
+    assert int(plan.arrivals.abs().sum()) == 0
+
+
 def _ragged_ids(rng, n_seg):
     """Sorted ids whose segments hold 1, 15, 16, 17, 127, 128, 129, 3, 2, 5,
     0 and 300 rows (items of those lengths, starting at every residue mod
@@ -685,7 +718,9 @@ def test_high_train_step_on_card_matches_cpu(device):
     """One matmul_precision="high" Trainer step of a 2-block GemNet-Q on the
     card (K4) against the CPU (the plain split3 versions): the loss within
     rtol 1e-4, the update within a relative L2 error of 1e-3; every K1/K2
-    launch split3 (2 blocks: 4 + 8 K1, 4 + 4 + 4 K2) and the K3s exact."""
+    launch split3 (2 blocks: 4 + 8 K1, 4 + 4 + 4 K2) and the K3s exact (8
+    geometry + 10 block gathers in -dE/dR, 10 + 2 network gathers in the
+    loss's backward)."""
     from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
     from gemnet_pytorch_tpu_torch.data import to_torch
     from gemnet_pytorch_tpu_torch.models import GemNet
@@ -711,7 +746,7 @@ def test_high_train_step_on_card_matches_cpu(device):
     (l_cpu, d_cpu, n_cpu), (l_gpu, d_gpu, n_gpu) = runs["cpu"], runs[str(device)]
     assert n_cpu == {}
     assert n_gpu == {"gemnet_segment_outer_sum_split3": 12,
-                     "gemnet_segment_gather_contract_split3": 12, "gemnet_sorted_segsum_f32": 14}
+                     "gemnet_segment_gather_contract_split3": 12, "gemnet_sorted_segsum_f32": 30}
     np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
     assert np.linalg.norm(d_gpu - d_cpu) <= 1e-3 * np.linalg.norm(d_cpu)
 
@@ -835,7 +870,7 @@ def test_captured_mve_step_matches_eager(device):
     rtol 1e-5; the capture recorded the eager step's launches; 2 blocks:
     4 + 16 K1 (the forward's; two per first-backward K2), 8 + 4 + 8 K2 (the
     two backwards'; the forward K1s' VJP; one per first-backward K2) and
-    2 x 8 + 6 K3 (the two backwards'; the forward's network gathers)."""
+    2 x 18 + 12 K3 (the two backwards'; the forward's network gathers)."""
     import collections
 
     from gemnet_pytorch_tpu_torch.config import ModelConfig, TrainConfig
@@ -873,7 +908,7 @@ def test_captured_mve_step_matches_eager(device):
     eager, cap = runs["eager"], runs["captured"]
     assert eager[5] == {"gemnet_segment_outer_sum_f32": 20,
                         "gemnet_segment_gather_contract_f32": 20,
-                        "gemnet_sorted_segsum_f32": 22}
+                        "gemnet_sorted_segsum_f32": 48}
     assert eager[2].shape == (8, 2) and np.isfinite(cap[0]).all()
     np.testing.assert_allclose(cap[0], eager[0], rtol=1e-5)
     assert np.linalg.norm(cap[1] - eager[1]) <= 1e-4 * np.linalg.norm(eager[1])

@@ -93,6 +93,7 @@ def _padded(synthetic_npz, triplets_only=False):
 def test_to_torch_dtypes_and_plans(synthetic_npz):
     from gemnet_pytorch_tpu_torch.data import SORT_META_KEYS, SegmentPlan, to_torch
     from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.data.padding import EDGE_SORT_KEYS
 
     batch = _padded(synthetic_npz)
     assert batch["Z"].dtype == np.int16 and batch["id3_reduce_ca"].dtype == np.int16
@@ -107,6 +108,8 @@ def test_to_torch_dtypes_and_plans(synthetic_npz):
         else:
             assert tb[k].dtype == torch.float32, k
         np.testing.assert_array_equal(tb[k].numpy(), v, err_msg=k)
+    for k in EDGE_SORT_KEYS:  # derived by to_torch, kernel inputs
+        assert tb[k].dtype == torch.int32, k
     for key, (ids_key, size_key, _) in SEGMENT_PLANS.items():
         plan = tb[key]
         assert isinstance(plan, SegmentPlan)
@@ -114,9 +117,10 @@ def test_to_torch_dtypes_and_plans(synthetic_npz):
         assert plan.arrivals.dtype == torch.int32
         np.testing.assert_array_equal(plan.arrivals.numpy(), np.zeros(plan.merge_seg.numel()))
         assert plan.n_segments == len(batch[size_key])
+        ids = tb[ids_key].numpy()
         np.testing.assert_array_equal(
-            _plan_segment_sum(plan, np.ones((len(batch[ids_key]), 1))).ravel(),
-            np.bincount(batch[ids_key].astype(np.int64), minlength=plan.n_segments))
+            _plan_segment_sum(plan, np.ones((len(ids), 1))).ravel(),
+            np.bincount(ids.astype(np.int64), minlength=plan.n_segments))
 
 
 def _plan_segment_sum(plan, x):
@@ -259,15 +263,18 @@ def test_segment_plan_merge_tree(rows):
 
 def test_kernel_id_columns_are_sorted(synthetic_npz):
     """The segment kernels' precondition (checked here, not on the hot path):
-    every column they reduce over is ascending, padded rows included."""
-    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
+    every column they reduce over is ascending, padded rows included; the
+    edges' one column sorts both id_a and id_c."""
+    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS, with_edge_sort_metadata
 
-    batch = _padded(synthetic_npz)
+    batch = with_edge_sort_metadata(_padded(synthetic_npz))
     for ids_key, _, _ in SEGMENT_PLANS.values():
         assert np.all(np.diff(batch[ids_key].astype(np.int64)) >= 0), ids_key
     for tag, src in (("trip_ba", "id3_expand_ba"), ("intm_db", "id4_expand_intm_db"),
-                     ("quad_abd", "id4_expand_abd"), ("quad_cab", "id4_reduce_cab")):
-        np.testing.assert_array_equal(batch[f"{tag}_sorted"], batch[src][batch[f"{tag}_perm"]])
+                     ("quad_abd", "id4_expand_abd"), ("quad_cab", "id4_reduce_cab"),
+                     ("edge_a", "id_a"), ("edge_c", "id_c")):
+        srt = batch["edge_sorted"] if tag.startswith("edge") else batch[f"{tag}_sorted"]
+        np.testing.assert_array_equal(srt, batch[src][batch[f"{tag}_perm"]])
 
 
 def test_segment_plan_rejects_out_of_range_ids():

@@ -32,8 +32,8 @@ import pytest
 import torch
 
 from test_torch_halo import (
-    TINY, VARIANTS, _random_graph, halo_data, halo_loss, jax_variables, load_payload, port_model,
-    spawn,
+    TINY, VARIANTS, _random_graph, counted_gathers, edge_sort_keys, halo_data, halo_loss,
+    jax_variables, load_payload, port_model, spawn, swap_sites,
 )
 
 torch.set_num_threads(2)
@@ -223,8 +223,10 @@ def _ep_rank(rank, world, directory, group):
         part = ep.partition_batch(halo_data(VARIANTS[variant]["triplets_only"])[0], world)
         local = ep.shard_ep_batch(part, group, "cpu")
         model = port_model(variant, sd)
-        (E, F), calls = issued(lambda: ep.make_ep_apply(model, group)(local))
+        ((E, F), calls), gathers = counted_gathers(
+            lambda: issued(lambda: ep.make_ep_apply(model, group)(local)))
         out[("apply", variant)] = (E.detach().numpy(), F.detach().numpy(), calls)
+        out[("gathers", variant)] = (gathers, edge_sort_keys(local))
         if variant in GRAD_VARIANTS:
             loss, grads = ep.make_ep_loss_and_grad(model, group, halo_loss)(local)
             names = [n for n, _ in model.named_parameters()]
@@ -351,6 +353,19 @@ def test_ep_forward_matches_jax_single_device(ep_runs, references, variant):
     kw = VARIANTS[variant]
     psums = TINY["num_blocks"] * (1 if kw["triplets_only"] else 2)
     assert calls == {("all_reduce", "gloo"): psums if kw["direct_forces"] else 2 * psums + 1}
+
+
+def test_ep_shards_gather_plain(ep_runs):
+    """An ep shard carries no edge sort metadata (its rows are re-sliced), so
+    every gather site of its forward and -dE/dR but the swaps is a plain
+    gather."""
+    _, results = ep_runs
+    for res in results:
+        for variant in EP_VARIANTS:
+            gathers, keys = res[("gathers", variant)]
+            assert keys == [] and gathers["gather.plain"] > 0
+            # the swaps alone take their own VJP, as on one device
+            assert gathers["gather.sorted"] == swap_sites(variant)
 
 
 def test_ep_all_padding_chunks_match_jax(ep4, references):

@@ -134,6 +134,30 @@ def load_payload(directory):
     return torch.load(os.path.join(directory, "payload.pt"), weights_only=False)
 
 
+def counted_gathers(fn):
+    """(fn(), the counts of the gather sites' routes while it ran)."""
+    from gemnet_pytorch_tpu_torch.perf import spans
+
+    before = spans.counters()
+    result = fn()
+    after = spans.counters()
+    return result, {k: after.get(k, 0) - before.get(k, 0)
+                    for k in ("gather.sorted", "gather.plain")}
+
+
+def swap_sites(variant):
+    """The x[id_swap] sites of a TINY forward: one per block's triplet
+    interaction, and one per quadruplet interaction."""
+    return TINY["num_blocks"] * (1 if VARIANTS[variant]["triplets_only"] else 2)
+
+
+def edge_sort_keys(batch):
+    """The edges' sort metadata and plan a device batch carries."""
+    from gemnet_pytorch_tpu_torch.data.padding import EDGE_SORT_KEYS
+
+    return sorted(set(batch) & {*EDGE_SORT_KEYS, "edge_plan"})
+
+
 # ---------------------------------------------------------------- data and weights
 
 def halo_data(triplets_only: bool):
@@ -240,8 +264,9 @@ def _halo_rank(rank, world, directory, group):
         part = halo_partition(variant, world)
         local = halo.shard_halo_batch(part, group, "cpu")
         model = port_model(variant, sd)
-        E, F = halo.make_halo_apply(model, group)(local)
+        (E, F), gathers = counted_gathers(lambda: halo.make_halo_apply(model, group)(local))
         out[("apply", variant)] = (E.detach().numpy(), F.detach().numpy())
+        out[("gathers", variant)] = (gathers, edge_sort_keys(local))
         if variant in GRAD_VARIANTS:
             loss, grads = halo.make_halo_loss_and_grad(model, group, halo_loss)(local)
             names = [n for n, _ in model.named_parameters()]
@@ -444,6 +469,19 @@ def test_halo_forward_matches_jax_single_device(halo_runs, references, variant):
         np.testing.assert_allclose(F, ref["F"], rtol=1e-4, atol=1e-5, err_msg=f"rank {r}")
         np.testing.assert_array_equal(E, E0)
         np.testing.assert_array_equal(F, F0)
+
+
+def test_halo_shards_gather_plain(halo_runs):
+    """A halo shard carries no edge sort metadata (its edges are a shard's),
+    so every gather site of its forward and -dE/dR but the swaps is a plain
+    gather."""
+    _, results = halo_runs
+    for res in results:
+        for variant in VARIANTS:
+            gathers, keys = res[("gathers", variant)]
+            assert keys == [] and gathers["gather.plain"] > 0
+            # the swaps alone take their own VJP, as on one device
+            assert gathers["gather.sorted"] == swap_sites(variant)
 
 
 def test_halo_bf16_forward_matches_single_device(halo_runs, references):

@@ -210,21 +210,23 @@ def test_invariance(setup, move):
 
 
 # the molecules' path as it was at the parent commit: the packed words bit for
-# bit; E and F (8 molecules of 4-8 atoms, batches of 4, widths 16) to 1e-6,
-# their bits equal on the CPU it was read on, where another CPU's BLAS may
-# round otherwise
+# bit, without and with the edges' sort metadata (which joined them since);
+# E and F (8 molecules of 4-8 atoms, batches of 4, widths 16) to 1e-6, their
+# bits equal on the CPU it was read on, where another CPU's BLAS may round
+# otherwise
 PARENT = {
-    "Q": ("155cb62f4e911568",
+    "Q": ("155cb62f4e911568", "a4f205bdbf0e29e9",
           [0.9565675854682922, 0.6233870983123779, 0.6323123574256897, 0.6158151626586914],
           12.060632705688477, -8.456262588500977),
-    "T": ("ecec1a5dce4fbf50",
+    "T": ("ecec1a5dce4fbf50", "d34a2945a5d456e9",
           [-1.816979169845581, -0.4106302261352539, -0.4652080237865448, -0.7951110601425171],
           17.63018035888672, 3.0960845947265625),
 }
 
 
 @pytest.mark.parametrize("variant", ["Q", "T"])
-def test_molecules_unchanged(variant, tmp_path):
+def test_molecules_unchanged(variant, tmp_path, monkeypatch):
+    from gemnet_pytorch_tpu_torch.data import packer as packer_module
     from gemnet_pytorch_tpu_torch.data.synthetic import random_molecule
 
     torch.set_num_threads(1)
@@ -236,15 +238,20 @@ def test_molecules_unchanged(variant, tmp_path):
              R=R, E=np.zeros(8, np.float32), F=np.zeros_like(R))
     q = variant == "T"
     prov = DataProvider(DataContainer(path, 5.0, 10.0, q), 8, 0, 4, seed=1, shuffle=False)
+    batch = next(prov.get_dataset("train", prefetch_workers=0))
     packer = BatchPacker()
-    words = packer.pack(next(prov.get_dataset("train", prefetch_workers=0)))
+    words = packer.pack(batch)
     cfg = ModelConfig(emb_size_atom=16, emb_size_edge=16, emb_size_trip=8, emb_size_quad=8,
                       emb_size_rbf=4, emb_size_cbf=4, emb_size_sbf=8, emb_size_bil_trip=8,
                       emb_size_bil_quad=8, num_blocks=2, triplets_only=q)
     model = GemNet(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
     E, F = energy_and_forces(model, packer.unpack(torch.from_numpy(words)))
-    digest, E_ref, abs_sum, weighted = PARENT[variant]
+    parent_digest, digest, E_ref, abs_sum, weighted = PARENT[variant]
     assert hashlib.sha256(words.tobytes()).hexdigest()[:16] == digest
+    with monkeypatch.context() as m:
+        m.setattr(packer_module, "with_edge_sort_metadata", lambda b: b)
+        parent_words = BatchPacker().pack(batch)
+    assert hashlib.sha256(parent_words.tobytes()).hexdigest()[:16] == parent_digest
     np.testing.assert_allclose(E[:, 0].detach().numpy(), E_ref, rtol=1e-6)
     assert float(F.abs().sum()) == pytest.approx(abs_sum, rel=1e-6)
     w = torch.arange(F.numel()).reshape(F.shape)

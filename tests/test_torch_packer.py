@@ -63,12 +63,13 @@ def test_unpack_of_pack_equals_to_torch(synthetic_npz, triplets_only):
 
 def test_key_order_matches_the_jax_packer(synthetic_npz):
     """The batch's keys lie in the JAX packer's order (sorted, the unused
-    keys skipped), the plans' arrays after them; every key aligned as the
-    caching allocator aligns a tensor."""
+    keys skipped), the edges' derived sort metadata and the plans' arrays
+    after them; every key aligned as the caching allocator aligns a tensor."""
     from gemnet_pytorch_tpu.training.trainer import BatchPacker as JaxPacker
     from gemnet_pytorch_tpu.training.trainer import UNUSED_DEVICE_KEYS as JAX_UNUSED
     from gemnet_pytorch_tpu_torch.data.batch import PLAN_ARRAYS, SEGMENT_PLANS
     from gemnet_pytorch_tpu_torch.data.packer import ALIGN, UNUSED_DEVICE_KEYS, BatchPacker
+    from gemnet_pytorch_tpu_torch.data.padding import EDGE_SORT_KEYS
 
     assert UNUSED_DEVICE_KEYS == JAX_UNUSED
     batch = _batch(synthetic_npz)
@@ -79,7 +80,8 @@ def test_key_order_matches_the_jax_packer(synthetic_npz):
     assert ALIGN % 16 == 0  # the kernels' 16-byte loads of the plans' items
     n = len(jax_packer.layout)
     assert keys[:n] == [k for k, *_ in jax_packer.layout]
-    assert keys[n:] == [f"{p}.{a}" for p in SEGMENT_PLANS for a in PLAN_ARRAYS]
+    assert keys[n:] == list(EDGE_SORT_KEYS) + [f"{p}.{a}" for p in SEGMENT_PLANS
+                                               for a in PLAN_ARRAYS]
     assert all(off % ALIGN == 0 for _, off, *_ in packer.layout)
 
 
