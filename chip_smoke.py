@@ -108,9 +108,8 @@ Phases:
      deterministic algorithms 5 captured fp32 remat steps against 5 without
      (the remat step's launches pinned in REMAT_LAUNCHES), and ms, device
      ms and peak MiB of the captured bf16 step with and without remat at
-     both batches; bilinear_implementation="xla" (the plain versions)
-     refused on the card, with no launch. Phase 10's fwd_ms_median is the
-     trainer's captured predict;
+     both batches. Phase 10's fwd_ms_median is the trainer's captured
+     predict;
  14. data parallelism and the halo edge partition (`parallel/`), with
      deterministic algorithms for the gates: (a) on an NCCL group of one
      (`parallel.initialize_distributed`), the captured dp step against the
@@ -519,6 +518,7 @@ def kernel_cases(cfg, batch, device, seed: int = 0, tags=None):
     keeps the cases of those shapes only ("probe" for P1/P2)."""
     import torch
 
+    from gemnet_pytorch_tpu_torch.data.batch import SORTED_GATHERS
     from gemnet_pytorch_tpu_torch.scripts import gather_probe
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -546,32 +546,25 @@ def kernel_cases(cfg, batch, device, seed: int = 0, tags=None):
                           shape=(n, S, M, n_e))
             cases.append(dict(kernel="K1", **common))
             cases.append(dict(kernel="K2", cot=cast(rand(S, n_e, M)), **common))
-        # (tag, gathered column, perm (None: the column is ascending), sorted
-        # column, plan, width, table rows)
-        for tag, idx, perm, srt, plan, M, n_src in (
-            ("trip_ba", "id3_expand_ba", "trip_ba_perm", "trip_ba_sorted", "trip_ba_plan",
-             M3, n_e),
-            ("intm_db", "id4_expand_intm_db", "intm_db_perm", "intm_db_sorted", "intm_db_plan",
-             M4, n_e),
-            ("quad_abd", "id4_expand_abd", "quad_abd_perm", "quad_abd_sorted", "quad_abd_plan",
-             M4, n_intm),
-            ("edge_a", "id_a", "edge_a_perm", "edge_sorted", "edge_plan", cfg.emb_size_atom,
-             n_atoms),
-            ("edge_c", "id_c", "edge_c_perm", "edge_sorted", "edge_plan", cfg.emb_size_atom,
-             n_atoms),
-            ("geometry_abd", "id4_expand_abd", "quad_abd_perm", "quad_abd_sorted",
-             "quad_abd_plan", 3, n_intm),
-            ("geometry_cab", "id4_reduce_cab", "quad_cab_perm", "quad_cab_sorted",
-             "quad_cab_plan", 4, n_intm),
-            ("geometry_ca", "id3_reduce_ca", None, "id3_reduce_ca", "id3_reduce_ca_plan", 3,
-             n_e),
-            ("geometry_edge_a", "id_a", "edge_a_perm", "edge_sorted", "edge_plan", 3, n_atoms),
-            ("geometry_edge_c", "id_c", "edge_c_perm", "edge_sorted", "edge_plan", 3, n_atoms),
+        # (tag, gathered column, width, table rows); the column's perm (None:
+        # ascending), sorted ids and plan from the table of sorted gathers
+        for tag, idx, M, n_src in (
+            ("trip_ba", "id3_expand_ba", M3, n_e),
+            ("intm_db", "id4_expand_intm_db", M4, n_e),
+            ("quad_abd", "id4_expand_abd", M4, n_intm),
+            ("edge_a", "id_a", cfg.emb_size_atom, n_atoms),
+            ("edge_c", "id_c", cfg.emb_size_atom, n_atoms),
+            ("geometry_abd", "id4_expand_abd", 3, n_intm),
+            ("geometry_cab", "id4_reduce_cab", 4, n_intm),
+            ("geometry_ca", "id3_reduce_ca", 3, n_e),
+            ("geometry_edge_a", "id_a", 3, n_atoms),
+            ("geometry_edge_c", "id_c", 3, n_atoms),
         ):
             if (dtype == "split3" or (dtype == "bf16" and tag.startswith("geometry"))
                     or (tags is not None and tag not in tags)):
                 continue
             n = batch[idx].shape[0]
+            perm, srt, plan = SORTED_GATHERS[idx]
             cases.append(dict(kernel="K3", tag=tag, dtype=dtype, x=cast(rand(n, M)),
                               idx=batch[idx], perm=None if perm is None else batch[perm],
                               sorted=batch[srt], plan=batch[plan], shape=(n, M, n_src)))
@@ -1290,7 +1283,8 @@ def capacity_plans(cfg, device):
     plans: the same bits, the counters back at zero."""
     import torch
 
-    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.data import segment_plan, to_torch
+    from gemnet_pytorch_tpu_torch.data.batch import plans_of, with_edge_sort_metadata
 
     small_tags = ("triplet", "quadruplet", "trip_ba", "intm_db", "quad_abd", "edge_a", "edge_c",
                   "geometry_abd", "geometry_cab", "geometry_ca", "geometry_edge_a",
@@ -1298,8 +1292,11 @@ def capacity_plans(cfg, device):
     n_cases = 0
     for kind, tags in (("small", small_tags), ("large", LARGE_TAGS)):
         batch_np, _, _ = bench.padded_batch(cfg, bench.molecules(kind))
-        exact = kernel_cases(cfg, to_torch(batch_np, device, capacity=False), device, tags=tags)
-        cap = kernel_cases(cfg, to_torch(batch_np, device), device, tags=tags)
+        on_device = to_torch(batch_np, device)
+        exact_plans = {key: segment_plan(ids, n, rows, device, capacity=False)
+                       for key, ids, n, rows in plans_of(with_edge_sort_metadata(batch_np))}
+        exact = kernel_cases(cfg, {**on_device, **exact_plans}, device, tags=tags)
+        cap = kernel_cases(cfg, on_device, device, tags=tags)
         for ce, cc in zip(exact, cap):
             out_e, out_c = case_functions(ce)[0](), case_functions(cc)[0]()
             torch.cuda.synchronize()
@@ -2212,31 +2209,6 @@ def remat(cfg, mols, device) -> dict:
     return out
 
 
-def xla(cfg, mols, device) -> None:
-    """Phase 13 (f): bilinear_implementation="xla" (the plain versions) on
-    the card: the bench-small predict raises, with no kernel launched."""
-    import dataclasses
-
-    from gemnet_pytorch_tpu_torch.data import to_torch
-
-    batch = to_torch(bench.padded_batch(cfg, mols)[0], device)
-    model = make_model(dataclasses.replace(cfg, bilinear_implementation="xla"), device)
-
-    def attempt():
-        try:
-            predict(model, batch)
-        except ValueError as err:
-            return str(err)
-        return None
-
-    message, count = launches_of(attempt)
-    log(f"  bilinear_implementation='xla' on the card, bench-small predict: {message!r}; "
-        f"launches {count}")
-    check(message is not None and "'xla'" in message,
-          "bilinear_implementation='xla' ran on the card: no plain version may run there")
-    check(not count, f"'xla' on the card launched {count} before it raised")
-
-
 def stack_phase(cfg, mols, device, workdir: str, step_ms=None, fwd_ms=None) -> dict:
     """Phase 13. `step_ms`: the captured fp32 small step's ms (phase 11);
     `fwd_ms`: the bench's fwd_ms_median (phase 10), where known. Returns the
@@ -2244,7 +2216,6 @@ def stack_phase(cfg, mols, device, workdir: str, step_ms=None, fwd_ms=None) -> d
     timing = dict(builders=builders(cfg), provider=provider_rates(cfg, workdir, step_ms),
                   md=md_parts(cfg, mols, device), pretrained=pretrained(cfg, device, workdir),
                   remat=remat(cfg, mols, device))
-    xla(cfg, mols, device)
     if fwd_ms is not None:
         log(f"  the bench's fwd_ms_median (phase 10), now the captured predict: {fwd_ms:.3f} ms")
     return timing
@@ -4480,8 +4451,7 @@ def main() -> int:
         rest_census = dict(_cuda.LAUNCHES)
 
     log(f"== 13. the rest of the single-device stack: the native graph builder, the provider, "
-        f"MD's host parts, load_pretrained and the examples, remat_blocks, "
-        f"bilinear_implementation='xla' [{power}]")
+        f"MD's host parts, load_pretrained and the examples, remat_blocks [{power}]")
     with tempfile.TemporaryDirectory(prefix="gemnet_stack_") as workdir:
         _cuda.reset_launches()
         stack_timing = stack_phase(cfg, mols, device, workdir,

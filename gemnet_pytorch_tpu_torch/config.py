@@ -6,7 +6,9 @@ The defaults equal `config.yaml` (GemNet-Q at the released widths and the
 reference's training hyperparameters). Knobs that only the JAX package serves
 (edge partitioning) stay as fields so one YAML file configures both
 packages; `models.gemnet.GemNet` raises on the ones this package does not run
-yet.
+yet. JAX's `bilinear_implementation` is not one of them: here the tensor's
+device picks the kernels or their plain versions, and `from_dict` drops the
+key from a YAML file that sets it.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ class ModelConfig:
     activation: str = "swish"
     scale_file: Optional[str] = None
     # execution knobs of the JAX package; see the module docstring
-    bilinear_implementation: str = "auto"
     compute_dtype: str = "float32"
     matmul_precision: str = "default"
     ep_axis: Optional[str] = None

@@ -3,10 +3,16 @@
 `pad_batch` emits some index columns as int16 (`padding._shrink_ids`), which
 torch indexing rejects. `to_torch` widens every index column to int64, keeps
 the sort metadata (`*_perm`/`*_sorted`, kernel inputs) as int32 and the
-periodic cell offsets (NARROW_KEYS) as int8, adds the edges' sort metadata
-(`edge_sort_metadata`) to a batch that carries the single-device sort
-metadata, and adds one `SegmentPlan` per sorted id column the CUDA segment
-kernels reduce over, computed once per batch on the host.
+periodic cell offsets (NARROW_KEYS) as int8 (`device_width`, as the packer
+does), adds the edges' sort metadata (`edge_sort_metadata`) to a batch that
+carries the single-device sort metadata, and adds one `SegmentPlan` per
+sorted id column the CUDA segment kernels reduce over, computed once per
+batch on the host.
+
+`SORTED_GATHERS` is the one table of the model's sorted gathers: for each
+index column a gather reads, the batch keys of its sort metadata (perm,
+sorted ids, plan), from which the key lists below derive; `gather_sorts`
+reads a device batch's metadata through it for `ops.expand_gather.gather`.
 
 A plan cuts each segment's rows into work items of at most `item_rows` rows.
 The kernels run one item at a time per thread block (K1, K2 and K4 at the
@@ -44,13 +50,79 @@ import numpy as np
 import torch
 
 from .graph import ragged_range
-from .padding import EDGE_SORT_KEYS, SORT_META_KEYS
 
+# index column -> (perm key, or None where the column ascends; sorted ids
+# key; plan key) of each gather whose VJP runs as the sorted segment sum K3
+# on a single-device batch: the triplet geometry's and the triplet
+# interaction's by id3_reduce_ca and id3_expand_ba, the quadruplet
+# interaction's by id4_expand_intm_db and id4_expand_abd (the latter and
+# id4_reduce_cab also the quadruplet geometry's), and the gathers of atom
+# rows to edge rows by id_a and id_c (one sorted column and plan,
+# `edge_sort_metadata`). `pad_batch` derives every other column's metadata.
+SORTED_GATHERS = {
+    "id3_reduce_ca": (None, "id3_reduce_ca", "id3_reduce_ca_plan"),
+    "id3_expand_ba": ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan"),
+    "id4_expand_intm_db": ("intm_db_perm", "intm_db_sorted", "intm_db_plan"),
+    "id4_expand_abd": ("quad_abd_perm", "quad_abd_sorted", "quad_abd_plan"),
+    "id4_reduce_cab": ("quad_cab_perm", "quad_cab_sorted", "quad_cab_plan"),
+    "id_a": ("edge_a_perm", "edge_sorted", "edge_plan"),
+    "id_c": ("edge_c_perm", "edge_sorted", "edge_plan"),
+}
+EDGE_COLUMNS = ("id_a", "id_c")
+# the sort metadata `pad_batch` emits (an ascending column has none), and the
+# edges' (`edge_sort_metadata`: two perms of one sorted column)
+SORT_META_KEYS = tuple(k for c, (perm, ids, _) in SORTED_GATHERS.items()
+                       if perm is not None and c not in EDGE_COLUMNS for k in (perm, ids))
+EDGE_SORT_KEYS = tuple(SORTED_GATHERS[c][0] for c in EDGE_COLUMNS) + (SORTED_GATHERS["id_a"][1],)
 # integer keys the model reads at their own width (not widened to int64):
 # the periodic edges' int8 cell offsets
 NARROW_KEYS = frozenset({"edge_offset"})
 # integer keys the kernels read as int32: the sort metadata
 INT32_KEYS = frozenset(SORT_META_KEYS + EDGE_SORT_KEYS)
+
+
+def device_width(key: str, value: np.ndarray) -> np.ndarray:
+    """`value` at the width the model reads key `key` at."""
+    value = np.asarray(value)
+    if key in INT32_KEYS:
+        return value.astype(np.int32)
+    if key in NARROW_KEYS:
+        return value
+    if np.issubdtype(value.dtype, np.integer):
+        return value.astype(np.int64)
+    if np.issubdtype(value.dtype, np.floating):
+        return value.astype(np.float32)
+    return value
+
+
+def sort_keys(batch: dict) -> tuple[str, ...]:
+    """Every key of the table rows of the columns `batch` has: what a
+    single-device batch carries."""
+    return tuple(dict.fromkeys(k for c, row in SORTED_GATHERS.items() if c in batch
+                               for k in row if k is not None))
+
+
+def strip_sort_metadata(batch: dict) -> dict:
+    """Drop the sort metadata of every column that is not ascending, perms,
+    sorted ids and plans, from `batch` in place (and return it): any
+    re-slicing of a row space invalidates it."""
+    for perm, ids, plan in SORTED_GATHERS.values():
+        if perm is not None:
+            for k in (perm, ids, plan):
+                batch.pop(k, None)
+    return batch
+
+
+def gather_sorts(batch: dict) -> dict[str, tuple]:
+    """{index column: (perm, sorted ids, plan)} of the sorted gathers of a
+    device batch: on a single-device batch (one that carries SORT_META_KEYS,
+    as `with_edge_sort_metadata` tests) every table row whose column it has;
+    on a halo or ep shard, whose re-sliced rows carry none, {}: every gather
+    there is plain."""
+    if SORT_META_KEYS[0] not in batch:
+        return {}
+    return {c: (None if perm is None else batch[perm], batch[ids], batch[plan])
+            for c, (perm, ids, plan) in SORTED_GATHERS.items() if c in batch}
 
 
 class PlanCapacity(NamedTuple):
@@ -237,7 +309,7 @@ def with_edge_sort_metadata(batch: dict) -> dict:
     """`batch` and its `edge_sort_metadata` where it carries the
     single-device sort metadata (a halo or ep shard's re-sliced rows do
     not) and not yet the edges'; else `batch` itself."""
-    if "trip_ba_perm" not in batch or "edge_a_perm" in batch:
+    if SORT_META_KEYS[0] not in batch or EDGE_SORT_KEYS[0] in batch:
         return batch
     return {**batch, **edge_sort_metadata(batch)}
 
@@ -304,25 +376,21 @@ def make_plan(arrays: dict, n_segments: int, n_partials: int, n_tree_slots: int,
                        arrays["tree_parent"], tree_arrivals, n_tree_slots)
 
 
-def to_torch(batch: dict[str, np.ndarray], device, capacity: bool = True) -> dict:
-    """Padded numpy batch -> tensors on `device`, plus the edges' sort
-    metadata (`with_edge_sort_metadata`) and the segment plans (at capacity,
-    or exact with `capacity=False`)."""
-    batch = with_edge_sort_metadata(batch)
-    out = {}
-    for k, v in batch.items():
-        v = np.asarray(v)
-        if k in INT32_KEYS:
-            v = v.astype(np.int32)
-        elif k in NARROW_KEYS:
-            pass
-        elif np.issubdtype(v.dtype, np.integer):
-            v = v.astype(np.int64)
-        elif np.issubdtype(v.dtype, np.floating):
-            v = v.astype(np.float32)
-        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+def plans_of(batch: dict):
+    """(plan key, sorted ids, n_segments, item_rows) of each SEGMENT_PLANS
+    entry whose sorted ids `batch` carries."""
     for key, (ids_key, size_key, item_rows) in SEGMENT_PLANS.items():
         if ids_key in batch:
-            out[key] = segment_plan(batch[ids_key], len(batch[size_key]), item_rows, device,
-                                    capacity)
+            yield key, batch[ids_key], len(batch[size_key]), item_rows
+
+
+def to_torch(batch: dict[str, np.ndarray], device) -> dict:
+    """Padded numpy batch -> tensors on `device` at their `device_width`,
+    plus the edges' sort metadata (`with_edge_sort_metadata`) and the
+    segment plans at capacity."""
+    batch = with_edge_sort_metadata(batch)
+    out = {k: torch.from_numpy(np.ascontiguousarray(device_width(k, v))).to(device)
+           for k, v in batch.items()}
+    for key, ids, n_segments, item_rows in plans_of(batch):
+        out[key] = segment_plan(ids, n_segments, item_rows, device)
     return out

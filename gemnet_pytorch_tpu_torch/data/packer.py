@@ -35,9 +35,8 @@ import numpy as np
 import torch
 
 from ..perf import spans
-from .batch import (INT32_KEYS, NARROW_KEYS, PLAN_ARRAYS, SEGMENT_PLANS, make_plan, plan_arrays,
-                    plan_capacity, with_edge_sort_metadata)
-from .padding import EDGE_SORT_KEYS
+from .batch import (EDGE_SORT_KEYS, PLAN_ARRAYS, device_width, make_plan, plan_arrays,
+                    plan_capacity, plans_of, with_edge_sort_metadata)
 
 # batch keys the model never reads, left out of the buffer (trainer.py:43-46)
 UNUSED_DEVICE_KEYS = frozenset({
@@ -54,20 +53,6 @@ _TORCH_DTYPE = {np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32
                 np.dtype(np.int8): torch.int8}
 
 
-def device_width(key: str, value: np.ndarray) -> np.ndarray:
-    """`value` at the width `data.to_torch` gives key `key`."""
-    value = np.asarray(value)
-    if key in INT32_KEYS:
-        return value.astype(np.int32)
-    if key in NARROW_KEYS:
-        return value
-    if np.issubdtype(value.dtype, np.integer):
-        return value.astype(np.int64)
-    if np.issubdtype(value.dtype, np.floating):
-        return value.astype(np.float32)
-    return value
-
-
 def _entries(batch) -> list[tuple[str, np.ndarray]]:
     """(key, array) of everything packed, in layout order: the padded batch's
     keys sorted, then the edges' sort metadata (`with_edge_sort_metadata`,
@@ -75,10 +60,9 @@ def _entries(batch) -> list[tuple[str, np.ndarray]]:
     keys = [k for k in sorted(batch) if k not in UNUSED_DEVICE_KEYS and k not in EDGE_SORT_KEYS]
     keys += [k for k in EDGE_SORT_KEYS if k in batch]
     out = [(k, device_width(k, batch[k])) for k in keys]
-    for key, (ids_key, size_key, item_rows) in SEGMENT_PLANS.items():
-        if ids_key in batch:
-            arrays, _, _ = plan_arrays(batch[ids_key], len(batch[size_key]), item_rows)
-            out += [(f"{key}.{name}", arrays[name]) for name in PLAN_ARRAYS]
+    for key, ids, n_segments, item_rows in plans_of(batch):
+        arrays, _, _ = plan_arrays(ids, n_segments, item_rows)
+        out += [(f"{key}.{name}", arrays[name]) for name in PLAN_ARRAYS]
     return out
 
 
@@ -108,11 +92,9 @@ class BatchPacker:
             layout.append((key, off, arr.nbytes, arr.shape, arr.dtype))
             off = (off + arr.nbytes + ALIGN - 1) // ALIGN * ALIGN
         plans = {}
-        for key, (ids_key, size_key, item_rows) in SEGMENT_PLANS.items():
-            if ids_key in batch:
-                n_segments = len(batch[size_key])
-                cap = plan_capacity(len(batch[ids_key]), n_segments, item_rows)
-                plans[key] = (n_segments, cap.partials, cap.tree_slots, cap.merges, cap.nodes)
+        for key, ids, n_segments, item_rows in plans_of(batch):
+            cap = plan_capacity(len(ids), n_segments, item_rows)
+            plans[key] = (n_segments, cap.partials, cap.tree_slots, cap.merges, cap.nodes)
         self.layout, self.plans, self.total = layout, plans, off // 4
         self._shapes = self._shapes_of(batch)
 

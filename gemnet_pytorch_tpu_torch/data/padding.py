@@ -13,10 +13,11 @@ Padding convention (load-bearing, used throughout the model):
 - Periodic batches carry ``edge_offset`` (int8, (P, 3), padded rows 0),
   ``cell`` (float32, (n_mol, 3, 3), padded systems zero) and, where the
   container has tags, ``free_mask`` (padded atoms False).
-- The ``*_perm``/``*_sorted`` sort metadata (SORT_META_KEYS) is a
-  single-device layout contract: any re-slicing of a row space invalidates
-  it and must strip it. So is the edges' (EDGE_SORT_KEYS), which
-  `data.batch` derives from a padded batch, not `pad_batch`.
+- The ``*_perm``/``*_sorted`` sort metadata (`data.batch.SORT_META_KEYS`,
+  derived from its table `SORTED_GATHERS`) is a single-device layout
+  contract: any re-slicing of a row space invalidates it and must strip it
+  (`data.batch.strip_sort_metadata`). So is the edges' (EDGE_SORT_KEYS),
+  which `data.batch` derives from a padded batch, not `pad_batch`.
 
 Left out of the copy: the TPU-only Pallas segment-block choice
 (``seg_block3``/``seg_block4`` and their shape carriers).
@@ -87,27 +88,6 @@ class PadDims:
             else self.n_quads,
             kmax4=max(self.kmax4, round_up(g.kmax4, 4)) if g.kmax4 else self.kmax4,
         )
-
-
-SORT_META_KEYS = (
-    "trip_ba_perm", "trip_ba_sorted",
-    "intm_db_perm", "intm_db_sorted",
-    "quad_abd_perm", "quad_abd_sorted",
-    "quad_cab_perm", "quad_cab_sorted",
-)
-
-
-# the sort metadata of the gathers of atom rows to edge rows by id_a and by
-# id_c (`data.batch.edge_sort_metadata`; its plan is `edge_plan`)
-EDGE_SORT_KEYS = ("edge_a_perm", "edge_c_perm", "edge_sorted")
-
-
-def strip_sort_metadata(batch: dict) -> dict:
-    """Drop the sort metadata, the edges' and its plan included, from
-    `batch` in place (and return it)."""
-    for k in SORT_META_KEYS + EDGE_SORT_KEYS + ("edge_plan",):
-        batch.pop(k, None)
-    return batch
 
 
 def _row_splits(sorted_ids: np.ndarray, n_segments: int) -> np.ndarray:

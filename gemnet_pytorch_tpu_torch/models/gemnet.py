@@ -11,11 +11,15 @@
 The forward consumes one padded batch from `data.to_torch` and returns
 per-molecule energies plus, with direct forces, per-atom forces.
 `energy_and_forces` derives F = -dE/dR with `torch.autograd.grad`
-otherwise. The batch must carry the sort metadata (SORT_META_KEYS) and the
-segment plans of `to_torch`: the expand gathers and the bilinear
-reductions run on them. The edges' sort metadata (EDGE_SORT_KEYS, which
-`to_torch` and the packer derive) sends the gathers of atom rows to edge
-rows through the same sorted VJP; without it they stay plain gathers.
+otherwise. A single-device batch must carry the sort metadata and the
+segment plans of `to_torch` (or the packer): the bilinear reductions run
+on the plans, and each gather by an index column of the table
+`data.batch.SORTED_GATHERS` reads its sort with `gather_sorts`, once in
+`preamble`, so its VJP is the sorted segment sum K3. A halo or ep shard
+carries none, and every gather there is plain. Whether a wrapper launches
+its hand-written kernel or runs its plain version follows the tensor's
+device (`ops._cuda.use_kernel`): the kernel on the card, the plain version
+on the CPU.
 
 A periodic batch (`edge_offset` and `cell`, `data.graph`) runs OCP's
 GemNet-T geometry: each edge's vector from its source's image, R[t] - R[s]
@@ -47,14 +51,6 @@ product, keeps 10. And PyTorch's flag for fp32 products
 scoped to one model's dense backward matmuls. "default" and "highest" are
 exact fp32.
 
-bilinear_implementation chooses, as in the JAX package
-(`ops/pallas/segment_outer.py:251-256`), between the hand-written kernels
-and their plain versions for K1/K2 (the bilinears) and K3 (the VJPs of the
-interaction blocks' expand gathers; the geometry's stay "auto", as in JAX):
-"auto" the kernels on the card and the plain versions on the CPU, "xla" the
-plain versions, which raise on a CUDA tensor, "pallas" the kernels, which
-raise on a CPU tensor (`ops._cuda.use_kernel`).
-
 remat_blocks recomputes each interaction block and each output block of the
 block loop in the backward instead of holding its intermediates (JAX
 `models/gemnet.py:300-304`, `nn.remat`), through
@@ -80,11 +76,9 @@ JAX `models/gemnet.py:159-170`, `models/interaction.py:72`, `:97`, `:117-120`,
 `:173`, `:192-195`): the model runs on one rank's chunk of the triplet and
 quadruplet rows (`parallel.ep.ep_model` makes such a view over `group`),
 with every other space replicated. The chunk carries no sort metadata, so
-its expand gathers are plain gathers; each block psums its bilinear
-outputs; everything after them computes replicated, so E and the direct F
-come out replicated with no further collective (-dE/dR as the halo mode's).
-A single-device batch must carry the sort metadata: only a partitioned
-model gathers without it.
+its gathers are plain gathers; each block psums its bilinear outputs;
+everything after them computes replicated, so E and the direct F come out
+replicated with no further collective (-dE/dR as the halo mode's).
 
 The forward is three parts, as JAX's `GemNet.__call__(return_state=True)`
 and `finalize_outputs` split it for the pipeline (`parallel/pp.py`):
@@ -101,7 +95,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..data.padding import SORT_META_KEYS
+from ..data.batch import SORT_META_KEYS, gather_sorts, sort_keys
 from ..ops import _cuda, geometry
 from ..ops.segment import masked_segment_mean, masked_segment_sum
 from ..parallel import mesh
@@ -143,9 +137,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("OCP's GemNet-T runs on one device or under dp")
     if _ocp(cfg) and not cfg.triplets_only:
         raise NotImplementedError("OCP's bases are ported for GemNet-(d)T only")
-    if cfg.bilinear_implementation not in _cuda.IMPLEMENTATIONS:
-        raise ValueError(f"bilinear_implementation={cfg.bilinear_implementation!r}: one of "
-                         f"{_cuda.IMPLEMENTATIONS}")
 
 
 def _ocp(cfg: ModelConfig) -> bool:
@@ -213,16 +204,14 @@ class GemNet(nn.Module):
         self.mlp_rbf_out = Dense(Rn, cfg.emb_size_rbf, **kw)
         self.atom_emb = AtomEmbedding(cfg.emb_size_atom, **kw)
         self.edge_emb = EdgeEmbedding(2 * cfg.emb_size_atom + Rn, cfg.emb_size_edge,
-                                      cfg.activation,
-                                      implementation=cfg.bilinear_implementation, **kw)
+                                      cfg.activation, **kw)
         self.int_blocks = nn.ModuleList([
             InteractionBlock(
                 cfg.emb_size_atom, cfg.emb_size_edge, cfg.emb_size_trip, cfg.emb_size_quad,
                 cfg.emb_size_rbf, cfg.emb_size_cbf, cfg.emb_size_sbf, cfg.emb_size_bil_trip,
                 cfg.emb_size_bil_quad, cfg.num_before_skip, cfg.num_after_skip,
                 cfg.num_concat, cfg.num_atom, cfg.triplets_only, block_nr=i + 1,
-                activation=cfg.activation, precision=precision,
-                implementation=cfg.bilinear_implementation, **kw)
+                activation=cfg.activation, precision=precision, **kw)
             for i in range(cfg.num_blocks)])
         self.out_blocks = nn.ModuleList([
             OutputBlock(
@@ -261,19 +250,18 @@ class GemNet(nn.Module):
                              f"make it with parallel.{make}(model, group)")
         if halo:
             _required(batch, HALO_KEYS + (() if cfg.triplets_only else HALO_QUAD_KEYS))
-        elif ep:
+        else:
             _required(batch, ("id3_reduce_ca_plan",)
                       + (() if cfg.triplets_only else ("id4_reduce_ca_plan",)))
             stale = [k for k in SORT_META_KEYS if k in batch]
-            if stale:
+            if not ep:
+                _required(batch, sort_keys(batch))
+            elif stale:
                 raise ValueError(f"an ep shard carries no sort metadata ({stale}): build it "
                                  "with parallel.ep.partition_batch")
-        else:
-            _required(batch, ("trip_ba_perm", "trip_ba_sorted", "trip_ba_plan",
-                              "id3_reduce_ca_plan"))
-            if not cfg.triplets_only:
-                _required(batch, SORT_META_KEYS + (
-                    "intm_db_plan", "quad_abd_plan", "quad_cab_plan", "id4_reduce_ca_plan"))
+        # {index column: (perm, sorted ids, plan)}; {} on a halo or ep shard
+        sorts = gather_sorts(batch)
+        edge_sorts = (sorts.get("id_c"), sorts.get("id_a"))
         if R is None:
             R = batch["R"]
         Z = batch["Z"]
@@ -287,12 +275,6 @@ class GemNet(nn.Module):
             raise NotImplementedError("periodic batches run on one device or under dp")
         shift = (geometry.edge_shifts(batch["edge_offset"], batch["cell"], batch["batch_seg"],
                                       id_a) if periodic else None)
-        edge_sorts = _edge_sorts(batch)
-        # the triplet rows' gathers of edge rows, by id3_reduce_ca (ascending:
-        # no perm) and id3_expand_ba; plain on a halo or ep shard
-        trip_sorts = (None, None) if cfg.ep_axis is not None else (
-            (None, batch["id3_reduce_ca"], batch["id3_reduce_ca_plan"]),
-            (batch["trip_ba_perm"], batch["trip_ba_sorted"], batch["trip_ba_plan"]))
         D_ca, V_ca = geometry.interatomic_vectors(R, id_c, id_a, edge_mask, shift, edge_sorts)
         harmonics = cfg.cbf == "spherical_harmonics"
         if harmonics:
@@ -313,7 +295,8 @@ class GemNet(nn.Module):
             # tests/test_torch_tp.py past its gate against JAX
             angles3 = geometry.triplet_angles(geometry.edge_vectors(R, id_c, id_a, edge_sorts),
                                               batch["id3_reduce_ca"], batch["id3_expand_ba"],
-                                              *trip_sorts)
+                                              sorts.get("id3_reduce_ca"),
+                                              sorts.get("id3_expand_ba"))
 
         # ---- basis: triplets ----
         rbf = self.rbf_basis(D_ca) * edge_mask[:, None].to(R.dtype)
@@ -343,12 +326,7 @@ class GemNet(nn.Module):
                     batch["id4_expand_abd"], batch["id4_reduce_cab"],
                     batch["id4_expand_intm_db"], batch["id4_reduce_intm_ca"],
                     batch["id4_expand_intm_ab"], batch["id4_reduce_intm_ab"],
-                    # an ep shard's gathers are plain (JAX ops/geometry.py:142)
-                    abd_sort=None if ep else (batch["quad_abd_perm"], batch["quad_abd_sorted"],
-                                              batch["quad_abd_plan"]),
-                    cab_sort=None if ep else (batch["quad_cab_perm"], batch["quad_cab_sorted"],
-                                              batch["quad_cab_plan"]),
-                )
+                    sorts.get("id4_expand_abd"), sorts.get("id4_reduce_cab"))
             # dense circular basis on the intermediate d->b space
             # (reference gemnet.py:517, basis_layers.py:133-147)
             cbf4_env = self.cbf_basis.rbf_env(D_ab, masks["int_edge"])  # (IE, S, R)
@@ -382,7 +360,7 @@ class GemNet(nn.Module):
 
         ind = {k: batch[k] for k in ("id_c", "id_a", "id_swap", "id3_expand_ba",
                                      "id3_reduce_ca", "id3_reduce_ca_plan")}
-        ind["edge_sorts"] = edge_sorts
+        ind["sorts"] = sorts
         if not cfg.triplets_only:
             ind.update({k: batch[k] for k in ("id4_reduce_ca", "id4_reduce_ca_plan",
                                               "id4_expand_intm_db", "id4_expand_abd")})
@@ -393,15 +371,7 @@ class GemNet(nn.Module):
             if not cfg.triplets_only:
                 ind["intm_send"] = (batch["intm_halo_send_idx"], batch["intm_halo_send_mask"])
         elif ep:
-            # the bilinear outputs' psum; plain expand gathers (no sort keys)
-            ind["ep_group"] = self.group
-        else:
-            ind["trip_ba_sort"] = trip_sorts[1]
-            if not cfg.triplets_only:
-                ind["quad_abd_sort"] = (batch["quad_abd_perm"], batch["quad_abd_sorted"],
-                                        batch["quad_abd_plan"])
-                ind["intm_db_sort"] = (batch["intm_db_perm"], batch["intm_db_sorted"],
-                                       batch["intm_db_plan"])
+            ind["ep_group"] = self.group  # the bilinear outputs' psum
 
         E_a, F_ca = self.out_blocks[0](h, m, rbf_out, id_a, edge_mask, atom_mask, group)
         return dict(h=h, m=m, E_a=E_a, F_ca=F_ca, basis=basis, rbf_out=rbf_out, ind=ind,
@@ -426,17 +396,6 @@ class GemNet(nn.Module):
             E_a = E_a + E
             F_ca = F_ca + F
         return h, m, E_a, F_ca
-
-
-def _edge_sorts(batch: dict) -> tuple:
-    """The sort metadata of the gathers of atom rows to edge rows by id_c and
-    by id_a (`data.batch.edge_sort_metadata`: one sorted column and plan,
-    two perms), or (None, None), plain gathers, where the batch carries
-    none (the halo and ep shards)."""
-    if "edge_a_perm" not in batch:
-        return None, None
-    ids, plan = batch["edge_sorted"], batch["edge_plan"]
-    return (batch["edge_c_perm"], ids, plan), (batch["edge_a_perm"], ids, plan)
 
 
 def _call(block, *args):

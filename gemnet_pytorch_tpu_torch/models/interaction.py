@@ -3,17 +3,17 @@
 Port of `gemnet_pytorch_tpu/models/interaction.py` (reference
 interaction_block.py), single-device path. Merge scalings (1/sqrt(3) with
 quadruplets, 1/sqrt(2) without; reference interaction_block.py:202-203,
-390-391) and every skip's 1/sqrt(2) match the reference. The expand gathers
-carry their sort metadata, so their VJPs run as the sorted segment sum K3,
-and so do the concat layer's gathers of atom rows to edge rows
-(`ind["edge_sorts"]`); the reverse edges' rows x[id_swap] take the
-permutation's own VJP (`ops.expand_gather.swap_rows`) on every path.
-`dtype` is every layer's compute dtype (None: fp32; torch.bfloat16 in the
-bf16 mode), passed through as `gemnet_pytorch_tpu/models/interaction.py`
-does; `precision` is the bilinears' kernel mode ("split3" when
-matmul_precision="high", else "exact") and `implementation`
-(bilinear_implementation) picks the kernels or their plain versions for the
-bilinears and the expand gathers' VJPs, as the JAX blocks thread it.
+390-391) and every skip's 1/sqrt(2) match the reference. Each gather by an
+index column reads that column's sort metadata from `ind["sorts"]`
+(`data.batch.gather_sorts`): the expand gathers and the concat layer's
+gathers of atom rows to edge rows take the sorted segment sum K3 as their
+VJP where the batch carries it, and are plain where it does not; the
+reverse edges' rows x[id_swap] take the permutation's own VJP
+(`ops.expand_gather.swap_rows`) on every path. `dtype` is every layer's
+compute dtype (None: fp32; torch.bfloat16 in the bf16 mode), passed through
+as `gemnet_pytorch_tpu/models/interaction.py` does; `precision` is the
+bilinears' kernel mode ("split3" when matmul_precision="high", else
+"exact").
 
 The halo mode (`parallel/halo.py`; JAX `models/interaction.py:43-100`,
 `:236-310`): `ind["halo_group"]` is set and the index columns are a
@@ -22,9 +22,9 @@ layers up to the activations that are the halo payload) and `finish` (the
 expand gather, the bilinear, the up-projections); the block issues the edge
 exchange after the triplet prelude, then the quadruplet prelude and the
 intermediate exchange, then both finishes, in the JAX package's order. The
-expand and concat gathers there are plain gathers: the sort metadata of a
-global batch is invalid for a shard's re-sliced rows (JAX `:64-70`,
-`:86-98`).
+shard carries no sort metadata (`ind["sorts"]` is empty), so the expand and
+concat gathers there are plain gathers: the sort metadata of a global batch
+is invalid for a shard's re-sliced rows (JAX `:64-70`, `:86-98`).
 
 Rung 2a (`parallel/ep.py`): `ind["ep_group"]` is set, the row columns are
 a shard's chunk with global edge ids, the gathers are plain for the same
@@ -58,13 +58,19 @@ _INV_SQRT2 = 2.0**-0.5
 _INV_SQRT3 = 3.0**-0.5
 
 
+def _gather(x, ind, column):
+    """x[ind[column]], sorted where the batch carries the column's sort
+    metadata (`ind["sorts"]`), plain where it does not."""
+    return gather(x, ind[column], ind["sorts"].get(column))
+
+
 class QuadrupletInteraction(nn.Module):
     """Quadruplet-based message passing (reference interaction_block.py:425-566)."""
 
     def __init__(self, emb_size_edge, emb_size_quad, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, emb_size_sbf, activation=None, scale_prefix="QuadInteraction_1",
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact", implementation: str = "auto"):
+                 precision: str = "exact"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.dense_db = Dense(emb_size_edge, emb_size_edge, activation, **kw)
@@ -72,10 +78,8 @@ class QuadrupletInteraction(nn.Module):
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
         self.mlp_cbf = Dense(emb_size_cbf, emb_size_quad, **kw)
         self.scale_cbf = ScalingFactor(scale_prefix + "_had_cbf")
-        self.implementation = implementation
         self.mlp_sbf = EfficientInteractionBilinear(
-            emb_size_quad, emb_size_sbf, emb_size_bilinear, precision=precision,
-            implementation=implementation, **kw)
+            emb_size_quad, emb_size_sbf, emb_size_bilinear, precision=precision, **kw)
         self.scale_sbf_sum = ScalingFactor(scale_prefix + "_sum_sbf")
         self.down_projection = Dense(emb_size_edge, emb_size_quad, activation, **kw)
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
@@ -89,15 +93,13 @@ class QuadrupletInteraction(nn.Module):
 
         # circular basis hadamard on the intermediate d->b space (halo: the
         # intm_db rows live with their d->b edge, so the gather is local)
-        x_db = gather(x_db, ind["id4_expand_intm_db"], ind.get("intm_db_sort"),
-                      self.implementation)
+        x_db = _gather(x_db, ind, "id4_expand_intm_db")
         return self.scale_cbf(x_db * self.mlp_cbf(cbf), x_db, masks["intm_db"], masks["intm_db"])
 
     def finish(self, x_db, sbf, ind, masks):
         """From the (halo-extended) intermediate-db activations on."""
         # spherical basis bilinear over quadruplets -> edges
-        x_db = gather(x_db, ind["id4_expand_abd"], ind.get("quad_abd_sort"),
-                      self.implementation)
+        x_db = _gather(x_db, ind, "id4_expand_abd")
         rbf_W1, sph_rows = sbf
         x = self.mlp_sbf(rbf_W1, sph_rows, x_db, ind["id4_reduce_ca"],
                          ind["id4_reduce_ca_plan"], mask=masks["quad"])
@@ -118,16 +120,14 @@ class TripletInteraction(nn.Module):
     def __init__(self, emb_size_edge, emb_size_trip, emb_size_bilinear, emb_size_rbf,
                  emb_size_cbf, activation=None, scale_prefix="TripInteraction_1",
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact", implementation: str = "auto"):
+                 precision: str = "exact"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.dense_ba = Dense(emb_size_edge, emb_size_edge, activation, **kw)
         self.mlp_rbf = Dense(emb_size_rbf, emb_size_edge, **kw)
         self.scale_rbf = ScalingFactor(scale_prefix + "_had_rbf")
-        self.implementation = implementation
         self.mlp_cbf = EfficientInteractionBilinear(
-            emb_size_trip, emb_size_cbf, emb_size_bilinear, precision=precision,
-            implementation=implementation, **kw)
+            emb_size_trip, emb_size_cbf, emb_size_bilinear, precision=precision, **kw)
         self.scale_cbf_sum = ScalingFactor(scale_prefix + "_sum_cbf")
         self.down_projection = Dense(emb_size_edge, emb_size_trip, activation, **kw)
         self.up_projection_ca = Dense(emb_size_bilinear, emb_size_edge, activation, **kw)
@@ -141,7 +141,7 @@ class TripletInteraction(nn.Module):
 
     def finish(self, x_ba, cbf3, ind, masks):
         """From the (halo-extended) edge activations on."""
-        x_ba = gather(x_ba, ind["id3_expand_ba"], ind.get("trip_ba_sort"), self.implementation)
+        x_ba = _gather(x_ba, ind, "id3_expand_ba")
         rbf_W1, sph_rows = cbf3
         x = self.mlp_cbf(rbf_W1, sph_rows, x_ba, ind["id3_reduce_ca"],
                          ind["id3_reduce_ca_plan"], mask=masks["trip"])
@@ -165,7 +165,7 @@ class InteractionBlock(nn.Module):
                  emb_size_bil_quad, num_before_skip, num_after_skip, num_concat, num_atom,
                  triplets_only: bool, block_nr: int = 1, activation: Optional[str] = None,
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact", implementation: str = "auto"):
+                 precision: str = "exact"):
         super().__init__()
         kw = dict(generator=generator, dtype=dtype)
         self.triplets_only = triplets_only
@@ -174,11 +174,10 @@ class InteractionBlock(nn.Module):
             self.quad_interaction = QuadrupletInteraction(
                 emb_size_edge, emb_size_quad, emb_size_bil_quad, emb_size_rbf, emb_size_cbf,
                 emb_size_sbf, activation, f"QuadInteraction_{block_nr}", precision=precision,
-                implementation=implementation, **kw)
+                **kw)
         self.trip_interaction = TripletInteraction(
             emb_size_edge, emb_size_trip, emb_size_bil_trip, emb_size_rbf, emb_size_cbf,
-            activation, f"TripInteraction_{block_nr}", precision=precision,
-            implementation=implementation, **kw)
+            activation, f"TripInteraction_{block_nr}", precision=precision, **kw)
         self.layers_before_skip = nn.ModuleList(
             [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_before_skip)])
         self.layers_after_skip = nn.ModuleList(
@@ -187,8 +186,7 @@ class InteractionBlock(nn.Module):
             emb_size_atom, emb_size_edge, emb_size_rbf, num_atom, activation,
             f"AtomUpdate_{block_nr}_sum", **kw)
         self.concat_layer = EdgeEmbedding(
-            2 * emb_size_atom + emb_size_edge, emb_size_edge, activation,
-            implementation=implementation, **kw)
+            2 * emb_size_atom + emb_size_edge, emb_size_edge, activation, **kw)
         self.residual_m = nn.ModuleList(
             [ResidualLayer(emb_size_edge, activation, **kw) for _ in range(num_concat)])
 
@@ -226,7 +224,9 @@ class InteractionBlock(nn.Module):
                               psum_group=group)
         h = scale(h + h2, _INV_SQRT2)
 
-        m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"], ind["edge_sorts"])
+        sorts = ind["sorts"]
+        m2 = self.concat_layer(h, m, ind["id_c"], ind["id_a"],
+                               (sorts.get("id_c"), sorts.get("id_a")))
         for layer in self.residual_m:
             m2 = layer(m2)
         m = scale(m + m2, _INV_SQRT2)

@@ -109,20 +109,16 @@ class AtomEmbedding(nn.Module):
 class EdgeEmbedding(nn.Module):
     """Dense over [h[id_first] ‖ h[id_second] ‖ m] (reference embedding_block.py:37-75);
     also the interaction block's concat layer. `sorts`: the sort metadata of
-    the two gathers (`ops.expand_gather.gather`), None for plain gathers;
-    `implementation` chooses their VJP's kernel or plain version."""
+    the two gathers (`ops.expand_gather.gather`), None for plain gathers."""
 
     def __init__(self, in_features: int, out_features: int, activation: Optional[str] = None,
-                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 implementation: str = "auto"):
+                 *, generator: torch.Generator, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dense = Dense(in_features, out_features, activation, generator=generator,
                            dtype=dtype)
-        self.implementation = implementation
 
     def forward(self, h, m_rbf, id_first, id_second, sorts=(None, None)):
-        first, second = (gather(h, idx, sort, self.implementation)
-                         for idx, sort in zip((id_first, id_second), sorts))
+        first, second = (gather(h, idx, sort) for idx, sort in zip((id_first, id_second), sorts))
         return self.dense(torch.cat([first, second, m_rbf], dim=-1))
 
 
@@ -189,24 +185,21 @@ class EfficientInteractionDownProjection(nn.Module):
 class EfficientInteractionBilinear(nn.Module):
     """Bilinear contraction + neighbour sum, weight (emb, I, out)
     (reference efficient.py:120-189), on the segment-outer-sum kernel;
-    `precision` ("exact" or "split3") is the kernels' mode and
-    `implementation` ("auto", "pallas", "xla") chooses the kernels or their
-    plain versions."""
+    `precision` ("exact" or "split3") is the kernels' mode."""
 
     def __init__(self, emb_size: int, emb_size_interm: int, units_out: int,
                  *, generator: torch.Generator, dtype: Optional[torch.dtype] = None,
-                 precision: str = "exact", implementation: str = "auto"):
+                 precision: str = "exact"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(emb_size, emb_size_interm, units_out))
         he_orthogonal_(self.weight, generator)
         self.dtype = dtype
         self.precision = precision
-        self.implementation = implementation
 
     def forward(self, rbf_W1, sph_rows, m, id_reduce, plan, mask=None):
         return bil_ops.bilinear(rbf_W1, sph_rows, m, id_reduce, plan,
                                 _cast(self.weight, self.dtype), mask=mask,
-                                precision=self.precision, implementation=self.implementation)
+                                precision=self.precision)
 
 
 def _atom_mlp(emb_size_edge, emb_size_atom, n_hidden, activation, generator, dtype):

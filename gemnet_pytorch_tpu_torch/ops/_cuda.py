@@ -78,27 +78,14 @@ LAUNCHES: collections.Counter = collections.Counter()
 CENSUSES: list[list] = []
 
 
-IMPLEMENTATIONS = ("auto", "pallas", "xla")
-
-
-def use_kernel(implementation: str, device: torch.device) -> bool:
-    """Whether a wrapper launches its hand-written kernel on `device`
-    (ModelConfig.bilinear_implementation, JAX `segment_outer.py::_use_pallas`):
-    the kernel on a CUDA tensor, the plain version on a CPU tensor. "auto"
-    takes either; "pallas" (the kernels) raises on a CPU tensor and "xla"
-    (the plain versions) on a CUDA tensor: no plain version runs on the card."""
-    if implementation not in IMPLEMENTATIONS:
-        raise ValueError(f"implementation {implementation!r}: one of {IMPLEMENTATIONS}")
+def use_kernel(device: torch.device) -> bool:
+    """Whether a wrapper launches its hand-written kernel on `device`: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor (no plain
+    version runs on the card); any other device raises."""
     if device.type == "cuda":
-        if implementation == "xla":
-            raise ValueError("implementation 'xla' runs the plain versions, which run on the "
-                             "CPU only: on the card use 'auto' or 'pallas'")
         return True
     if device.type != "cpu":
         raise ValueError(f"no kernel or plain version for device {device}")
-    if implementation == "pallas":
-        raise ValueError(f"implementation 'pallas' runs the hand-written kernels, and none "
-                         f"runs on {device}")
     return False
 
 

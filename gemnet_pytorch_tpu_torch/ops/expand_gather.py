@@ -17,7 +17,8 @@ and width. The segment sum's own VJP is `expand_gather` again, so the pair
 differentiates to any order.
 
 `gather(table, idx, sort)` is the model's gather of rows: the expand gather
-where the batch carries the sort metadata, a plain gather (whose VJP is
+where the batch carries the sort metadata of `idx` (`data.batch.gather_sorts`
+reads it from the table `SORTED_GATHERS`), a plain gather (whose VJP is
 `index_put_`'s serial runs over equal indices) where it does not, as on a
 halo or ep shard. `swap_rows(x, id_swap)` is the gather by an involution,
 whose VJP is the same gather, on every path. Each call counts its route in
@@ -65,18 +66,17 @@ def _segsum_cuda(x, perm, plan):
     return out
 
 
-def sorted_segsum_values(x, perm, sorted_ids, plan, implementation="auto"):
+def sorted_segsum_values(x, perm, sorted_ids, plan):
     """K3 without autograd: sum of the rows of x grouped by idx, through the
-    sorted order (perm None: x's own order), in x's dtype. The kernel or the plain version as
-    `_cuda.use_kernel(implementation, device)` says: by default the kernel
-    on a CUDA tensor, the plain version on CPU."""
+    sorted order (perm None: x's own order), in x's dtype. The kernel on a
+    CUDA tensor, the plain version on the CPU (`_cuda.use_kernel`); the
+    census counts the card's launch on either."""
     if x.dtype not in _cuda.DTYPE_SUFFIX:
         raise TypeError(f"x is {x.dtype}: only float32 and bfloat16 are supported")
     suffix = _cuda.DTYPE_SUFFIX[x.dtype]
-    kernel = _cuda.use_kernel(implementation, x.device)
-    if implementation != "xla":  # the census counts the card's launch
-        _cuda.note_kernel("K3", "backward", suffix, f"gemnet_sorted_segsum_{suffix}",
-                          (x.shape[0], x.shape[1], plan.n_segments))
+    kernel = _cuda.use_kernel(x.device)
+    _cuda.note_kernel("K3", "backward", suffix, f"gemnet_sorted_segsum_{suffix}",
+                      (x.shape[0], x.shape[1], plan.n_segments))
     if kernel:
         return _segsum_cuda(x, perm, plan)
     xp = x if perm is None else x[perm.long()]
@@ -87,21 +87,19 @@ class ExpandGather(torch.autograd.Function):
     """table[idx]; backward: the sorted segment sum (expand_gather.py:199-215)."""
 
     @staticmethod
-    def forward(ctx, table, idx, perm, sorted_ids, plan, implementation):
+    def forward(ctx, table, idx, perm, sorted_ids, plan):
         if plan.n_segments != table.shape[0]:
             raise ValueError(
                 f"sort metadata covers {plan.n_segments} rows, table has {table.shape[0]}")
         ctx.save_for_backward(idx, perm, sorted_ids)
-        ctx.modes = plan, implementation
+        ctx.plan = plan
         return table[idx]
 
     @staticmethod
     def backward(ctx, cot):
         idx, perm, sorted_ids = ctx.saved_tensors
-        plan, implementation = ctx.modes
-        d_table = SortedSegsum.apply(cot.contiguous(), perm, sorted_ids, plan, idx,
-                                     implementation)
-        return d_table.to(cot.dtype), None, None, None, None, None
+        d_table = SortedSegsum.apply(cot.contiguous(), perm, sorted_ids, ctx.plan, idx)
+        return d_table.to(cot.dtype), None, None, None, None
 
 
 class SortedSegsum(torch.autograd.Function):
@@ -109,43 +107,43 @@ class SortedSegsum(torch.autograd.Function):
     ExpandGather again (expand_gather.py:255-271)."""
 
     @staticmethod
-    def forward(ctx, x, perm, sorted_ids, plan, idx, implementation):
+    def forward(ctx, x, perm, sorted_ids, plan, idx):
         ctx.save_for_backward(idx, perm, sorted_ids)
-        ctx.modes = plan, implementation
+        ctx.plan = plan
         # the cotangent of x must carry x's dtype (the JAX package keeps a
         # zero-size sentinel residual for this)
         ctx.x_dtype = x.dtype
-        return sorted_segsum_values(x, perm, sorted_ids, plan, implementation)
+        return sorted_segsum_values(x, perm, sorted_ids, plan)
 
     @staticmethod
     def backward(ctx, g):
         idx, perm, sorted_ids = ctx.saved_tensors
-        dx = ExpandGather.apply(g.to(ctx.x_dtype), idx, perm, sorted_ids, *ctx.modes)
-        return dx, None, None, None, None, None
+        dx = ExpandGather.apply(g.to(ctx.x_dtype), idx, perm, sorted_ids, ctx.plan)
+        return dx, None, None, None, None
 
 
-def expand_gather(table, idx, perm, sorted_ids, plan, implementation="auto"):
+def expand_gather(table, idx, perm, sorted_ids, plan):
     """table[idx] with a sorted-segment-sum VJP. idx int64; perm int32 (or
     None: idx ascending) and sorted_ids with sorted_ids == idx[perm]
     ascending (int32; idx itself where perm is None); plan their
-    SegmentPlan over table's rows; implementation "auto", "pallas" or "xla"
-    chooses the VJP's kernel or plain version (`_cuda.use_kernel`)."""
-    return ExpandGather.apply(table, idx, perm, sorted_ids, plan, implementation)
+    SegmentPlan over table's rows."""
+    return ExpandGather.apply(table, idx, perm, sorted_ids, plan)
 
 
-def sorted_segsum(x, perm, sorted_ids, plan, idx, implementation="auto"):
+def sorted_segsum(x, perm, sorted_ids, plan, idx):
     """(n_src, M) sums of the rows of x grouped by idx."""
-    return SortedSegsum.apply(x, perm, sorted_ids, plan, idx, implementation)
+    return SortedSegsum.apply(x, perm, sorted_ids, plan, idx)
 
 
-def gather(table, idx, sort=None, implementation="auto"):
+def gather(table, idx, sort=None):
     """table[idx]: the sorted expand gather, whose VJP is K3, where `sort`
-    (perm, sorted ids, plan) is given; a plain gather where it is None."""
+    (perm, sorted ids, plan: `data.batch.gather_sorts`) is given; a plain
+    gather where it is None."""
     if sort is None:
         spans.count("gather.plain")
         return table[idx]
     spans.count("gather.sorted")
-    return expand_gather(table, idx, *sort, implementation=implementation)
+    return expand_gather(table, idx, *sort)
 
 
 class SwapRows(torch.autograd.Function):

@@ -10,10 +10,8 @@ by sorted segment ids (triplets/quadruplets sorted by their reduce edge):
 The output layout is the JAX package's (S, nSegments, M). On a CUDA tensor
 each op launches its hand-written kernel (`csrc/segment_outer.cu`); on a CPU
 tensor it runs the plain PyTorch version below, a line-for-line counterpart
-of `_outer_sum_xla` / `_gather_contract_xla`. `implementation` (the JAX
-package's `bilinear_implementation`) holds that choice to one side: "xla"
-the plain versions, raising on a CUDA tensor, "pallas" the kernels, raising
-on a CPU tensor (`_cuda.use_kernel`); it rides on `ctx` into every backward. The K1 kernels read the
+of `_outer_sum_xla` / `_gather_contract_xla` (`_cuda.use_kernel`: the
+tensor's device alone makes the choice). The K1 kernels read the
 plan's work items and merge a split segment's partial tiles through its
 merge tree (`tree_nodes`, `tree_parent`, `tree_arrivals`), K1's general
 kernel at narrow widths through `merge_ptr` / `merge_seg`; the K2 kernel
@@ -208,39 +206,34 @@ def _note(op, a, b, plan, split3, sdt):
                       (a.shape[0], a.shape[1], b.shape[1], plan.n_segments))
 
 
-def outer_sum(a, b, seg_ids, plan, precision="exact", implementation="auto"):
-    """K1 without autograd: the kernel or the plain version, as
-    `_cuda.use_kernel(implementation, device)` says (by default the kernel
-    on a CUDA tensor, the plain version on a CPU tensor). Returns
-    (S, nSegments, M) in the streams' dtype."""
+def outer_sum(a, b, seg_ids, plan, precision="exact"):
+    """K1 without autograd: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor (`_cuda.use_kernel`); the census counts the card's
+    launch on either. Returns (S, nSegments, M) in the streams' dtype."""
     sdt = _stream_dtype(a, b)
     split3 = _use_split3(precision, sdt)
-    if _cuda.use_kernel(implementation, a.device):
-        _note("outer_sum", a, b, plan, split3, sdt)
+    _note("outer_sum", a, b, plan, split3, sdt)
+    if _cuda.use_kernel(a.device):
         # mixed dtypes: the fp32 streams are staged explicitly, as the JAX
         # wrapper's astype does
         return _outer_sum_cuda(a.to(sdt), b.to(sdt), plan, split3)
-    if implementation == "auto":  # a CPU tensor: the census counts the card's launch
-        _note("outer_sum", a, b, plan, split3, sdt)
     if split3:
         return _outer_sum_split3_plain(a, b, seg_ids, plan.n_segments)
     return _outer_sum_plain(a, b, seg_ids, plan.n_segments)
 
 
-def gather_contract(cot, a, b, seg_ids, plan, precision="exact", implementation="auto"):
+def gather_contract(cot, a, b, seg_ids, plan, precision="exact"):
     """K2 without autograd: the kernel or the plain version, as `outer_sum`
     chooses. Returns (da, db) in the dtypes of (a, b)."""
     sdt = _stream_dtype(a, b)  # a and b alone pick the streams
     _stream_dtype(cot)  # raises on a cotangent neither fp32 nor bf16
     split3 = _use_split3(precision, sdt)
-    if _cuda.use_kernel(implementation, a.device):
-        _note("gather_contract", a, b, plan, split3, sdt)
+    _note("gather_contract", a, b, plan, split3, sdt)
+    if _cuda.use_kernel(a.device):
         # bf16 streams read the cotangent as bf16 (segment_outer.py:586-590);
         # fp32 streams stage every operand as fp32
         da, db = _gather_contract_cuda(cot.to(sdt), a.to(sdt), b.to(sdt), seg_ids, plan, split3)
         return da.to(a.dtype), db.to(b.dtype)
-    if implementation == "auto":
-        _note("gather_contract", a, b, plan, split3, sdt)
     if split3:
         return _gather_contract_split3_plain(cot, a, b, seg_ids)
     return _gather_contract_plain(cot, a, b, seg_ids)
@@ -250,26 +243,26 @@ class SegmentOuterSum(torch.autograd.Function):
     """K1; its backward is K2 (segment_outer.py:649-661)."""
 
     @staticmethod
-    def forward(ctx, a, b, seg_ids, plan, precision, implementation):
+    def forward(ctx, a, b, seg_ids, plan, precision):
         ctx.save_for_backward(a, b, seg_ids)
-        ctx.modes = plan, precision, implementation
-        return outer_sum(a, b, seg_ids, plan, precision, implementation)
+        ctx.modes = plan, precision
+        return outer_sum(a, b, seg_ids, plan, precision)
 
     @staticmethod
     def backward(ctx, cot):
         a, b, seg_ids = ctx.saved_tensors
         da, db = SegmentGatherContract.apply(cot.contiguous(), a, b, seg_ids, *ctx.modes)
-        return da, db, None, None, None, None
+        return da, db, None, None, None
 
 
 class SegmentGatherContract(torch.autograd.Function):
     """K2; its backward is K1 twice and K2 once (segment_outer.py:677-696)."""
 
     @staticmethod
-    def forward(ctx, cot, a, b, seg_ids, plan, precision, implementation):
+    def forward(ctx, cot, a, b, seg_ids, plan, precision):
         ctx.save_for_backward(cot, a, b, seg_ids)
-        ctx.modes = plan, precision, implementation
-        return gather_contract(cot, a, b, seg_ids, plan, precision, implementation)
+        ctx.modes = plan, precision
+        return gather_contract(cot, a, b, seg_ids, plan, precision)
 
     @staticmethod
     def backward(ctx, ua, ub):
@@ -280,17 +273,16 @@ class SegmentGatherContract(torch.autograd.Function):
                 + SegmentOuterSum.apply(a, ub, seg_ids, *modes))
         da, db = SegmentGatherContract.apply(cot, ua, ub, seg_ids, *modes)
         # cotangents in the primal dtypes (segment_outer.py:627-628)
-        return dcot.to(cot.dtype), da.to(a.dtype), db.to(b.dtype), None, None, None, None
+        return dcot.to(cot.dtype), da.to(a.dtype), db.to(b.dtype), None, None, None
 
 
-def segment_outer_sum(a, b, seg_ids, plan, precision="exact", implementation="auto"):
+def segment_outer_sum(a, b, seg_ids, plan, precision="exact"):
     """out[s, e, m] = sum_{t: seg_ids[t]==e} a[t,s]*b[t,m]; seg_ids sorted,
-    plan their SegmentPlan, precision "exact" or "split3", implementation
-    "auto", "pallas" or "xla" (`_cuda.use_kernel`). Returns (S, nSegments,
-    M), bf16 for bf16 a and b, fp32 otherwise."""
-    return SegmentOuterSum.apply(a, b, seg_ids, plan, precision, implementation)
+    plan their SegmentPlan, precision "exact" or "split3". Returns (S,
+    nSegments, M), bf16 for bf16 a and b, fp32 otherwise."""
+    return SegmentOuterSum.apply(a, b, seg_ids, plan, precision)
 
 
-def segment_gather_contract(cot, a, b, seg_ids, plan, precision="exact", implementation="auto"):
+def segment_gather_contract(cot, a, b, seg_ids, plan, precision="exact"):
     """(da, db): da[t,s]=sum_m cot[s,seg,m]*b[t,m]; db[t,m]=sum_s cot[s,seg,m]*a[t,s]."""
-    return SegmentGatherContract.apply(cot, a, b, seg_ids, plan, precision, implementation)
+    return SegmentGatherContract.apply(cot, a, b, seg_ids, plan, precision)

@@ -65,8 +65,8 @@ import dataclasses
 
 import numpy as np
 
-from ..data.batch import to_torch
-from ..data.padding import EDGE_BLOCK, ROW_BLOCK, _row_splits, strip_sort_metadata
+from ..data.batch import strip_sort_metadata, to_torch
+from ..data.padding import EDGE_BLOCK, ROW_BLOCK, _row_splits
 from . import mesh
 
 EP_AXIS = "ep"
@@ -151,7 +151,7 @@ def partition_batch(
         out.update(extras)
         out["quad_row_splits"] = splits
     # the sort metadata is a single-device layout contract
-    # (data/padding.py SORT_META_KEYS): sliced row spaces invalidate it
+    # (data/batch.py SORTED_GATHERS): sliced row spaces invalidate it
     strip_sort_metadata(out)
     return out
 

@@ -92,8 +92,7 @@ def _padded(synthetic_npz, triplets_only=False):
 
 def test_to_torch_dtypes_and_plans(synthetic_npz):
     from gemnet_pytorch_tpu_torch.data import SORT_META_KEYS, SegmentPlan, to_torch
-    from gemnet_pytorch_tpu_torch.data.batch import SEGMENT_PLANS
-    from gemnet_pytorch_tpu_torch.data.padding import EDGE_SORT_KEYS
+    from gemnet_pytorch_tpu_torch.data.batch import EDGE_SORT_KEYS, SEGMENT_PLANS
 
     batch = _padded(synthetic_npz)
     assert batch["Z"].dtype == np.int16 and batch["id3_reduce_ca"].dtype == np.int16
@@ -300,9 +299,11 @@ def test_model_config_fields_equal_jax():
     from gemnet_pytorch_tpu.config import ModelConfig as JaxConfig
     from gemnet_pytorch_tpu_torch.config import ModelConfig
 
-    # the port's fields are JAX's and the periodic GemNet-dT ones (OCP's bases
-    # and neighbour cap), whose defaults keep JAX's model
+    # the port's fields are JAX's, but bilinear_implementation (the tensor's
+    # device picks the kernels here), and the periodic GemNet-dT ones (OCP's
+    # bases and neighbour cap), whose defaults keep JAX's model
     port, ref = dataclasses.asdict(ModelConfig()), dataclasses.asdict(JaxConfig())
+    ref.pop("bilinear_implementation")
     assert {k: v for k, v in port.items() if k in ref} == ref
     assert {k: v for k, v in port.items() if k not in ref} == dict(
         rbf="bessel", cbf="bessel", max_neighbors=None)

@@ -9,10 +9,14 @@ swap itself), against the plain gathers they replace, on the CPU:
   plain, and every site on the sorted route in a single-device step;
 - id_c[id_swap] == id_a and id_swap an involution on molecule and periodic
   batches, so one argsort serves both edge columns; a batch whose reverse
-  edges are not at id_swap, or whose id_swap is no involution, is refused.
+  edges are not at id_swap, or whose id_swap is no involution, is refused;
+- the table of sorted gathers (`data.batch.SORTED_GATHERS`): a single-device
+  GemNet-T or -Q batch gives every site of its columns with the batch's own
+  arrays, a halo or ep shard none, `strip_sort_metadata` drops exactly the
+  table's sort keys, and the key lists derived from it keep their order.
 
-The halo and ep shards (no edge sort metadata, plain gathers) are checked
-in tests/test_torch_halo.py and tests/test_torch_ep.py."""
+The halo and ep models on their shards (plain gathers) are checked in
+tests/test_torch_halo.py and tests/test_torch_ep.py."""
 
 import json
 import os
@@ -53,16 +57,16 @@ def _periodic_batch():
 @pytest.mark.parametrize("triplets_only", [True, False], ids=["T", "Q"])
 def test_triplet_angles_equal_the_atom_gathers(triplets_only):
     from gemnet_pytorch_tpu_torch.data import to_torch
-    from gemnet_pytorch_tpu_torch.models.gemnet import _edge_sorts
+    from gemnet_pytorch_tpu_torch.data.batch import gather_sorts
     from gemnet_pytorch_tpu_torch.ops import geometry
 
     b = to_torch(_batch(triplets_only), "cpu")
     R, id_c, id_a = b["R"], b["id_c"], b["id_a"]
     ca, ba = b["id3_reduce_ca"], b["id3_expand_ba"]
+    sorts = gather_sorts(b)
     got = geometry.triplet_angles(
-        geometry.edge_vectors(R, id_c, id_a, _edge_sorts(b)), ca, ba,
-        (None, ca, b["id3_reduce_ca_plan"]),
-        (b["trip_ba_perm"], b["trip_ba_sorted"], b["trip_ba_plan"]))
+        geometry.edge_vectors(R, id_c, id_a, (sorts["id_c"], sorts["id_a"])), ca, ba,
+        sorts["id3_reduce_ca"], sorts["id3_expand_ba"])
     Ra = R[id_a[ca]]
     ref = geometry.neighbor_angles(R[id_c[ca]] - Ra, R[id_c[ba]] - Ra)
     real = b["trip_mask"]
@@ -95,7 +99,7 @@ def test_sorted_gathers_match_plain_gathers(triplets_only, monkeypatch):
                        + per_block * cfg.num_blocks,
                        "gather.plain": 0 if triplets_only else 2}
 
-    def plain(x, idx, sort=None, implementation="auto"):
+    def plain(x, idx, sort=None):
         return x[idx]
 
     for module in (geometry, layers, interaction):
@@ -141,3 +145,62 @@ def test_edge_sort_refusals():
     cycle = dict(moved, id_swap=np.roll(moved["id_swap"], 1))
     with pytest.raises(ValueError, match="involution"):
         edge_sort_metadata(cycle)
+
+
+@pytest.mark.parametrize("triplets_only", [True, False], ids=["T", "Q"])
+def test_single_device_batch_gives_every_site(triplets_only):
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.data.batch import SORTED_GATHERS, gather_sorts
+
+    b = to_torch(_batch(triplets_only), "cpu")
+    sorts = gather_sorts(b)
+    columns = ["id3_reduce_ca", "id3_expand_ba", "id_a", "id_c"] + (
+        [] if triplets_only else ["id4_expand_intm_db", "id4_expand_abd", "id4_reduce_cab"])
+    assert sorted(sorts) == sorted(columns)
+    for column, (perm, ids, plan) in sorts.items():
+        keys = SORTED_GATHERS[column]
+        assert perm is (None if keys[0] is None else b[keys[0]]), column
+        assert ids is b[keys[1]] and plan is b[keys[2]], column
+        # the sorted ids are the column in the perm's order
+        order = torch.arange(len(ids)) if perm is None else perm.long()
+        np.testing.assert_array_equal(b[column][order].numpy(), ids.numpy(), err_msg=column)
+    assert sorts["id3_reduce_ca"][0] is None
+
+
+@pytest.mark.parametrize("kind", ["halo", "ep"])
+def test_shards_give_no_sites(kind):
+    from gemnet_pytorch_tpu_torch.data import build_graph, to_torch
+    from gemnet_pytorch_tpu_torch.data.batch import gather_sorts, sort_keys
+    from gemnet_pytorch_tpu_torch.data.synthetic import random_molecule
+    from gemnet_pytorch_tpu_torch.parallel import ep, halo
+
+    if kind == "halo":
+        Z, R = random_molecule(np.random.default_rng(0), 8)
+        g = build_graph(R, np.array([8]), 5.0, 10.0, triplets_only=False)
+        part = halo.build_halo_partition(g, Z, R, 2, n_mol_pad=1, n_atoms_pad=16)
+        shard = to_torch(halo.local_halo_batch(part, 1), "cpu")
+    else:
+        shard = to_torch(ep.local_ep_batch(ep.partition_batch(_batch(False), 2), 1), "cpu")
+    assert "id3_expand_ba" in shard and "id4_expand_abd" in shard
+    assert gather_sorts(shard) == {}
+    # the only table keys left: the ascending reduce column and its plan
+    assert set(sort_keys(shard)) & set(shard) == {"id3_reduce_ca", "id3_reduce_ca_plan"}
+
+
+def test_strip_removes_exactly_the_table_keys():
+    from gemnet_pytorch_tpu_torch.data import to_torch
+    from gemnet_pytorch_tpu_torch.data.batch import (
+        EDGE_SORT_KEYS, INT32_KEYS, SORT_META_KEYS, SORTED_GATHERS, strip_sort_metadata)
+
+    assert SORT_META_KEYS == ("trip_ba_perm", "trip_ba_sorted", "intm_db_perm",
+                              "intm_db_sorted", "quad_abd_perm", "quad_abd_sorted",
+                              "quad_cab_perm", "quad_cab_sorted")
+    assert EDGE_SORT_KEYS == ("edge_a_perm", "edge_c_perm", "edge_sorted")
+    assert INT32_KEYS == frozenset(SORT_META_KEYS + EDGE_SORT_KEYS)
+    b = to_torch(_batch(False), "cpu")
+    sorted_keys = {k for perm, ids, plan in SORTED_GATHERS.values() if perm is not None
+                   for k in (perm, ids, plan)}
+    assert sorted_keys <= set(b)
+    stripped = strip_sort_metadata(dict(b))
+    assert set(b) - set(stripped) == sorted_keys
+    assert set(SORT_META_KEYS + EDGE_SORT_KEYS) < sorted_keys

@@ -92,7 +92,8 @@ def test_partition_matches_jax(n_shards, triplets_only, chunks):
     ROW_BLOCK past what the rows need, and fixed chunks below it (they
     grow); no sort metadata survives, and every shard's reduce ids ascend."""
     from gemnet_pytorch_tpu.parallel import ep as jep
-    from gemnet_pytorch_tpu_torch.data.padding import ROW_BLOCK, SORT_META_KEYS
+    from gemnet_pytorch_tpu_torch.data.batch import SORT_META_KEYS
+    from gemnet_pytorch_tpu_torch.data.padding import ROW_BLOCK
     from gemnet_pytorch_tpu_torch.parallel import ep
 
     batch = _padded(triplets_only, seed=n_shards)

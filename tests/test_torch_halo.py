@@ -153,7 +153,7 @@ def swap_sites(variant):
 
 def edge_sort_keys(batch):
     """The edges' sort metadata and plan a device batch carries."""
-    from gemnet_pytorch_tpu_torch.data.padding import EDGE_SORT_KEYS
+    from gemnet_pytorch_tpu_torch.data.batch import EDGE_SORT_KEYS
 
     return sorted(set(batch) & {*EDGE_SORT_KEYS, "edge_plan"})
 

@@ -67,9 +67,8 @@ def test_key_order_matches_the_jax_packer(synthetic_npz):
     after them; every key aligned as the caching allocator aligns a tensor."""
     from gemnet_pytorch_tpu.training.trainer import BatchPacker as JaxPacker
     from gemnet_pytorch_tpu.training.trainer import UNUSED_DEVICE_KEYS as JAX_UNUSED
-    from gemnet_pytorch_tpu_torch.data.batch import PLAN_ARRAYS, SEGMENT_PLANS
+    from gemnet_pytorch_tpu_torch.data.batch import EDGE_SORT_KEYS, PLAN_ARRAYS, SEGMENT_PLANS
     from gemnet_pytorch_tpu_torch.data.packer import ALIGN, UNUSED_DEVICE_KEYS, BatchPacker
-    from gemnet_pytorch_tpu_torch.data.padding import EDGE_SORT_KEYS
 
     assert UNUSED_DEVICE_KEYS == JAX_UNUSED
     batch = _batch(synthetic_npz)

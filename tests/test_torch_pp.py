@@ -70,7 +70,7 @@ def jax_cfg(variant: str, num_blocks: int = 2):
 def port_cfg(jcfg):
     from gemnet_pytorch_tpu_torch.config import ModelConfig
 
-    return ModelConfig(**dataclasses.asdict(jcfg))
+    return ModelConfig.from_dict(dataclasses.asdict(jcfg))
 
 
 def molecules(seed: int):

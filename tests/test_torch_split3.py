@@ -238,7 +238,7 @@ def test_precision_reaches_every_backward(synthetic_npz, monkeypatch):
         fn = getattr(so, name)
 
         def counted(*args, _fn=fn, _name=name):
-            calls.append((_name, args[-2]))  # (..., precision, implementation)
+            calls.append((_name, args[-1]))  # (..., precision)
             return _fn(*args)
 
         monkeypatch.setattr(so, name, counted)

@@ -65,7 +65,7 @@ def jax_cfg(variant: str):
 def port_cfg(jcfg):
     from gemnet_pytorch_tpu_torch.config import ModelConfig
 
-    return ModelConfig(**dataclasses.asdict(jcfg))
+    return ModelConfig.from_dict(dataclasses.asdict(jcfg))
 
 
 def batch_of(jcfg):
